@@ -1,0 +1,158 @@
+"""EchoScene module: graph encoder + manipulator GCNs feeding the layout and
+shape diffusion branches.
+
+Port of the sampling methods of echoscene_tpu/models/echo_scene.py
+(reference model/EchoScene.py:14-543): `encode_context` (node streams of
+[CLIP text feature, class embedding], the 5-layer encoder GCN, zero latents
+for nodes absent from the encoder view, the change code, the manipulator
+GCN, and rel_s_mlp's shape-branch conditioning), `layout_eps`, `shape_eps`
+and `decode_latent`.  Training methods come with the training slice.
+
+Submodule names give the port's state_dict keys; convert/from_jax.py maps
+them to and from the reference checkpoint layout (LayoutDiff.df.model.*,
+shape_df / vqvae sub-dicts).
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+from torch import nn
+
+from ..core.graphbatch import GraphBatch, SceneBatch
+from ..nn.gcn import GraphTripleConvNet
+from ..nn.mlp import MLP
+from ..nn.unet1d import LayoutDenoiser
+from ..nn.unet3d import ShapeDenoiser
+from ..nn.vqvae import VQVAE
+from .config import EchoSceneConfig
+
+
+def rel_s_dims(cfg: EchoSceneConfig):
+    """rel_s_mlp widths (EchoScene.py:97-100)."""
+    out = cfg.embedding_dim * 2 + (512 if cfg.with_clip else 0)
+    if cfg.shape_branch.denoiser.conditioning_key == "concat":
+        return [out, 1280, 4096]
+    return [out, 960, 1280]
+
+
+class EchoSceneModule(nn.Module):
+    def __init__(self, cfg: EchoSceneConfig, num_objs: int, num_preds: int):
+        super().__init__()
+        self.cfg = cfg
+        gdim = cfg.embedding_dim
+        add_dim = 512 if cfg.with_clip else 0
+        enc_out = gdim * 2 + add_dim
+        self.obj_embeddings_ec = nn.Embedding(num_objs + 1, gdim * 2)
+        self.pred_embeddings_ec = nn.Embedding(num_preds, gdim * 2)
+        common = dict(hidden_dim=gdim * 4, pooling=cfg.gconv_pooling,
+                      mlp_normalization=cfg.mlp_normalization,
+                      residual=cfg.residual, output_dim=enc_out)
+        self.gconv_net_ec = GraphTripleConvNet(
+            gdim * 2 + add_dim, gdim * 2 + add_dim,
+            num_layers=cfg.gconv_num_layers, **common)
+        self.gconv_net_manipulation = GraphTripleConvNet(
+            enc_out + gdim + gdim * 2 + add_dim, gdim * 2 + add_dim,
+            num_layers=min(cfg.gconv_num_layers, 5), **common)
+
+        if cfg.network_type == "echoscene":
+            dims = rel_s_dims(cfg)
+            self.rel_s_mlp = MLP(dims, batch_norm=cfg.mlp_normalization,
+                                 final_nonlinearity=False)
+            sd = cfg.shape_branch.denoiser
+            self.shape_denoiser = ShapeDenoiser(
+                image_size=sd.image_size, in_channels=sd.in_channels,
+                model_channels=sd.model_channels,
+                out_channels=sd.out_channels,
+                num_res_blocks=sd.num_res_blocks,
+                attention_resolutions=tuple(sd.attention_resolutions),
+                channel_mult=tuple(sd.channel_mult), num_heads=sd.num_heads,
+                transformer_depth=sd.transformer_depth,
+                context_dim=sd.context_dim,
+                conditioning_key=sd.conditioning_key,
+                message_passing=sd.message_passing,
+                enable_t_emb=sd.enable_t_emb,
+                gconv_num_layers=sd.gconv_num_layers, num_preds=16,
+                obj_dim=dims[-1])
+            vq = cfg.shape_branch.vqvae
+            self.vqvae = VQVAE(
+                n_embed=vq.n_embed, embed_dim=vq.embed_dim, ch=vq.ch,
+                ch_mult=tuple(vq.ch_mult), num_res_blocks=vq.num_res_blocks,
+                attn_resolutions=tuple(vq.attn_resolutions),
+                in_channels=vq.in_channels, out_ch=vq.out_ch,
+                z_channels=vq.z_channels, resolution=vq.resolution)
+
+        ld = cfg.layout_denoiser
+        self.layout_denoiser = LayoutDenoiser(
+            in_channels=ld.in_channels, model_channels=ld.model_channels,
+            out_channels=ld.out_channels, num_res_blocks=ld.num_res_blocks,
+            attention_resolutions=tuple(ld.attention_resolutions),
+            channel_mult=tuple(ld.channel_mult), num_heads=ld.num_heads,
+            transformer_depth=ld.transformer_depth,
+            conditioning_key=ld.conditioning_key, concat_dim=ld.concat_dim,
+            crossattn_dim=ld.crossattn_dim, enable_t_emb=ld.enable_t_emb,
+            gconv_num_layers=ld.gconv_num_layers, num_preds=16,
+            obj_dim=enc_out)
+
+    def _embed_graph(self, view: GraphBatch):
+        """[CLIP feature, class / predicate embedding] (init_encoder
+        :149-153)."""
+        obj_embed = self.obj_embeddings_ec(view.objs)
+        pred_embed = self.pred_embeddings_ec(view.preds())
+        if self.cfg.with_clip:
+            obj_embed = torch.cat([view.text_feats.to(obj_embed.dtype),
+                                   obj_embed], dim=1)
+            pred_embed = torch.cat([view.rel_feats.to(pred_embed.dtype),
+                                    pred_embed], dim=1)
+        return obj_embed, pred_embed
+
+    def encode_context(self, batch: SceneBatch, change_noise: torch.Tensor,
+                       splice_untouched: Optional[bool] = None
+                       ) -> Dict[str, torch.Tensor]:
+        """Encoder + manipulator GCNs; change_noise (N, embedding_dim) is
+        masked by batch.change_flags (EchoScene.py:345-353)."""
+        cfg = self.cfg
+        enc, dec = batch.enc, batch.dec
+        enc_obj, enc_pred = self._embed_graph(enc)
+        latent_obj, _ = self.gconv_net_ec(enc_obj, enc_pred, enc.edges(),
+                                          enc.obj_mask, enc.triple_mask)
+        dtype = latent_obj.dtype
+        latent_obj = latent_obj * batch.enc_obj_mask[:, None].to(dtype)
+        change = (change_noise * batch.change_flags[:, None]).to(dtype)
+        dec_obj, dec_pred = self._embed_graph(dec)
+        man_in = torch.cat([latent_obj, change, dec_obj], dim=1)
+        latent_man, _ = self.gconv_net_manipulation(
+            man_in, dec_pred, dec.edges(), dec.obj_mask, dec.triple_mask)
+        if splice_untouched is None:
+            splice_untouched = not cfg.replace_latent
+        if splice_untouched:
+            touched = batch.change_flags[:, None].to(dtype)
+            latent = latent_obj * (1 - touched) + latent_man * touched
+        else:
+            latent = latent_man
+        out = {"latent": latent, "obj_embed": dec_obj}
+        if cfg.network_type == "echoscene":
+            out["uc_s"] = self.rel_s_mlp(dec_obj, dec.obj_mask)
+            out["c_s"] = self.rel_s_mlp(latent, dec.obj_mask)
+        return out
+
+    def layout_eps(self, box_t: torch.Tensor, t: torch.Tensor,
+                   obj_embed: torch.Tensor, triples: torch.Tensor,
+                   obj_mask: torch.Tensor,
+                   triple_mask: torch.Tensor) -> torch.Tensor:
+        """One layout denoiser evaluation; obj_embed is the unconditioned
+        stream (raw embedding + CLIP)."""
+        return self.layout_denoiser(box_t, obj_embed, triples, t,
+                                    obj_mask=obj_mask, triple_mask=triple_mask)
+
+    def shape_eps(self, z_t: torch.Tensor, t: torch.Tensor,
+                  obj_embed: torch.Tensor, triples: torch.Tensor,
+                  obj_mask: torch.Tensor,
+                  triple_mask: torch.Tensor) -> torch.Tensor:
+        """One shape denoiser evaluation over M object slots."""
+        return self.shape_denoiser(z_t, obj_embed, triples, t,
+                                   obj_mask=obj_mask, triple_mask=triple_mask)
+
+    def decode_latent(self, z: torch.Tensor) -> torch.Tensor:
+        """Quantize + decode to a 64^3 SDF grid (decode_no_quant)."""
+        return self.vqvae.decode_no_quant(z)

@@ -1,0 +1,42 @@
+"""Linear / convolution layers that compute in their weight's dtype.
+
+The JAX modules name a compute dtype per layer (flax `dtype=`), so an f32
+input to a bf16 layer is cast on entry.  These subclasses do the same: the
+inference twin casts its parameters to bf16 once, and inputs that arrive in
+f32 (diffusion state, CLIP features, timestep embeddings) are cast at the
+first layer that reads them.  Parameter names and shapes are torch's, so the
+reference state_dict layout is unchanged.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+class Linear(nn.Linear):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.to(self.weight.dtype))
+
+
+class Conv1d(nn.Conv1d):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.to(self.weight.dtype))
+
+
+class Conv3d(nn.Conv3d):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.to(self.weight.dtype))
+
+
+def pointwise(conv: nn.Module, tokens: torch.Tensor) -> torch.Tensor:
+    """A 1x1 convolution applied as a linear map to channel-last tokens
+    (..., C_in) -> (..., C_out), in the weight's dtype."""
+    w = conv.weight
+    return F.linear(tokens.to(w.dtype), w.reshape(w.shape[0], w.shape[1]),
+                    conv.bias)
+
+
+def conv_nd(dims: int, *args, **kwargs) -> nn.Module:
+    """Conv1d or Conv3d (the two spatial ranks the UNets use)."""
+    return {1: Conv1d, 3: Conv3d}[dims](*args, **kwargs)
