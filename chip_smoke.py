@@ -5,19 +5,29 @@
 
 Phases, each fatal on failure (the script exits non-zero and prints no
 result line):
-  1. build the CUDA kernels from the source in the checkout and print the
-     build seconds;
+  1. build the CUDA kernels from the sources in the checkout, one nvcc per
+     source, all started together, and print each one's build seconds and
+     `-Xptxas -v` report;
   2. hold each kernel against its plain PyTorch version on the card at the
-     shapes the main path gives it, plus one small ragged case (bf16 inputs,
-     against the f32-accumulated plain version: max abs error <= 2^-6 of the
-     plain output's peak and mean abs error <= 1e-2 of its mean magnitude,
-     `flash_attention.error_ratios`); check that this tolerance rejects the
-     plain version with its last 32 keys left out; and time the kernel, the
-     plain version and, as a yardstick the port never calls, torch's
-     scaled_dot_product_attention;
-  3. check the port on the card against the port on the CPU at the tiny
-     test configuration in f32 (same weights, same injected noise;
-     max abs error <= 1e-4 on boxes and SDFs);
+     shapes the main path gives it, plus one small ragged case, and time the
+     kernel, the plain version and a yardstick PyTorch call the port never
+     makes:
+     * K1 / K2 (attention): bf16 inputs against the f32-accumulated plain
+       version, max abs error <= 2^-6 of the plain output's peak and mean
+       abs error <= 1e-2 of its mean magnitude (`flash_attention.
+       error_ratios`), a tolerance that must reject the plain version with
+       its last 32 keys left out; yardstick scaled_dot_product_attention;
+     * K4 (nearest-neighbour distance): surface-like f32 clouds (points on
+       spheres of radius 0.3-0.5) against the plain version in float64, max
+       abs error <= 1e-6 (max|a|^2 + max|b|^2) per point and each mean
+       distance and chamfer value within 1e-5 relative (`chamfer.
+       error_ratios`), a tolerance that must reject the plain version with
+       its last 64 targets left out; yardstick cdist(a, b)^2 min;
+  3. check the port on the card against the port on the CPU: the tiny
+     test configuration in f32 (same weights, same injected noise; max abs
+     error <= 1e-4 on boxes and SDFs), and MMD / COV / 1-NN over 6 clouds of
+     256 points (CD values within 1e-5 relative, auction-EMD values within
+     1e-4);
   4. drive the main path once: full-width flagship generation (1000-step
      layout DDPM + 100-step shape DDIM + chunked VQ decode) on the seeded
      8-scene synthetic batch, with every kernel launch count set to 0 just
@@ -26,7 +36,16 @@ result line):
      decode chunk);
   5. time each part of that path alone (graph context, one layout step, one
      shape step, one decode chunk): wall clock per call, and the device busy
-     share and kernel launches of one call under torch.profiler.
+     share and kernel launches of one call under torch.profiler;
+  6. drive the evaluation path: a fake SG-FRONT dataset (test split) ->
+     `SceneEvaluator` generating every scene at flagship width with SDF
+     dumps -> the consistency CLI on the same-category instances -> MMD /
+     COV / 1-NN (auction EMD) of 8 generated clouds against 8 clouds of
+     analytic SDFs, on the card; checks that the report parses, that every
+     dumped real-row SDF meshes, that every part gives finite values, and
+     the launch counts (K1 / K2 of the generation; K4 = 48 for the metrics
+     plus 2 per scene with an annotated pair for the consistency), with
+     every count set to 0 just before and read just after.
 
 Prints the `kernels` JSON line, the card's name and power limit
 (nvidia-smi), and as its last line
@@ -41,12 +60,16 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 ATOL_TINY = 1e-4
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core rate
+PEAK_F32_FLOPS = 67e12       # H100 SXM f32 outside the tensor cores
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3
+CD_RTOL = 1e-5               # chamfer values, card vs plain / CPU
+EMD_RTOL = 1e-4              # auction EMD values, card vs CPU
 
 
 def fail(msg: str) -> None:
@@ -119,6 +142,248 @@ def check_kernel(name, wrapper, shape, ragged_shape, replaces):
             "err_of_limit": ratios, "keys_dropped_err_of_limit": dropped}
 
 
+def sphere_clouds(b: int, n: int, gen, device="cuda"):
+    """(b, n, 3) f32 points on one sphere per batch entry (radius 0.3-0.5,
+    centre within 0.1 of the origin): surface-like clouds whose neighbour
+    distances are small, as in sampled meshes."""
+    import torch
+    radius = 0.3 + 0.2 * torch.rand((b, 1, 1), generator=gen, device=device)
+    centre = 0.2 * torch.rand((b, 1, 3), generator=gen, device=device) - 0.1
+    dirs = torch.randn((b, n, 3), generator=gen, device=device)
+    return (centre + radius * dirs / dirs.norm(dim=-1, keepdim=True)).float()
+
+
+def check_chamfer_kernel(shape, ragged_shape):
+    """Phase 2 for K4; returns its `kernels` entry."""
+    import torch
+    from echoscene_torch.kernels import chamfer as k4
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for b, n, m in (ragged_shape, shape):
+        # one sphere per entry for both clouds: draw them together
+        both = sphere_clouds(b, n + m, gen)
+        a, t = both[:, :n].contiguous(), both[:, n:].contiguous()
+        out = k4.nn_distance_oneway(a, t)
+        torch.cuda.synchronize()
+        ref = k4.nn_distance_plain(a.double(), t.double())
+        ratios = k4.error_ratios(out, ref, a, t)
+        cd = k4.chamfer(a, t).double()
+        cd_ref = ref.mean(1) + k4.nn_distance_plain(t.double(),
+                                                    a.double()).mean(1)
+        cd_rel = ((cd - cd_ref).abs() / cd_ref).max().item()
+        if not (max(ratios) <= 1.0 and cd_rel <= CD_RTOL):
+            fail(f"nn_distance at {(b, n, m)}: max err / mean err at "
+                 f"{ratios[0]:.3f} / {ratios[1]:.3f} of their limits, "
+                 f"chamfer rel err {cd_rel:.3e} (limit {CD_RTOL})")
+    err = (out.double() - ref).abs().max().item()
+    dropped = k4.error_ratios(
+        k4.nn_distance_plain(a.double(), t[:, :-64].double()), ref, a, t)
+    if not min(dropped) > 1.0:
+        fail(f"nn_distance: the tolerance passes the plain version with 64 "
+             f"targets left out ({dropped[0]:.3f} / {dropped[1]:.3f})")
+    ms = cuda_ms(lambda: k4.nn_distance_oneway(a, t), iters=20)
+    plain_ms = cuda_ms(lambda: k4.nn_distance_plain(a, t), iters=3, warmup=1)
+    library_ms = cuda_ms(lambda: torch.cdist(a, t).square().amin(2),
+                         iters=10)
+    # bound: 8 flops per (query, target) pair on the f32 pipes; a and b read
+    # once, the (B, N) distances written once
+    flop_s = 8 * b * n * m / PEAK_F32_FLOPS
+    byte_s = (b * n * 3 + b * m * 3 + b * n) * 4 / PEAK_BYTES
+    return {"name": "nn_distance", "route": "cuda",
+            "source": "echoscene_torch/csrc/chamfer.cu",
+            "replaces": "echoscene_tpu/kernels/chamfer_pallas.py:27",
+            "launches": None, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": max(flop_s, byte_s) * 1e3,
+            "bound_by": "operations" if flop_s >= byte_s else "bytes",
+            "library_ms": library_ms, "shape": [b, n, m],
+            "err_of_limit": ratios, "chamfer_rel_err": cd_rel,
+            "targets_dropped_err_of_limit": dropped}
+
+
+def check_metrics_against_cpu() -> dict:
+    """Phase 3: MMD / COV / 1-NN on the card vs on the CPU, 6 + 6 clouds of
+    256 points, chamfer via K4 vs the Gram form, auction EMD on each."""
+    import torch
+    from echoscene_torch.eval.pointcloud_metrics import (compute_all_metrics,
+                                                         emd_auction)
+
+    gen = torch.Generator().manual_seed(3)
+    sample = sphere_clouds(6, 256, gen, device="cpu").numpy()
+    ref = sphere_clouds(6, 256, gen, device="cpu").numpy()
+    res = {d: compute_all_metrics(sample, ref, batch_size=4,
+                                  emd_fn=emd_auction, device=d)
+           for d in ("cpu", "cuda")}
+    if res["cpu"].keys() != res["cuda"].keys():
+        fail("metric keys differ between CPU and CUDA")
+    worst = {}
+    for k, want in res["cpu"].items():
+        got = res["cuda"][k]
+        rtol = EMD_RTOL if k.endswith("EMD") or "-EMD-" in k else CD_RTOL
+        rel = abs(got - want) / max(abs(want), 1e-12)
+        worst[k] = rel
+        if not (math.isfinite(got) and rel <= rtol):
+            fail(f"metric {k}: CUDA {got} vs CPU {want} (rel {rel:.3e}, "
+                 f"limit {rtol})")
+    return worst
+
+
+def analytic_sdf(kind: int, res: int, rng):
+    """A seeded analytic SDF on a [-1, 1]^3 grid: sphere, box or ellipsoid
+    (the ellipsoid's is the scaled-radius approximation)."""
+    import numpy as np
+    c = np.linspace(-1, 1, res, dtype=np.float32)
+    x, y, z = np.meshgrid(c, c, c, indexing="ij")
+    p = np.stack([x, y, z], -1)
+    if kind == 0:
+        return np.linalg.norm(p, axis=-1) - rng.uniform(0.3, 0.7)
+    half = rng.uniform(0.25, 0.6, 3)
+    if kind == 1:
+        q = np.abs(p) - half
+        return (np.linalg.norm(np.maximum(q, 0), axis=-1)
+                + np.minimum(q.max(-1), 0))
+    return (np.linalg.norm(p / half, axis=-1) - 1.0) * half.min()
+
+
+def eval_path(sg, card: str) -> dict:
+    """Phase 6: the evaluation path at flagship width; returns the K4 launch
+    count of its metric steps and the wall seconds of each part."""
+    import numpy as np
+    import torch
+    from echoscene_torch import native
+    from echoscene_torch.benchmarks import NUM_OBJS, NUM_PREDS
+    from echoscene_torch.data.clip_text import ClipTextEncoder
+    from echoscene_torch.data.collate import CollateSpec, collate_scenes
+    from echoscene_torch.data.fake import make_fake_dataset
+    from echoscene_torch.data.sgfront import SGFrontDataset
+    from echoscene_torch.eval import consistency_cli
+    from echoscene_torch.eval.evaluator import SceneEvaluator
+    from echoscene_torch.eval.pointcloud_metrics import (compute_all_metrics,
+                                                         emd_auction)
+    from echoscene_torch.kernels import chamfer as k4
+    from echoscene_torch.kernels import flash_attention as fa
+    from echoscene_torch.models.sgdiff import shape_row_capacity
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        root = make_fake_dataset(os.path.join(tmp, "data"), num_scenes=8,
+                                 min_objs=3, max_objs=6, with_sdf=False,
+                                 seed=0)
+        ds = SGFrontDataset(root, split="test", shuffle_objs=False,
+                            use_sdf=False, with_changes=False,
+                            clip=ClipTextEncoder("hash"), seed=47)
+        if (len(ds.classes), len(ds.pred_names)) != (NUM_OBJS, NUM_PREDS):
+            fail("the fake vocabulary does not match the flagship model's")
+        spec = CollateSpec(max_nodes=48, max_triples=160, max_scenes=8,
+                           diffusion_bs=48, with_sdf=False)
+        examples = [ds[i] for i in range(len(ds))]
+        if (sum(e.num_nodes for e in examples) > spec.max_nodes
+                or sum(len(e.triples) for e in examples) > spec.max_triples):
+            fail("the eval scenes do not fit one generation group")
+        rows = shape_row_capacity(collate_scenes(examples, spec))
+        store = os.path.join(tmp, "eval")
+        ev = SceneEvaluator(sg, spec, ds.box_stats, gen_shape=True,
+                            store_path=store, dump_sdfs=True, eval_batch=8)
+
+        # generation, scoring and the SDF dumps
+        fa.reset_launches()
+        k4.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev.run(ds, "none", 0, torch.Generator(device="cuda").manual_seed(47))
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        want = {"onepass_attention": 5 * sg.ddim_tables.num_steps,
+                "stream_attention": math.ceil(rows / 8)}
+        if dict(fa.LAUNCHES) != want or k4.LAUNCHES["nn_distance"] != 0:
+            fail(f"eval generation launched {dict(fa.LAUNCHES)} and "
+                 f"{dict(k4.LAUNCHES)}, want {want} and no nn_distance")
+        with open(os.path.join(store, "none_accuracy_analysis.txt")) as f:
+            report = f.read()
+        total = re.search(r"^acc & L/R: \S+ & F/B: \S+ & Bi/Sm: \S+ & "
+                          r"Ta/Sh: \S+ & Stand: \S+ & Close: \S+ & Symm: "
+                          r"\S+\. Total: &(\S+)\nmeans of mean: (\S+)",
+                          report, re.M)
+        if total is None or not math.isfinite(float(total.group(1))):
+            fail(f"accuracy report does not parse or has no total:\n{report}")
+        dumps, n_rows, n_tris = {}, 0, 0
+        for ex in examples:
+            with np.load(os.path.join(store, f"{ex.scan_id}.npz")) as d:
+                dumps[ex.scan_id] = {k: d[k] for k in d.files}
+            sdfs = dumps[ex.scan_id]["sdfs"]
+            if sdfs.shape != (ex.num_nodes, 64, 64, 64):
+                fail(f"{ex.scan_id}: dumped SDFs of shape {sdfs.shape}")
+            for grid in sdfs:
+                tris = len(native.marching_cubes(grid)[1])
+                if not (np.isfinite(grid).all() and tris > 0):
+                    fail(f"{ex.scan_id}: a dumped SDF is not finite or gives "
+                         f"no triangles ({tris})")
+                n_rows += 1
+                n_tris += tris
+        print(f"eval generation: {len(examples)} scenes, {rows} rows, "
+              f"{gen_s:.3f} s wall; accuracy total {total.group(1)}, means "
+              f"of mean {total.group(2)}; {n_rows} dumped SDFs, "
+              f"{n_tris / n_rows:.0f} triangles each on average [{card}]")
+
+        # SDF -> 5000-point clouds: 8 generated, 8 of analytic SDFs
+        t0 = time.perf_counter()
+        grids = np.concatenate([dumps[e.scan_id]["sdfs"] for e in examples])
+        gen_pcs = np.stack([native.sdf_to_point_cloud(g, 5000)
+                            for g in grids[:8]])
+        rng = np.random.default_rng(0)
+        ref_pcs = np.stack([native.sdf_to_point_cloud(
+            analytic_sdf(i % 3, 64, rng), 5000) for i in range(8)])
+        cloud_s = time.perf_counter() - t0
+        if not (np.isfinite(gen_pcs).all() and np.isfinite(ref_pcs).all()):
+            fail("point clouds are not finite")
+
+        # consistency over same-category instances, then MMD / COV / 1-NN
+        anns, pairs = {}, 0
+        for ex in examples:
+            by_cat = {}
+            d = dumps[ex.scan_id]
+            for iid, cat in zip(d["instance_ids"], d["categories"]):
+                if iid >= 0:
+                    by_cat.setdefault(str(cat), []).append(int(iid))
+            groups = [g for g in by_cat.values() if len(g) > 1]
+            if groups:
+                anns[ex.scan_id] = groups
+                pairs += sum(len(g) * (len(g) - 1) // 2 for g in groups)
+        if not anns:
+            fail("no scene has two instances of one category")
+        ann_path = os.path.join(tmp, "consistencies.json")
+        with open(ann_path, "w") as f:
+            json.dump(anns, f)
+        k4.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        agg = consistency_cli.main(["--annotations", ann_path,
+                                    "--generated_dir", store])
+        torch.cuda.synchronize()
+        cons_s = time.perf_counter() - t0
+        if not all(math.isfinite(v) for v in agg.values()):
+            fail(f"consistency is not finite: {agg}")
+        t0 = time.perf_counter()
+        mmd = compute_all_metrics(gen_pcs, ref_pcs, batch_size=16,
+                                  emd_fn=emd_auction)
+        torch.cuda.synchronize()
+        mmd_s = time.perf_counter() - t0
+        launches = k4.LAUNCHES["nn_distance"]
+        if not all(math.isfinite(v) for v in mmd.values()):
+            fail(f"MMD / COV / 1-NN is not finite: {mmd}")
+        want_k4 = 3 * 8 * 2 + 2 * len(anns)
+        if launches != want_k4:
+            fail(f"nn_distance launched {launches} times in the metric "
+                 f"steps, want {want_k4}")
+    print(f"eval SDF -> clouds: 16 clouds of 5000 points, {cloud_s:.3f} s "
+          f"wall; native library: {native.available()} [{card}]")
+    print(f"eval consistency: {pairs} pairs in {len(anns)} scenes, total "
+          f"{agg['total']:.6g}, {cons_s:.3f} s wall [{card}]")
+    print(f"eval MMD / COV / 1-NN: 8 vs 8 clouds, {json.dumps(mmd)}, "
+          f"{mmd_s:.3f} s wall [{card}]")
+    return {"nn_distance_launches": launches, "generation_s": gen_s,
+            "clouds_s": cloud_s, "consistency_s": cons_s, "mmd_s": mmd_s}
+
+
 def check_tiny_against_cpu() -> float:
     """Phase 3: the port on CUDA vs on CPU, tiny config, f32."""
     import torch
@@ -170,6 +435,8 @@ def main() -> int:
                                             device_busy_shares,
                                             synthetic_batch, time_generation)
     from echoscene_torch.kernels import build
+    from echoscene_torch import native
+    from echoscene_torch.kernels import chamfer as k4
     from echoscene_torch.kernels import flash_attention as fa
     from echoscene_torch.models.sgdiff import set_precision, shape_row_capacity
 
@@ -178,17 +445,22 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    # 1. build
+    # 1. build: one nvcc per source, all started together
+    sources = (fa.SOURCE, k4.SOURCE)
     t0 = time.perf_counter()
-    report = build.build(fa.SOURCE)
-    build.load(fa.SOURCE)
-    print(f"build: {time.perf_counter() - t0:.2f} s for {fa.SOURCE}")
-    for line in report.splitlines():
-        fn = re.search(r"Compiling entry function '(\S+)'", line)
-        if fn:
-            print(f"  {fn.group(1)}")
-        elif "registers" in line or "spill" in line:
-            print(f"    {line.strip()}")
+    built = build.build_all(sources)
+    for source in sources:
+        build.load(source)
+    print(f"build: {time.perf_counter() - t0:.2f} s for {', '.join(sources)}")
+    for source in sources:
+        seconds, report = built[source]
+        print(f"  {source}: {seconds:.2f} s")
+        for line in report.splitlines():
+            fn = re.search(r"Compiling entry function '(\S+)'", line)
+            if fn:
+                print(f"    {fn.group(1)}")
+            elif "registers" in line or "spill" in line:
+                print(f"      {line.strip()}")
 
     # the main path's row count fixes K1's batch dimension
     rows = shape_row_capacity(synthetic_batch(), multiple=1)
@@ -211,10 +483,25 @@ def main() -> int:
               f"their limits, 32 keys left out at "
               f"{e['keys_dropped_err_of_limit'][0]:.3f} / "
               f"{e['keys_dropped_err_of_limit'][1]:.3f} [{card}]")
+    # K4 at the metric shapes: a CD matrix row at batch_size 16 and 5000
+    # points, and a ragged case
+    e = check_chamfer_kernel((16, 5000, 5000), (3, 777, 1001))
+    entries.append(e)
+    print(f"kernel {e['name']} {e['shape']}: {e['ms']:.4f} ms (bound "
+          f"{e['bound_ms']:.4f} ms by {e['bound_by']}, plain "
+          f"{e['plain_ms']:.3f} ms, cdist+amin {e['library_ms']:.4f} ms), "
+          f"max abs err {e['max_abs_err']:.3e}; max / mean err at "
+          f"{e['err_of_limit'][0]:.3f} / {e['err_of_limit'][1]:.3f} of their "
+          f"limits, chamfer rel err {e['chamfer_rel_err']:.3e}; 64 targets "
+          f"left out at {e['targets_dropped_err_of_limit'][0]:.1f} / "
+          f"{e['targets_dropped_err_of_limit'][1]:.1f} [{card}]")
 
-    # 3. the rest of the port on the card vs on the CPU, tiny config
+    # 3. the rest of the port on the card vs on the CPU
     err = check_tiny_against_cpu()
     print(f"tiny config, CUDA vs CPU f32 sample: max abs err {err:.3e}")
+    worst = check_metrics_against_cpu()
+    print(f"MMD / COV / 1-NN, CUDA vs CPU: largest relative differences "
+          f"{json.dumps(worst)}")
 
     # 4. the main path: one full-width flagship generation
     t0 = time.perf_counter()
@@ -243,9 +530,8 @@ def main() -> int:
     for name, count in want.items():
         if launches[name] != count:
             fail(f"{name} launched {launches[name]} times, want {count}")
-    for e in entries:
+    for e in entries[:2]:
         e["launches"] = launches[e["name"]]
-        e["status"] = "ported: built, matches its plain version, on the path"
     print(f"generation: {wall:.3f} s wall, {sps:.4f} scenes/sec "
           f"({batch.num_scenes} scenes, first call in the process), peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
@@ -259,6 +545,15 @@ def main() -> int:
         print(f"part {name}: {p['wall_ms']:.3f} ms wall per call, device "
               f"busy share {busy}, {p['kernel_launches']} kernel launches "
               f"[{card}]")
+
+    # 6. the evaluation path: fake dataset -> SceneEvaluator -> SDF dumps ->
+    # consistency CLI -> MMD / COV / 1-NN, on the phase-4 model
+    ev = eval_path(sg, card)
+    entries[2]["launches"] = ev["nn_distance_launches"]
+    print(f"eval path wall seconds: {json.dumps(ev)}; native library "
+          f"available: {native.available()} [{card}]")
+    for e in entries:
+        e["status"] = "ported: built, matches its plain version, on the path"
 
     print(json.dumps({"kernels": entries}))
     print(card)

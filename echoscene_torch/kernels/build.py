@@ -5,7 +5,8 @@ A source under `echoscene_torch/csrc/` is compiled by `nvcc` for Hopper
 `ctypes`.  The library lands in `build/kernels/` at the root of the checkout
 (listed in `.gitignore`), named by a hash of its source, so an edited source
 rebuilds and an unchanged one is reused.  Nothing is built at import time:
-the first wrapper call on a CUDA tensor builds, or `build(source)` does.
+the first wrapper call on a CUDA tensor builds, or `build(source)` does;
+`build_all(sources)` runs one nvcc per source, all at once.
 """
 from __future__ import annotations
 
@@ -14,7 +15,8 @@ import hashlib
 import os
 import shutil
 import subprocess
-from typing import Dict
+import time
+from typing import Dict, Sequence, Tuple
 
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
@@ -45,18 +47,54 @@ def _target(source: str) -> str:
 def build(source: str) -> str:
     """Compile `source` unless its library exists; returns nvcc's output
     (the `-Xptxas -v` register / spill report; '' when already built)."""
-    target = _target(source)
-    if os.path.exists(target):
-        return ""
+    return build_all([source])[source][1]
+
+
+def build_all(sources: Sequence[str]) -> Dict[str, Tuple[float, str]]:
+    """Compile every source whose library is missing, one nvcc each, all
+    started together; returns {source: (wall seconds, nvcc output)} (0 s and
+    '' for a library already built).  Raises if any nvcc fails, after every
+    nvcc it started has ended."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{target}.{os.getpid()}.tmp"
-    res = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, source)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {source}:\n{res.stdout}")
-    os.replace(tmp, target)
-    return res.stdout
+    t0 = time.perf_counter()
+    procs = {}
+    out: Dict[str, Tuple[float, str]] = {}
+    failed = []
+    try:
+        for source in sources:
+            target = _target(source)
+            if os.path.exists(target):
+                out[source] = (0.0, "")
+                continue
+            tmp = f"{target}.{os.getpid()}.tmp"
+            # nvcc's report is a few KB, well inside the pipe buffer, so it
+            # is read after the process ends
+            procs[source] = (tmp, target, subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+                 os.path.join(CSRC_DIR, source)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        pending = dict(procs)
+        while pending:
+            for source, (tmp, target, proc) in list(pending.items()):
+                if proc.poll() is None:
+                    continue
+                del pending[source]
+                log = proc.stdout.read()
+                proc.stdout.close()
+                out[source] = (time.perf_counter() - t0, log)
+                if proc.returncode != 0:
+                    failed.append(f"nvcc failed on {source}:\n{log}")
+                else:
+                    os.replace(tmp, target)
+            time.sleep(0.05)
+    finally:
+        for _, _, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return out
 
 
 def load(source: str) -> ctypes.CDLL:

@@ -165,3 +165,103 @@ def test_cuda_dispatcher_routes_long_self_attention_to_kernels():
     assert torch.equal(out, port_fa.attention_plain(*short))
     port_attn.dot_product_attention(*(x.to(torch.bfloat16) for x in (q, k, v)))
     assert port_fa.LAUNCHES["onepass_attention"] == 1
+
+
+# --- K4: one-way nearest-neighbour distance (chamfer) ----------------------
+NN_SHAPES = [(2, 100, 75), (1, 513, 9), (3, 37, 600)]
+
+
+def _clouds(rng, b, n, m):
+    return (rng.normal(size=(b, n, 3)).astype(np.float32),
+            rng.normal(size=(b, m, 3)).astype(np.float32))
+
+
+@pytest.mark.parametrize("b,n,m", NN_SHAPES)
+def test_nn_distance_plain_matches_jax_pallas(rng, b, n, m):
+    """The plain version (and the CPU wrapper) against JAX's `_nn_kernel` in
+    interpret mode, on ragged N and M (rtol 1e-4, atol 1e-5, as
+    tests/test_kernels.py:51)."""
+    import jax.numpy as jnp
+    from jax.experimental.pallas import tpu as pltpu
+    from echoscene_tpu.kernels.chamfer_pallas import nn_distance_oneway
+
+    from echoscene_torch.kernels import chamfer as port_k4
+    a, t = _clouds(rng, b, n, m)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(nn_distance_oneway(jnp.asarray(a), jnp.asarray(t)))
+    got = port_k4.nn_distance_oneway(torch.from_numpy(a), torch.from_numpy(t))
+    assert got.shape == want.shape == (b, n)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-5)
+    np.testing.assert_array_equal(
+        got.numpy(), port_k4.nn_distance_plain(torch.from_numpy(a),
+                                               torch.from_numpy(t)).numpy())
+
+
+@pytest.mark.parametrize("b,n,m", NN_SHAPES)
+def test_chamfer_plain_matches_jax_pallas(rng, b, n, m):
+    import jax.numpy as jnp
+    from jax.experimental.pallas import tpu as pltpu
+    from echoscene_tpu.kernels.chamfer_pallas import chamfer_pallas
+
+    from echoscene_torch.kernels import chamfer as port_k4
+    a, t = _clouds(rng, b, n, m)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(chamfer_pallas(jnp.asarray(a), jnp.asarray(t)))
+    port_k4.reset_launches()
+    got = port_k4.chamfer(torch.from_numpy(a), torch.from_numpy(t)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+    assert port_k4.LAUNCHES == {"nn_distance": 0}
+
+
+def test_nn_distance_tolerance_rejects_dropped_targets():
+    """`chamfer.error_ratios`, K4's tolerance on the card: f32 rounding of
+    the float64 result passes; the plain version with its last 64 of 1001
+    targets left out fails both limits, on surface-like clouds."""
+    from echoscene_torch.kernels import chamfer as port_k4
+    r = np.random.default_rng(5)
+    dirs = r.normal(size=(2, 1777, 3))
+    pts = 0.4 * dirs / np.linalg.norm(dirs, axis=-1, keepdims=True)
+    a = torch.from_numpy(pts[:, :777].astype(np.float32))
+    t = torch.from_numpy(pts[:, 777:].astype(np.float32))
+    ref = port_k4.nn_distance_plain(a.double(), t.double())
+    assert max(port_k4.error_ratios(ref.float(), ref, a, t)) <= 1.0
+    dropped = port_k4.nn_distance_plain(a.double(), t[:, :-64].double())
+    assert min(port_k4.error_ratios(dropped, ref, a, t)) > 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,m", NN_SHAPES + [(16, 5000, 5000)])
+def test_cuda_nn_distance_matches_plain_f64(b, n, m):
+    """K4 against `nn_distance_plain` in float64 within `error_ratios`:
+    max abs err <= 1e-6 (max|a|^2 + max|b|^2) per point, each mean
+    distance within 1e-5 relative; one launch per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from echoscene_torch.kernels import chamfer as port_k4
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    a = torch.randn((b, n, 3), generator=gen, device="cuda")
+    t = torch.randn((b, m, 3), generator=gen, device="cuda")
+    before = port_k4.LAUNCHES["nn_distance"]
+    out = port_k4.nn_distance_oneway(a, t)
+    torch.cuda.synchronize()
+    assert port_k4.LAUNCHES["nn_distance"] == before + 1
+    ref = port_k4.nn_distance_plain(a.double(), t.double())
+    assert max(port_k4.error_ratios(out, ref, a, t)) <= 1.0
+
+
+@pytest.mark.cuda
+def test_cuda_nn_distance_raises_on_inputs_it_does_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from echoscene_torch.kernels import chamfer as port_k4
+    a = torch.randn((2, 10, 3), device="cuda")
+    port_k4.reset_launches()
+    bad = [(a.double(), a.double(), TypeError),
+           (a, a.cpu(), ValueError),
+           (a, a[:, :0], ValueError),
+           (a, torch.randn((2, 10, 4), device="cuda"), ValueError),
+           (a.transpose(0, 1), a.transpose(0, 1), ValueError)]
+    for x, y, err in bad:
+        with pytest.raises(err):
+            port_k4.nn_distance_oneway(x, y)
+    assert port_k4.LAUNCHES == {"nn_distance": 0}
