@@ -9,7 +9,7 @@ result line):
      source, all started together, and print each one's build seconds and
      `-Xptxas -v` report;
   2. hold each kernel against its plain PyTorch version on the card at the
-     shapes the main path gives it, plus one small ragged case, and time the
+     shapes the main path gives it, plus small ragged cases, and time the
      kernel, the plain version and a yardstick PyTorch call the port never
      makes:
      * K1 / K2 (attention): bf16 inputs against the f32-accumulated plain
@@ -17,6 +17,12 @@ result line):
        abs error <= 1e-2 of its mean magnitude (`flash_attention.
        error_ratios`), a tolerance that must reject the plain version with
        its last 32 keys left out; yardstick scaled_dot_product_attention;
+       the bound is `flash_attention.attention_bound` (tensor cores, exp2
+       on the SFU at the card's max SM clock, bytes); printed beside it:
+       TFLOP/s, share of the bound, the ratio to the yardstick, the time of
+       the earlier mma.sync design (`csrc/flash_attention_mma.cu`, run here
+       on the same inputs and held to the same tolerance) and the host time
+       of one wrapper call;
      * K4 (nearest-neighbour distance): surface-like f32 clouds (points on
        spheres of radius 0.3-0.5) against the plain version in float64, max
        abs error <= 1e-6 (max|a|^2 + max|b|^2) per point and each mean
@@ -65,9 +71,7 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 ATOL_TINY = 1e-4
-PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core rate
 PEAK_F32_FLOPS = 67e12       # H100 SXM f32 outside the tensor cores
-PEAK_BYTES = 3.35e12         # H100 SXM HBM3
 CD_RTOL = 1e-5               # chamfer values, card vs plain / CPU
 EMD_RTOL = 1e-4              # auction EMD values, card vs CPU
 
@@ -98,14 +102,50 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def check_kernel(name, wrapper, shape, ragged_shape, replaces):
+# the earlier (mma.sync, cp.async) design of K1 / K2, timed beside the
+# TMA / wgmma kernel in the same run; no path of the port calls it
+BASELINE_SOURCE = "flash_attention_mma.cu"
+_baseline = []
+
+
+def mma_baseline(q, k, v):
+    """softmax(q k^T D^-1/2) v by the earlier design's kernel."""
+    import ctypes
+    import torch
+    from echoscene_torch.kernels import build
+    if not _baseline:
+        fn = build.load(BASELINE_SOURCE).echoscene_mma_attention
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+            ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _baseline.append(fn)
+    b, l, h, d = q.shape
+    o = torch.empty_like(q)
+    err = _baseline[0](q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                       b, h, l, k.shape[1], d, d ** -0.5,
+                       torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        fail(f"the baseline attention kernel failed to launch: CUDA error {err}")
+    return o
+
+
+def max_sm_clock_hz() -> float:
+    """The card's maximum SM clock (nvidia-smi clocks.max.sm), in Hz."""
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], check=True, capture_output=True,
+        text=True).stdout.strip().splitlines()[0]
+    return float(mhz) * 1e6
+
+
+def check_kernel(name, wrapper, shape, ragged_shapes, replaces, sm_clock_hz):
     """Phase 2 for one attention kernel; returns its `kernels` entry."""
     import torch
     import torch.nn.functional as F
     from echoscene_torch.kernels import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for shp in (ragged_shape, shape):
+    for shp in (*ragged_shapes, shape):
         q, k, v = (torch.randn(shp, generator=gen, device="cuda").to(
             torch.bfloat16) for _ in range(3))
         out = wrapper(q, k, v)
@@ -122,24 +162,36 @@ def check_kernel(name, wrapper, shape, ragged_shape, replaces):
     if not min(dropped) > 1.0:
         fail(f"{name}: the tolerance passes the plain version with 32 keys "
              f"left out ({dropped[0]:.3f} / {dropped[1]:.3f} of the limits)")
-    b, l, h, d = shape
+    earlier = fa.error_ratios(mma_baseline(q, k, v), ref)
+    if not max(earlier) <= 1.0:
+        fail(f"the baseline design at {shape}: max / mean err at "
+             f"{earlier[0]:.3f} / {earlier[1]:.3f} of their limits")
     ms = cuda_ms(lambda: wrapper(q, k, v), iters=20)
+    earlier_ms = cuda_ms(lambda: mma_baseline(q, k, v), iters=20)
+    # host time of one wrapper call: enqueue 20 calls without waiting
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        wrapper(q, k, v)
+    host_us = (time.perf_counter() - t0) / 20 * 1e6
+    torch.cuda.synchronize()
     plain_ms = cuda_ms(lambda: fa.attention_plain(q, k, v), iters=3, warmup=1)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt),
                          iters=20)
-    # bound: two products of 2 L S D flops per head; q, k, v read once and
-    # o (q-sized) written once
-    flop_s = 4 * b * h * l * k.shape[1] * d / PEAK_BF16_FLOPS
-    byte_s = (2 * q.numel() + k.numel() + v.numel()) * 2 / PEAK_BYTES
+    bound = fa.attention_bound(*shape, sm_clock_hz=sm_clock_hz)
     return {"name": name, "route": "cuda",
             "source": "echoscene_torch/csrc/flash_attention.cu",
             "replaces": replaces, "launches": None, "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(flop_s, byte_s) * 1e3,
-            "bound_by": "operations" if flop_s >= byte_s else "bytes",
-            "library_ms": library_ms, "shape": list(shape),
-            "err_of_limit": ratios, "keys_dropped_err_of_limit": dropped}
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound["ms"],
+            "bound_by": bound["bound_by"], "library_ms": library_ms,
+            "earlier_ms": earlier_ms, "shape": list(shape),
+            "bound_detail": {key: bound[key] for key in (
+                "by", "tensor_core_ms", "exp2_ms", "bytes_ms")},
+            "tflops": bound["flops"] / ms * 1e-9,
+            "share_of_bound": bound["ms"] / ms, "vs_library": ms / library_ms,
+            "host_us_per_call": host_us, "err_of_limit": ratios,
+            "keys_dropped_err_of_limit": dropped}
 
 
 def sphere_clouds(b: int, n: int, gen, device="cuda"):
@@ -157,6 +209,7 @@ def check_chamfer_kernel(shape, ragged_shape):
     """Phase 2 for K4; returns its `kernels` entry."""
     import torch
     from echoscene_torch.kernels import chamfer as k4
+    from echoscene_torch.kernels import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     for b, n, m in (ragged_shape, shape):
@@ -188,7 +241,7 @@ def check_chamfer_kernel(shape, ragged_shape):
     # bound: 8 flops per (query, target) pair on the f32 pipes; a and b read
     # once, the (B, N) distances written once
     flop_s = 8 * b * n * m / PEAK_F32_FLOPS
-    byte_s = (b * n * 3 + b * m * 3 + b * n) * 4 / PEAK_BYTES
+    byte_s = (b * n * 3 + b * m * 3 + b * n) * 4 / fa.PEAK_BYTES
     return {"name": "nn_distance", "route": "cuda",
             "source": "echoscene_torch/csrc/chamfer.cu",
             "replaces": "echoscene_tpu/kernels/chamfer_pallas.py:27",
@@ -446,7 +499,7 @@ def main() -> int:
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     # 1. build: one nvcc per source, all started together
-    sources = (fa.SOURCE, k4.SOURCE)
+    sources = (fa.SOURCE, BASELINE_SOURCE, k4.SOURCE)
     t0 = time.perf_counter()
     built = build.build_all(sources)
     for source in sources:
@@ -459,29 +512,38 @@ def main() -> int:
             fn = re.search(r"Compiling entry function '(\S+)'", line)
             if fn:
                 print(f"    {fn.group(1)}")
-            elif "registers" in line or "spill" in line:
+            elif ("registers" in line or "spill" in line
+                  or "Performance Loss" in line):
                 print(f"      {line.strip()}")
 
     # the main path's row count fixes K1's batch dimension
     rows = shape_row_capacity(synthetic_batch(), multiple=1)
 
     # 2. kernels against their plain versions at the main path's shapes
+    clock = max_sm_clock_hz()
     entries = [
         check_kernel("onepass_attention", fa.onepass_attention,
-                     (rows, 1024, 8, 56), (3, 200, 2, 24),
-                     "echoscene_tpu/kernels/flash_attention.py:73"),
+                     (rows, 1024, 8, 56), [(3, 200, 2, 24), (3, 333, 8, 56)],
+                     "echoscene_tpu/kernels/flash_attention.py:73", clock),
         check_kernel("stream_attention", fa.stream_attention,
-                     (8, 4096, 1, 256), (2, 77, 3, 130),
-                     "echoscene_tpu/kernels/flash_attention.py:35"),
+                     (8, 4096, 1, 256), [(2, 77, 3, 200)],
+                     "echoscene_tpu/kernels/flash_attention.py:35", clock),
     ]
     for e in entries:
-        print(f"kernel {e['name']} {e['shape']}: {e['ms']:.4f} ms "
-              f"(bound {e['bound_ms']:.4f} ms by {e['bound_by']}, plain "
-              f"{e['plain_ms']:.3f} ms, sdpa {e['library_ms']:.4f} ms), "
-              f"max abs err {e['max_abs_err']:.3e}; max / mean err at "
-              f"{e['err_of_limit'][0]:.3f} / {e['err_of_limit'][1]:.3f} of "
-              f"their limits, 32 keys left out at "
-              f"{e['keys_dropped_err_of_limit'][0]:.3f} / "
+        d = e["bound_detail"]
+        print(f"kernel {e['name']} {e['shape']}: {e['ms']:.4f} ms, "
+              f"{e['tflops']:.1f} TFLOP/s, {e['share_of_bound']:.3f} of the "
+              f"bound {e['bound_ms']:.4f} ms (by {d['by']}: tensor cores "
+              f"{d['tensor_core_ms']:.4f}, exp2 at {clock / 1e6:.0f} MHz "
+              f"{d['exp2_ms']:.4f}, bytes {d['bytes_ms']:.4f}); sdpa "
+              f"{e['library_ms']:.4f} ms ({e['vs_library']:.3f} x its "
+              f"time), earlier mma.sync design {e['earlier_ms']:.4f} ms "
+              f"({e['earlier_ms'] / e['ms']:.2f} x this), plain "
+              f"{e['plain_ms']:.3f} ms; host {e['host_us_per_call']:.1f} us "
+              f"per wrapper call; max abs err {e['max_abs_err']:.3e}, max / "
+              f"mean err at {e['err_of_limit'][0]:.3f} / "
+              f"{e['err_of_limit'][1]:.3f} of their limits, 32 keys left out "
+              f"at {e['keys_dropped_err_of_limit'][0]:.3f} / "
               f"{e['keys_dropped_err_of_limit'][1]:.3f} [{card}]")
     # K4 at the metric shapes: a CD matrix row at batch_size 16 and 5000
     # points, and a ragged case

@@ -53,6 +53,7 @@ def test_onepass_plain_matches_jax(rng, shape, q_block):
 @pytest.mark.parametrize("shape,k_block", [
     ((1, 96, 2, 16), 32),     # K streamed in three blocks
     ((2, 72, 1, 20), 32),     # ragged last K block (72 = 2 * 32 + 8), odd D
+    ((1, 40, 2, 200), 16),    # D = 200, padded to 256 by the card's kernel
 ])
 def test_stream_plain_matches_jax(rng, shape, k_block):
     import jax.numpy as jnp
@@ -121,12 +122,40 @@ def test_kernel_tolerance_passes_rounding_and_fails_dropped_keys(rng):
     assert min(port_fa.error_ratios(dropped, ref)) > 1.0
 
 
+def test_attention_bound_at_the_main_path_shapes():
+    """`attention_bound`, the least time chip_smoke.py holds K1 / K2 to: the
+    UNet site is bound by its exponentials on the SFU (just above its
+    tensor-core time), the VQ-VAE site by its tensor-core flops."""
+    k1 = port_fa.attention_bound(42, 1024, 8, 56)
+    assert (k1["flops"], k1["exps"]) == (4 * 336 * 1024 ** 2 * 56,
+                                         336 * 1024 ** 2)
+    assert k1["bytes"] == 2 * 4 * 42 * 1024 * 8 * 56
+    assert (k1["by"], k1["bound_by"]) == ("exp2", "operations")
+    assert k1["ms"] == k1["exp2_ms"] > k1["tensor_core_ms"] > k1["bytes_ms"]
+    np.testing.assert_allclose(
+        [k1["ms"], k1["tensor_core_ms"]],
+        [336 * 1024 ** 2 / (132 * 16 * 1.98e9) * 1e3,
+         4 * 336 * 1024 ** 2 * 56 / 989e12 * 1e3], rtol=1e-12)
+    np.testing.assert_allclose(k1["ms"], 0.0842520, rtol=1e-6)
+    k2 = port_fa.attention_bound(8, 4096, 1, 256)
+    assert (k2["by"], k2["bound_by"]) == ("tensor_core", "operations")
+    np.testing.assert_allclose(k2["ms"], 4 * 8 * 4096 ** 2 * 256 / 989e12 * 1e3,
+                               rtol=1e-12)
+    assert k2["exp2_ms"] < k2["ms"] / 4
+    # at a lower SM clock the exponentials take longer, the products do not
+    slow = port_fa.attention_bound(42, 1024, 8, 56, sm_clock_hz=1.5e9)
+    assert slow["exp2_ms"] > k1["exp2_ms"]
+    assert slow["tensor_core_ms"] == k1["tensor_core_ms"]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("entry,shape", [
-    ("onepass_attention", (4, 1024, 8, 56)),
+    ("onepass_attention", (4, 1024, 8, 56)),    # 256 work tiles: 2 waves
     ("onepass_attention", (3, 200, 2, 24)),
+    ("onepass_attention", (3, 333, 8, 56)),     # L, S not multiples of 128
     ("stream_attention", (2, 4096, 1, 256)),
-    ("stream_attention", (2, 77, 3, 130)),
+    ("stream_attention", (2, 77, 3, 200)),      # ragged L, S; D padded to 256
+    ("stream_attention", (9, 2048, 2, 128)),    # 288 work tiles, D_pad 128
 ])
 def test_cuda_kernel_matches_plain(entry, shape):
     """bf16 kernel vs the f32-accumulated plain version, within
@@ -145,6 +174,38 @@ def test_cuda_kernel_matches_plain(entry, shape):
     assert max(port_fa.error_ratios(out, ref)) <= 1.0
     with pytest.raises(TypeError):
         getattr(port_fa, entry)(q.float(), k.float(), v.float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["onepass_attention", "stream_attention"])
+def test_cuda_attention_raises_on_inputs_it_does_not_take(entry):
+    """No fallback: a CUDA tensor the kernel cannot take raises, and no
+    launch is counted.  D % 8 != 0 (TMA needs 16-byte row strides), D > 256,
+    f32, non-contiguous, no keys."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    fn = getattr(port_fa, entry)
+
+    def qkv(shape, dtype=torch.bfloat16):
+        return [torch.randn(shape, device="cuda").to(dtype) for _ in range(3)]
+
+    port_fa.reset_launches()
+    with pytest.raises(ValueError):
+        fn(*qkv((2, 77, 3, 130)))
+    with pytest.raises(ValueError):
+        fn(*qkv((1, 64, 1, 84)))
+    with pytest.raises(ValueError):
+        fn(*qkv((1, 64, 1, 264)))
+    with pytest.raises(TypeError):
+        fn(*qkv((1, 64, 1, 64), torch.float32))
+    q, k, v = qkv((1, 64, 2, 64))
+    with pytest.raises(ValueError):
+        fn(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    with pytest.raises(ValueError):
+        fn(q, k[:, :0], v[:, :0])
+    with pytest.raises(ValueError):
+        fn(q, k.cpu(), v)
+    assert port_fa.LAUNCHES == {"onepass_attention": 0, "stream_attention": 0}
 
 
 @pytest.mark.cuda
