@@ -23,12 +23,19 @@ result line):
        the earlier mma.sync design (`csrc/flash_attention_mma.cu`, run here
        on the same inputs and held to the same tolerance) and the host time
        of one wrapper call;
-     * K4 (nearest-neighbour distance): surface-like f32 clouds (points on
-       spheres of radius 0.3-0.5) against the plain version in float64, max
-       abs error <= 1e-6 (max|a|^2 + max|b|^2) per point and each mean
-       distance and chamfer value within 1e-5 relative (`chamfer.
-       error_ratios`), a tolerance that must reject the plain version with
-       its last 64 targets left out; yardstick cdist(a, b)^2 min;
+     * K4 (nearest-neighbour distance) at the path's shapes (16, 8 and 1
+       clouds of 5000 points against 5000) and a ragged one: surface-like
+       f32 clouds (points on spheres of radius 0.3-0.5) against the plain
+       version in float64, max abs error <= 1e-6 (max|a|^2 + max|b|^2) per
+       point and each mean distance and chamfer value within 1e-5 relative
+       (`chamfer.error_ratios`), a tolerance that must reject the plain
+       version with its last 64 targets left out; and within 1 ulp of the
+       float64 reference rounded to f32 (`chamfer.ulp_distance`, ulps
+       counted no finer than `chamfer.ulp_floor`); yardstick cdist(a, b)^2
+       min; the bound is `chamfer.nn_distance_bound`; printed beside it:
+       share of the bound, the earlier direct-form design
+       (`csrc/chamfer_direct.cu`, same inputs, same tolerance) and the host
+       time of one wrapper call;
   3. check the port on the card against the port on the CPU: the tiny
      test configuration in f32 (same weights, same injected noise; max abs
      error <= 1e-4 on boxes and SDFs), and MMD / COV / 1-NN over 6 clouds of
@@ -49,9 +56,13 @@ result line):
      COV / 1-NN (auction EMD) of 8 generated clouds against 8 clouds of
      analytic SDFs, on the card; checks that the report parses, that every
      dumped real-row SDF meshes, that every part gives finite values, and
-     the launch counts (K1 / K2 of the generation; K4 = 48 for the metrics
-     plus 2 per scene with an annotated pair for the consistency), with
-     every count set to 0 just before and read just after.
+     the launch counts (K1 / K2 of the generation; K4 = 48 at
+     (8, 5000, 5000) for the metrics plus 2 at (pairs, 5000, 5000) per
+     scene with an annotated pair for the consistency, by shape as the
+     wrapper counts them), with every count set to 0 just before and read
+     just after; then times the
+     MMD step once more with an EMD that returns zeros, which splits the
+     step's time between the chamfers (K4) and the auction EMD.
 
 Prints the `kernels` JSON line, the card's name and power limit
 (nvidia-smi), and as its last line
@@ -92,6 +103,9 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     import torch
     for _ in range(warmup):
         fn()
+    # the card waits on a sleep (~2.5 ms) while the host enqueues the calls,
+    # so a call shorter than its host time is timed on the card alone
+    torch.cuda._sleep(5_000_000)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -127,6 +141,32 @@ def mma_baseline(q, k, v):
     if err != 0:
         fail(f"the baseline attention kernel failed to launch: CUDA error {err}")
     return o
+
+
+# the earlier (direct f32 form) design of K4, timed beside the f64
+# tensor-core kernel in the same run; no path of the port calls it
+K4_DIRECT_SOURCE = "chamfer_direct.cu"
+_baseline_k4 = []
+
+
+def k4_direct(a, b):
+    """The one-way squared NN distance by the earlier design's kernel."""
+    import ctypes
+    import torch
+    from echoscene_torch.kernels import build
+    if not _baseline_k4:
+        fn = build.load(K4_DIRECT_SOURCE).echoscene_nn_distance_direct
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _baseline_k4.append(fn)
+    out = torch.empty(a.shape[:2], device=a.device)
+    err = _baseline_k4[0](a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                          a.shape[0], a.shape[1], b.shape[1],
+                          torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        fail(f"the direct-form K4 kernel failed to launch: CUDA error {err}")
+    return out
 
 
 def max_sm_clock_hz() -> float:
@@ -194,63 +234,85 @@ def check_kernel(name, wrapper, shape, ragged_shapes, replaces, sm_clock_hz):
             "keys_dropped_err_of_limit": dropped}
 
 
-def sphere_clouds(b: int, n: int, gen, device="cuda"):
-    """(b, n, 3) f32 points on one sphere per batch entry (radius 0.3-0.5,
-    centre within 0.1 of the origin): surface-like clouds whose neighbour
-    distances are small, as in sampled meshes."""
-    import torch
-    radius = 0.3 + 0.2 * torch.rand((b, 1, 1), generator=gen, device=device)
-    centre = 0.2 * torch.rand((b, 1, 3), generator=gen, device=device) - 0.1
-    dirs = torch.randn((b, n, 3), generator=gen, device=device)
-    return (centre + radius * dirs / dirs.norm(dim=-1, keepdim=True)).float()
-
-
-def check_chamfer_kernel(shape, ragged_shape):
-    """Phase 2 for K4; returns its `kernels` entry."""
+def check_chamfer_kernel(shapes, ragged_shape):
+    """Phase 2 for K4 at each path shape and a ragged one; returns its
+    `kernels` entry (top level: the first of `shapes`) with every shape's
+    numbers under `per_shape`."""
     import torch
     from echoscene_torch.kernels import chamfer as k4
-    from echoscene_torch.kernels import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for b, n, m in (ragged_shape, shape):
+    per_shape = []
+    for b, n, m in (ragged_shape, *shapes):
         # one sphere per entry for both clouds: draw them together
-        both = sphere_clouds(b, n + m, gen)
+        both = k4.surface_clouds(b, n + m, gen)
         a, t = both[:, :n].contiguous(), both[:, n:].contiguous()
         out = k4.nn_distance_oneway(a, t)
         torch.cuda.synchronize()
         ref = k4.nn_distance_plain(a.double(), t.double())
         ratios = k4.error_ratios(out, ref, a, t)
+        floor = k4.ulp_floor(a, t)
+        ulps = k4.ulp_distance(out, k4.nn_distance_f64(a, t), floor)
         cd = k4.chamfer(a, t).double()
         cd_ref = ref.mean(1) + k4.nn_distance_plain(t.double(),
                                                     a.double()).mean(1)
         cd_rel = ((cd - cd_ref).abs() / cd_ref).max().item()
-        if not (max(ratios) <= 1.0 and cd_rel <= CD_RTOL):
+        if not (max(ratios) <= 1.0 and cd_rel <= CD_RTOL and ulps <= 1.0):
             fail(f"nn_distance at {(b, n, m)}: max err / mean err at "
                  f"{ratios[0]:.3f} / {ratios[1]:.3f} of their limits, "
-                 f"chamfer rel err {cd_rel:.3e} (limit {CD_RTOL})")
-    err = (out.double() - ref).abs().max().item()
-    dropped = k4.error_ratios(
-        k4.nn_distance_plain(a.double(), t[:, :-64].double()), ref, a, t)
-    if not min(dropped) > 1.0:
-        fail(f"nn_distance: the tolerance passes the plain version with 64 "
-             f"targets left out ({dropped[0]:.3f} / {dropped[1]:.3f})")
-    ms = cuda_ms(lambda: k4.nn_distance_oneway(a, t), iters=20)
-    plain_ms = cuda_ms(lambda: k4.nn_distance_plain(a, t), iters=3, warmup=1)
-    library_ms = cuda_ms(lambda: torch.cdist(a, t).square().amin(2),
-                         iters=10)
-    # bound: 8 flops per (query, target) pair on the f32 pipes; a and b read
-    # once, the (B, N) distances written once
-    flop_s = 8 * b * n * m / PEAK_F32_FLOPS
-    byte_s = (b * n * 3 + b * m * 3 + b * n) * 4 / fa.PEAK_BYTES
-    return {"name": "nn_distance", "route": "cuda",
-            "source": "echoscene_torch/csrc/chamfer.cu",
-            "replaces": "echoscene_tpu/kernels/chamfer_pallas.py:27",
-            "launches": None, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": max(flop_s, byte_s) * 1e3,
-            "bound_by": "operations" if flop_s >= byte_s else "bytes",
-            "library_ms": library_ms, "shape": [b, n, m],
-            "err_of_limit": ratios, "chamfer_rel_err": cd_rel,
-            "targets_dropped_err_of_limit": dropped}
+                 f"chamfer rel err {cd_rel:.3e} (limit {CD_RTOL}), {ulps} "
+                 f"ulp (limit 1, floor {floor:.3e})")
+        earlier = k4.error_ratios(k4_direct(a, t), ref, a, t)
+        if not max(earlier) <= 1.0:
+            fail(f"the direct-form design at {(b, n, m)}: max / mean err at "
+                 f"{earlier[0]:.3f} / {earlier[1]:.3f} of their limits")
+        if (b, n, m) == ragged_shape:
+            continue
+        err = (out.double() - ref).abs().max().item()
+        if (b, n, m) == shapes[0]:
+            dropped = k4.error_ratios(
+                k4.nn_distance_plain(a.double(), t[:, :-64].double()), ref,
+                a, t)
+            if not min(dropped) > 1.0:
+                fail(f"nn_distance: the tolerance passes the plain version "
+                     f"with 64 targets left out ({dropped[0]:.3f} / "
+                     f"{dropped[1]:.3f})")
+        del ref, cd_ref
+        ms = cuda_ms(lambda: k4.nn_distance_oneway(a, t), iters=30)
+        earlier_ms = cuda_ms(lambda: k4_direct(a, t), iters=30)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            k4.nn_distance_oneway(a, t)
+        host_us = (time.perf_counter() - t0) / 20 * 1e6
+        torch.cuda.synchronize()
+        plain_ms = cuda_ms(lambda: k4.nn_distance_plain(a, t), iters=3,
+                           warmup=1)
+        library_ms = cuda_ms(lambda: torch.cdist(a, t).square().amin(2),
+                             iters=5)
+        bound = k4.nn_distance_bound(b, n, m)
+        per_shape.append({
+            "shape": [b, n, m], "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound["ms"],
+            "bound_by": bound["bound_by"], "library_ms": library_ms,
+            "earlier_ms": earlier_ms, "share_of_bound": bound["ms"] / ms,
+            "pair_tflops": bound["flops"] / ms * 1e-9,
+            "host_us_per_call": host_us, "err_of_limit": ratios,
+            "ulp": ulps, "ulp_floor": floor, "chamfer_rel_err": cd_rel,
+            "earlier_err_of_limit": earlier})
+        torch.cuda.empty_cache()
+    top = per_shape[0]
+    entry = {"name": "nn_distance", "route": "cuda",
+             "source": "echoscene_torch/csrc/chamfer.cu",
+             "replaces": "echoscene_tpu/kernels/chamfer_pallas.py:27",
+             "launches": None}
+    entry.update({key: top[key] for key in (
+        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+        "library_ms", "earlier_ms", "shape", "share_of_bound",
+        "host_us_per_call", "err_of_limit", "ulp", "chamfer_rel_err")})
+    entry["targets_dropped_err_of_limit"] = dropped
+    entry["per_shape"] = per_shape
+    return entry
 
 
 def check_metrics_against_cpu() -> dict:
@@ -259,10 +321,11 @@ def check_metrics_against_cpu() -> dict:
     import torch
     from echoscene_torch.eval.pointcloud_metrics import (compute_all_metrics,
                                                          emd_auction)
+    from echoscene_torch.kernels import chamfer as k4
 
     gen = torch.Generator().manual_seed(3)
-    sample = sphere_clouds(6, 256, gen, device="cpu").numpy()
-    ref = sphere_clouds(6, 256, gen, device="cpu").numpy()
+    sample = k4.surface_clouds(6, 256, gen, device="cpu").numpy()
+    ref = k4.surface_clouds(6, 256, gen, device="cpu").numpy()
     res = {d: compute_all_metrics(sample, ref, batch_size=4,
                                   emd_fn=emd_auction, device=d)
            for d in ("cpu", "cuda")}
@@ -390,7 +453,7 @@ def eval_path(sg, card: str) -> dict:
             fail("point clouds are not finite")
 
         # consistency over same-category instances, then MMD / COV / 1-NN
-        anns, pairs = {}, 0
+        anns, pairs, want_cons = {}, 0, {}
         for ex in examples:
             by_cat = {}
             d = dumps[ex.scan_id]
@@ -400,7 +463,11 @@ def eval_path(sg, card: str) -> dict:
             groups = [g for g in by_cat.values() if len(g) > 1]
             if groups:
                 anns[ex.scan_id] = groups
-                pairs += sum(len(g) * (len(g) - 1) // 2 for g in groups)
+                scene = sum(len(g) * (len(g) - 1) // 2 for g in groups)
+                pairs += scene
+                # one chamfer (two K4 launches) over the scene's pairs
+                key = (scene, 5000, 5000)
+                want_cons[key] = want_cons.get(key, 0) + 2
         if not anns:
             fail("no scene has two instances of one category")
         ann_path = os.path.join(tmp, "consistencies.json")
@@ -415,26 +482,50 @@ def eval_path(sg, card: str) -> dict:
         cons_s = time.perf_counter() - t0
         if not all(math.isfinite(v) for v in agg.values()):
             fail(f"consistency is not finite: {agg}")
+        cons_launches = k4.LAUNCHES["nn_distance"]
+        cons_shapes = dict(k4.LAUNCH_SHAPES)
         t0 = time.perf_counter()
         mmd = compute_all_metrics(gen_pcs, ref_pcs, batch_size=16,
                                   emd_fn=emd_auction)
         torch.cuda.synchronize()
         mmd_s = time.perf_counter() - t0
         launches = k4.LAUNCHES["nn_distance"]
+        shapes = dict(k4.LAUNCH_SHAPES)
         if not all(math.isfinite(v) for v in mmd.values()):
             fail(f"MMD / COV / 1-NN is not finite: {mmd}")
-        want_k4 = 3 * 8 * 2 + 2 * len(anns)
-        if launches != want_k4:
-            fail(f"nn_distance launched {launches} times in the metric "
-                 f"steps, want {want_k4}")
+        # three 8 x 8 CD matrices, one chamfer of 8 reference clouds per
+        # row: 48 launches at (8, 5000, 5000)
+        mmd_shapes = {k: c - cons_shapes.get(k, 0) for k, c in shapes.items()
+                      if c != cons_shapes.get(k, 0)}
+        if (cons_launches, launches - cons_launches) != (2 * len(anns), 48):
+            fail(f"nn_distance launched {cons_launches} times in the "
+                 f"consistency step and {launches - cons_launches} in the "
+                 f"MMD step, want {2 * len(anns)} and 48")
+        if cons_shapes != want_cons or mmd_shapes != {(8, 5000, 5000): 48}:
+            fail(f"nn_distance launched at {cons_shapes} in the consistency "
+                 f"step and {mmd_shapes} in the MMD step, want {want_cons} "
+                 f"and 48 at (8, 5000, 5000)")
+        # the MMD step again with an EMD of zeros: its chamfer time alone
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        compute_all_metrics(gen_pcs, ref_pcs, batch_size=16,
+                            emd_fn=lambda x, y: np.zeros(len(x)))
+        torch.cuda.synchronize()
+        mmd_cd_s = time.perf_counter() - t0
     print(f"eval SDF -> clouds: 16 clouds of 5000 points, {cloud_s:.3f} s "
           f"wall; native library: {native.available()} [{card}]")
     print(f"eval consistency: {pairs} pairs in {len(anns)} scenes, total "
           f"{agg['total']:.6g}, {cons_s:.3f} s wall [{card}]")
     print(f"eval MMD / COV / 1-NN: 8 vs 8 clouds, {json.dumps(mmd)}, "
-          f"{mmd_s:.3f} s wall [{card}]")
+          f"{mmd_s:.3f} s wall, of which chamfers (the step with an EMD of "
+          f"zeros) {mmd_cd_s:.3f} s and auction EMD the other "
+          f"{mmd_s - mmd_cd_s:.3f} s [{card}]")
+    shapes = {str(list(k)): c for k, c in sorted(shapes.items())}
+    print(f"eval nn_distance launches by shape (counted by the wrapper): "
+          f"{json.dumps(shapes)}")
     return {"nn_distance_launches": launches, "generation_s": gen_s,
-            "clouds_s": cloud_s, "consistency_s": cons_s, "mmd_s": mmd_s}
+            "clouds_s": cloud_s, "consistency_s": cons_s, "mmd_s": mmd_s,
+            "mmd_chamfer_s": mmd_cd_s, "nn_distance_launches_by_shape": shapes}
 
 
 def check_tiny_against_cpu() -> float:
@@ -499,7 +590,7 @@ def main() -> int:
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     # 1. build: one nvcc per source, all started together
-    sources = (fa.SOURCE, BASELINE_SOURCE, k4.SOURCE)
+    sources = (fa.SOURCE, BASELINE_SOURCE, k4.SOURCE, K4_DIRECT_SOURCE)
     t0 = time.perf_counter()
     built = build.build_all(sources)
     for source in sources:
@@ -545,18 +636,27 @@ def main() -> int:
               f"{e['err_of_limit'][1]:.3f} of their limits, 32 keys left out "
               f"at {e['keys_dropped_err_of_limit'][0]:.3f} / "
               f"{e['keys_dropped_err_of_limit'][1]:.3f} [{card}]")
-    # K4 at the metric shapes: a CD matrix row at batch_size 16 and 5000
-    # points, and a ragged case
-    e = check_chamfer_kernel((16, 5000, 5000), (3, 777, 1001))
+    # K4 at the metric shapes: the MMD step's chamfers (8 references of
+    # 5000 points), a full batch of 16, one consistency pair, and a ragged
+    # case
+    e = check_chamfer_kernel(
+        ((8, 5000, 5000), (16, 5000, 5000), (1, 5000, 5000)), (3, 777, 1001))
     entries.append(e)
-    print(f"kernel {e['name']} {e['shape']}: {e['ms']:.4f} ms (bound "
-          f"{e['bound_ms']:.4f} ms by {e['bound_by']}, plain "
-          f"{e['plain_ms']:.3f} ms, cdist+amin {e['library_ms']:.4f} ms), "
-          f"max abs err {e['max_abs_err']:.3e}; max / mean err at "
-          f"{e['err_of_limit'][0]:.3f} / {e['err_of_limit'][1]:.3f} of their "
-          f"limits, chamfer rel err {e['chamfer_rel_err']:.3e}; 64 targets "
-          f"left out at {e['targets_dropped_err_of_limit'][0]:.1f} / "
-          f"{e['targets_dropped_err_of_limit'][1]:.1f} [{card}]")
+    for p in e["per_shape"]:
+        print(f"kernel {e['name']} {p['shape']}: {p['ms']:.4f} ms, "
+              f"{p['share_of_bound']:.3f} of the bound {p['bound_ms']:.4f} ms "
+              f"(by {p['bound_by']}; {p['pair_tflops']:.1f} TFLOP/s at 8 a "
+              f"pair); cdist+amin {p['library_ms']:.4f} ms, earlier direct "
+              f"design {p['earlier_ms']:.4f} ms ({p['earlier_ms'] / p['ms']:.2f}"
+              f" x this), plain {p['plain_ms']:.3f} ms; host "
+              f"{p['host_us_per_call']:.1f} us per wrapper call; max abs err "
+              f"{p['max_abs_err']:.3e}, max / mean err at "
+              f"{p['err_of_limit'][0]:.3f} / {p['err_of_limit'][1]:.3f} of "
+              f"their limits, {p['ulp']:.0f} ulp (floor {p['ulp_floor']:.2e})"
+              f", chamfer rel err {p['chamfer_rel_err']:.3e} [{card}]")
+    print(f"kernel {e['name']}: 64 targets left out at "
+          f"{e['targets_dropped_err_of_limit'][0]:.1f} / "
+          f"{e['targets_dropped_err_of_limit'][1]:.1f} of the limits")
 
     # 3. the rest of the port on the card vs on the CPU
     err = check_tiny_against_cpu()
@@ -612,6 +712,10 @@ def main() -> int:
     # consistency CLI -> MMD / COV / 1-NN, on the phase-4 model
     ev = eval_path(sg, card)
     entries[2]["launches"] = ev["nn_distance_launches"]
+    entries[2]["launches_by_shape"] = ev["nn_distance_launches_by_shape"]
+    for p in entries[2]["per_shape"]:
+        p["launches"] = ev["nn_distance_launches_by_shape"].get(
+            str(p["shape"]), 0)
     print(f"eval path wall seconds: {json.dumps(ev)}; native library "
           f"available: {native.available()} [{card}]")
     for e in entries:

@@ -272,6 +272,7 @@ def test_chamfer_plain_matches_jax_pallas(rng, b, n, m):
     got = port_k4.chamfer(torch.from_numpy(a), torch.from_numpy(t)).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
     assert port_k4.LAUNCHES == {"nn_distance": 0}
+    assert port_k4.LAUNCH_SHAPES == {}
 
 
 def test_nn_distance_tolerance_rejects_dropped_targets():
@@ -290,24 +291,200 @@ def test_nn_distance_tolerance_rejects_dropped_targets():
     assert min(port_k4.error_ratios(dropped, ref, a, t)) > 1.0
 
 
+# B = 1, M below one chunk unit, the path shapes, N and M that are not
+# multiples of 16 and 8, a large batch
+PLAN_SHAPES = [(1, 1, 1), (1, 5000, 5000), (8, 5000, 5000), (16, 5000, 5000),
+               (2, 5000, 5000), (3, 777, 1001), (1, 513, 9), (2, 100, 37),
+               (4, 785, 561), (1, 17, 100_000), (600, 300, 300),
+               (65535, 20, 40)]
+
+
+def _plan_segments(p, b, m, unit):
+    """The (cta, row, first target, end) segments the kernel walks for plan
+    `p` (csrc/chamfer.cu, nn_kernel's loop)."""
+    total = p.query_tiles * b * p.units_row
+    segs = []
+    for c in range(p.ctas):
+        u, end = c * total // p.ctas, (c + 1) * total // p.ctas
+        while u < end:
+            row = u // p.units_row
+            u0, u1 = u - row * p.units_row, min(p.units_row,
+                                                end - row * p.units_row)
+            u = row * p.units_row + u1
+            if u0 * unit < min(m, u1 * unit):
+                segs.append((c, row, u0 * unit, min(m, u1 * unit)))
+    return segs
+
+
+@pytest.mark.parametrize("b,n,m", PLAN_SHAPES)
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("ctas_per_sm", [3, 4])
+def test_nn_distance_launch_plan(b, n, m, sms, ctas_per_sm):
+    """`launch_plan`, the kernel's grid: every row (batch entry, query tile)
+    has its targets [0, M) covered exactly once, `atomic` exactly when a
+    row is shared by CTAs, every grid dimension within CUDA's limits, all
+    CTAs that fit on the card (3 of the kernel fit on an H100 SM) unless
+    every CTA has one chunk unit, and every CTA the same number of units,
+    within one."""
+    from echoscene_torch.kernels import chamfer as port_k4
+    unit = port_k4.CHUNK_UNIT
+    p = port_k4.launch_plan(b, n, m, sms, ctas_per_sm)
+    assert (p.query_tiles - 1) * port_k4.BLOCK_N < n <= (p.query_tiles
+                                                         * port_k4.BLOCK_N)
+    assert p.units_row * unit >= m
+    assert 1 <= p.ctas < 2 ** 31 and b <= 65535
+    total = p.query_tiles * b * p.units_row
+    assert p.ctas == ctas_per_sm * sms or p.ctas == total < ctas_per_sm * sms
+    segs = _plan_segments(p, b, m, unit)
+    by_row = {}
+    for c, row, lo, hi in segs:
+        by_row.setdefault(row, []).append((lo, hi, c))
+    assert sorted(by_row) == list(range(p.query_tiles * b))
+    shared = False
+    for ranges in by_row.values():
+        ranges.sort()
+        assert ranges[0][0] == 0 and ranges[-1][1] == m
+        assert all(r[1] == s[0] for r, s in zip(ranges, ranges[1:]))
+        shared |= len({c for _, _, c in ranges}) > 1
+    assert p.atomic == shared
+    work = [0] * p.ctas
+    for c, _, lo, hi in segs:
+        work[c] += -(-(hi - lo) // unit)
+    assert max(work) - min(work) <= 1 + len(segs) / p.ctas
+
+
+def test_nn_distance_bound_at_the_path_shapes():
+    """`nn_distance_bound`: 8 flops a pair on the f64 tensor cores at
+    67 TFLOP/s bound every path shape, far above the bytes."""
+    from echoscene_torch.kernels import chamfer as port_k4
+    for (b, want) in ((16, 0.0478), (8, 0.0239), (1, 0.0030)):
+        bound = port_k4.nn_distance_bound(b, 5000, 5000)
+        assert bound["bound_by"] == "operations"
+        assert bound["ms"] == bound["tensor_core_ms"] > 10 * bound["bytes_ms"]
+        assert round(bound["ms"], 4) == want
+        np.testing.assert_allclose(bound["ms"],
+                                   8 * b * 5000 ** 2 / 67e12 * 1e3, rtol=1e-12)
+
+
+def _surface(rng, b, n, centre, radius=0.4):
+    dirs = rng.normal(size=(b, n, 3))
+    pts = centre + radius * dirs / np.linalg.norm(dirs, axis=-1, keepdims=True)
+    return torch.from_numpy(pts.astype(np.float32))
+
+
+def _kernel_arithmetic(a, b):
+    """csrc/chamfer.cu's arithmetic on the CPU: both clouds moved to the f32
+    mean of 32 spread targets, the f64 Gram form |a'|^2 + |b'|^2 - 2 a'.b',
+    its min by magnitude, truncated to f32 (0 below the smallest normal)."""
+    m = b.shape[1]
+    idx = torch.arange(32) * m // 32
+    c = b[:, idx].double().sum(1, keepdim=True).div(32).float().double()
+    a64, b64 = a.double() - c, b.double() - c
+    d = ((a64 * a64).sum(-1)[:, :, None] + (b64 * b64).sum(-1)[:, None, :]
+         - 2.0 * torch.einsum("bnd,bmd->bnm", a64, b64))
+    bits = d.abs().amin(2).numpy().view(np.uint64) & ~np.uint64(2 ** 29 - 1)
+    out = bits.view(np.float64).astype(np.float32)
+    return torch.from_numpy(np.where(out < 2.0 ** -126, 0.0, out)
+                            .astype(np.float32))
+
+
+@pytest.mark.parametrize("centre", [0.0, 10.0])
+def test_nn_distance_ulp_distance(centre):
+    """`ulp_distance`, the <= 1 ulp check of the kernel: the float64
+    reference rounded to f32 is 0 ulp from itself, the kernel's f64 Gram
+    arithmetic within 1 ulp, and the f32 Gram form (JAX's arithmetic, the
+    plain version in f32) many ulps off on surface clouds centred at
+    (10, 10, 10)."""
+    from echoscene_torch.kernels import chamfer as port_k4
+    r = np.random.default_rng(11)
+    a = _surface(r, 2, 700, centre)
+    b = _surface(r, 2, 900, centre)
+    ref = port_k4.nn_distance_f64(a, b)
+    floor = port_k4.ulp_floor(a, b)
+    assert 0.0 < floor < 1e-13
+    assert port_k4.ulp_distance(ref.float(), ref) == 0.0
+    nxt = torch.nextafter(ref.float(), torch.tensor(1.0))
+    assert port_k4.ulp_distance(nxt, ref) == 1.0
+    assert port_k4.ulp_distance(_kernel_arithmetic(a, b), ref, floor) <= 1.0
+    np.testing.assert_allclose(
+        ref.numpy(), port_k4.nn_distance_plain(a.double(), b.double()).numpy(),
+        rtol=1e-9, atol=1e-12)
+    gram32 = port_k4.ulp_distance(port_k4.nn_distance_plain(a, b), ref, floor)
+    if centre:
+        assert gram32 > 1e3
+    # identical clouds: every exact distance is 0, the f64 form's rounding
+    # stays under the floor
+    same = _kernel_arithmetic(a, a)
+    assert port_k4.ulp_distance(same, torch.zeros_like(ref),
+                                port_k4.ulp_floor(a, a)) <= 1.0
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,n,m", NN_SHAPES + [(16, 5000, 5000)])
-def test_cuda_nn_distance_matches_plain_f64(b, n, m):
+@pytest.mark.parametrize("b,n,m,centre", [(*s, 0.0) for s in NN_SHAPES] + [
+    (16, 5000, 5000, 0.0), (8, 5000, 5000, 0.0), (1, 5000, 5000, 0.0),
+    (3, 785, 561, 0.0),          # N = 1 (mod 16), M = 1 (mod 8)
+    (2, 785, 561, 10.0), (8, 5000, 5000, 10.0)])
+def test_cuda_nn_distance_matches_plain_f64(b, n, m, centre):
     """K4 against `nn_distance_plain` in float64 within `error_ratios`:
     max abs err <= 1e-6 (max|a|^2 + max|b|^2) per point, each mean
-    distance within 1e-5 relative; one launch per call."""
+    distance within 1e-5 relative; and within 1 ulp of `nn_distance_f64`
+    rounded to f32 (`ulp_distance`, floor `ulp_floor`); one launch per
+    call."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from echoscene_torch.kernels import chamfer as port_k4
     gen = torch.Generator(device="cuda").manual_seed(0)
-    a = torch.randn((b, n, 3), generator=gen, device="cuda")
-    t = torch.randn((b, m, 3), generator=gen, device="cuda")
+    a = torch.randn((b, n, 3), generator=gen, device="cuda") + centre
+    t = torch.randn((b, m, 3), generator=gen, device="cuda") + centre
     before = port_k4.LAUNCHES["nn_distance"]
+    at_shape = port_k4.LAUNCH_SHAPES.get((b, n, m), 0)
     out = port_k4.nn_distance_oneway(a, t)
     torch.cuda.synchronize()
     assert port_k4.LAUNCHES["nn_distance"] == before + 1
+    assert port_k4.LAUNCH_SHAPES[(b, n, m)] == at_shape + 1
     ref = port_k4.nn_distance_plain(a.double(), t.double())
     assert max(port_k4.error_ratios(out, ref, a, t)) <= 1.0
+    assert port_k4.ulp_distance(out, port_k4.nn_distance_f64(a, t),
+                                port_k4.ulp_floor(a, t)) <= 1.0
+
+
+@pytest.mark.cuda
+def test_cuda_nn_distance_fragment_layout():
+    """The f64 mma fragment layouts on the card: one query against 8
+    targets at distinct, known squared distances, with the nearest target in
+    each of the 8 columns of an mma tile (one batch entry each); then
+    queries at every row of a CTA's tile (and past it), each with its own
+    nearest target at a known offset, the targets in shuffled order."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from echoscene_torch.kernels import chamfer as port_k4
+    # offsets in quarter units: squared distances (i^2 + j^2 + k^2) / 16
+    offs = torch.tensor([[1, 0, 0], [0, 2, 0], [0, 0, 3], [1, 1, 2],
+                         [2, 1, 3], [3, 3, 1], [4, 0, 1], [2, 4, 4]],
+                        dtype=torch.float32) / 4
+    dist = (offs ** 2).sum(-1)
+    assert len(set(dist.tolist())) == 8
+    q = torch.tensor([0.75, -1.5, 2.25])
+    a = q.expand(8, 1, 3).contiguous()
+    t = torch.empty(8, 8, 3)
+    for col in range(8):                 # nearest target in column `col`
+        order = torch.roll(torch.arange(8), col)
+        t[col] = q + offs[order]
+    out = port_k4.nn_distance_oneway(a.cuda(), t.cuda()).cpu()
+    assert torch.equal(out[:, 0], torch.full((8,), float(dist.min())))
+    # every query row of two CTA tiles and a ragged third; query i sits at
+    # (4 i, 0, 0) (far from the others) and its nearest target at a known
+    # offset, the targets shuffled so each lands in another column
+    n = 2 * port_k4.BLOCK_N + 37
+    r = np.random.default_rng(2)
+    pick = torch.from_numpy(r.integers(0, 8, n))
+    qa = torch.zeros(n, 3)
+    qa[:, 0] = 4.0 * torch.arange(n)
+    perm = torch.from_numpy(r.permutation(n))
+    tb = (qa + offs[pick])[perm]
+    out = port_k4.nn_distance_oneway(qa[None].cuda(), tb[None].cuda()).cpu()
+    want = dist[pick][None]
+    assert port_k4.ulp_distance(out, want.double()) <= 1.0
 
 
 @pytest.mark.cuda
@@ -326,3 +503,19 @@ def test_cuda_nn_distance_raises_on_inputs_it_does_not_take():
         with pytest.raises(err):
             port_k4.nn_distance_oneway(x, y)
     assert port_k4.LAUNCHES == {"nn_distance": 0}
+    assert port_k4.LAUNCH_SHAPES == {}
+    # the C entry rejects a plan (cudaErrorInvalidValue) whose shares split
+    # a row without the atomic, or whose tiles do not cover N
+    fn, _ = port_k4._kernel()
+    out = torch.empty((2, 10), device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    b = torch.randn((2, 1000, 3), device="cuda")
+    units = -(-1000 // port_k4.CHUNK_UNIT)
+    for tiles, ctas, atomic in ((1, 3, 0), (1, 2 * units - 1, 0), (2, 2, 0)):
+        assert fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), 2, 10, 1000,
+                  tiles, units, ctas, atomic, stream) == 1
+    assert fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), 2, 10, 1000, 1,
+              units, 3, 1, stream) == 0
+    torch.cuda.synchronize()
+    ref = port_k4.nn_distance_plain(a.double(), b.double())
+    assert max(port_k4.error_ratios(out, ref, a, b)) <= 1.0
