@@ -36,11 +36,21 @@ result line):
        share of the bound, the earlier direct-form design
        (`csrc/chamfer_direct.cu`, same inputs, same tolerance) and the host
        time of one wrapper call;
+     * K1 / K2 at the training step's shapes ((8, 1024, 8, 56), the VQ
+       encoder's (8, 4096, 1, 256)) through the differentiable Function:
+       the output carries its grad_fn, the forward meets `error_ratios`,
+       and dq, dk, dv equal plain autograd's within 1e-6 of their peak
+       (bit-equal expected: the backward is the same plain computation);
+       times the kernel forward + plain backward beside the plain forward +
+       backward and SDPA's forward + backward;
   3. check the port on the card against the port on the CPU: the tiny
      test configuration in f32 (same weights, same injected noise; max abs
-     error <= 1e-4 on boxes and SDFs), and MMD / COV / 1-NN over 6 clouds of
-     256 points (CD values within 1e-5 relative, auction-EMD values within
-     1e-4);
+     error <= 1e-4 on boxes and SDFs), one tiny-config f32 training step
+     (same weights and draws; loss within 1e-5 relative, each gradient leaf
+     within 1e-3 of its part's gradient peak + 1e-7, then two AdamW steps
+     on each from the CPU's gradients, parameters within 1e-6), and MMD /
+     COV / 1-NN over 6 clouds of 256 points (CD values within 1e-5
+     relative, auction-EMD values within 1e-4);
   4. drive the main path once: full-width flagship generation (1000-step
      layout DDPM + 100-step shape DDIM + chunked VQ decode) on the seeded
      8-scene synthetic batch, with every kernel launch count set to 0 just
@@ -62,10 +72,25 @@ result line):
      wrapper counts them), with every count set to 0 just before and read
      just after; then times the
      MMD step once more with an EMD that returns zeros, which splits the
-     step's time between the chamfers (K4) and the auction EMD.
+     step's time between the chamfers (K4) and the auction EMD;
+  7. drive the training path on the phase-4 model: bf16, remat on, 8
+     scenes, diffusion_bs 8, seeded analytic 64^3 SDFs through the frozen
+     encoder; one warm step and 8 timed (train scenes/sec, ms per step,
+     peak memory; K1 / K2 counts set to 0 just before and read just after:
+     K1 = 10 a step, 5 forward + 5 in the remat recompute, K2 = 1, one
+     encoder chunk), finite losses, the parts that get gradients moved, the
+     VQ-VAE bit-unchanged; the busy share and kernel launches of one step
+     and of its forward, backward and optimizer under torch.profiler; two
+     steps through `Trainer.train` over a fake dataset whose SDFs come from
+     an in-memory loader (K1 = 20, K2 = 2, finite logged losses); a
+     `Trainer.save` -> `restore_checkpoint` round trip into a model with
+     other weights, bit-exact, and one step after it with the same loss as
+     the saved model's; one step at the yaml's diffusion_bs of 64 (K1 = 10,
+     K2 = 8), its peak memory.
 
-Prints the `kernels` JSON line, the card's name and power limit
-(nvidia-smi), and as its last line
+Prints the total seconds, the `kernels` JSON line (K1 / K2 also carry
+their training launches and forward + backward times), the card's name and
+power limit (nvidia-smi), and as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Needs one card; exits 2 without CUDA or without the repository beside it.
 """
@@ -82,8 +107,17 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 ATOL_TINY = 1e-4
+GRAD_RTOL = 1e-6             # kernel Function's dq, dk, dv vs plain autograd
+LOSS_RTOL = 1e-5             # tiny training step, card vs CPU
+GRAD_LEAF_RTOL = 1e-3        # ... each gradient leaf, of its part's peak
+PARAM_ATOL = 1e-6            # ... parameters after AdamW on the same grads
+# K1 / K2 in phase 7's training step: the shape UNet's self-attention at
+# diffusion_bs 8 rows, the frozen VQ encoder's mid attention on 8 SDFs
+TRAIN_K1_SHAPE = (8, 1024, 8, 56)
+TRAIN_K2_SHAPE = (8, 4096, 1, 256)
 PEAK_F32_FLOPS = 67e12       # H100 SXM f32 outside the tensor cores
 CD_RTOL = 1e-5               # chamfer values, card vs plain / CPU
+T_START = 0.0
 EMD_RTOL = 1e-4              # auction EMD values, card vs CPU
 
 
@@ -234,6 +268,54 @@ def check_kernel(name, wrapper, shape, ragged_shapes, replaces, sm_clock_hz):
             "keys_dropped_err_of_limit": dropped}
 
 
+def check_kernel_backward(name, wrapper, shape):
+    """Phase 2, training: the kernel's output carries the differentiable
+    Function, and its dq, dk, dv (the plain version recomputed and
+    differentiated, as JAX's `_fa_bwd`) equal plain autograd's from the same
+    inputs and upstream gradient; times the kernel forward + plain backward
+    beside the plain forward + backward and SDPA's forward + backward."""
+    import torch
+    import torch.nn.functional as F
+    from echoscene_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    q, k, v, g = (torch.randn(shape, generator=gen, device="cuda").to(
+        torch.bfloat16) for _ in range(4))
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    out = wrapper(*leaves)
+    if type(out.grad_fn).__name__ != "KernelAttentionBackward":
+        fail(f"{name} at {shape}: output grad_fn {out.grad_fn}, want the "
+             "differentiable kernel Function")
+    ratios = fa.error_ratios(out.detach(), fa.attention_plain(q, k, v))
+    if not max(ratios) <= 1.0:
+        fail(f"{name} at {shape}: max / mean abs err at {ratios[0]:.3f} / "
+             f"{ratios[1]:.3f} of their limits")
+    got = torch.autograd.grad(out, leaves, g)
+    plain = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    want = torch.autograd.grad(fa.attention_plain(*plain), plain, g)
+    diffs = [((a.float() - b.float()).abs().max()
+              / b.float().abs().max()).item() for a, b in zip(got, want)]
+    equal = all(torch.equal(a, b) for a, b in zip(got, want))
+    if not max(diffs) <= GRAD_RTOL:
+        fail(f"{name} at {shape}: dq, dk, dv differ from plain autograd's by "
+             f"{diffs} of their peaks (limit {GRAD_RTOL})")
+
+    def fwd_bwd(fn, xs, gx):
+        return lambda: torch.autograd.grad(fn(*xs), xs, gx)
+
+    kernel_ms = cuda_ms(fwd_bwd(wrapper, leaves, g), iters=5)
+    plain_ms = cuda_ms(fwd_bwd(fa.attention_plain, plain, g), iters=3,
+                       warmup=1)
+    tr = [x.detach().transpose(1, 2).contiguous().requires_grad_(True)
+          for x in (q, k, v)]
+    library_ms = cuda_ms(fwd_bwd(F.scaled_dot_product_attention, tr,
+                                 g.transpose(1, 2).contiguous()), iters=5)
+    return {"train_shape": list(shape), "grad_bit_equal": equal,
+            "grad_max_diff_of_peak": max(diffs),
+            "train_err_of_limit": ratios, "fwd_bwd_ms": kernel_ms,
+            "plain_fwd_bwd_ms": plain_ms, "library_fwd_bwd_ms": library_ms}
+
+
 def check_chamfer_kernel(shapes, ragged_shape):
     """Phase 2 for K4 at each path shape and a ragged one; returns its
     `kernels` entry (top level: the first of `shapes`) with every shape's
@@ -343,30 +425,13 @@ def check_metrics_against_cpu() -> dict:
     return worst
 
 
-def analytic_sdf(kind: int, res: int, rng):
-    """A seeded analytic SDF on a [-1, 1]^3 grid: sphere, box or ellipsoid
-    (the ellipsoid's is the scaled-radius approximation)."""
-    import numpy as np
-    c = np.linspace(-1, 1, res, dtype=np.float32)
-    x, y, z = np.meshgrid(c, c, c, indexing="ij")
-    p = np.stack([x, y, z], -1)
-    if kind == 0:
-        return np.linalg.norm(p, axis=-1) - rng.uniform(0.3, 0.7)
-    half = rng.uniform(0.25, 0.6, 3)
-    if kind == 1:
-        q = np.abs(p) - half
-        return (np.linalg.norm(np.maximum(q, 0), axis=-1)
-                + np.minimum(q.max(-1), 0))
-    return (np.linalg.norm(p / half, axis=-1) - 1.0) * half.min()
-
-
 def eval_path(sg, card: str) -> dict:
     """Phase 6: the evaluation path at flagship width; returns the K4 launch
     count of its metric steps and the wall seconds of each part."""
     import numpy as np
     import torch
     from echoscene_torch import native
-    from echoscene_torch.benchmarks import NUM_OBJS, NUM_PREDS
+    from echoscene_torch.benchmarks import NUM_OBJS, NUM_PREDS, analytic_sdf
     from echoscene_torch.data.clip_text import ClipTextEncoder
     from echoscene_torch.data.collate import CollateSpec, collate_scenes
     from echoscene_torch.data.fake import make_fake_dataset
@@ -565,7 +630,327 @@ def check_tiny_against_cpu() -> float:
     return err
 
 
+def check_tiny_train_against_cpu() -> dict:
+    """Phase 3, training: one tiny-config f32 training step on the card and
+    on the CPU from the same weights and draws (loss within LOSS_RTOL, each
+    gradient leaf within GRAD_LEAF_RTOL of its part's peak + 1e-7); then
+    AdamW on each
+    from the CPU's own gradients (parameters within PARAM_ATOL).  The tiny
+    config reaches no kernel, so f32 runs on the card here."""
+    import torch
+    from echoscene_torch.benchmarks import seeded_weights_, synthetic_batch
+    from echoscene_torch.models.config import tiny_config
+    from echoscene_torch.models.sgdiff import SGDiff, trainable_parameters
+
+    cfg = tiny_config()
+    # the flagship's layout width, 16 channels per GroupNorm group: at the
+    # tiny 16 channels each group of the one-token layout UNet holds one
+    # value and passes only rounding noise back
+    cfg.layout_denoiser.model_channels = 512
+    batch = synthetic_batch(3, cfg.max_nodes, cfg.max_triples, seed=1,
+                            diffusion_bs=cfg.diffusion_bs,
+                            sdf_res=cfg.shape_branch.vqvae.resolution)
+    sd, n, m = cfg.shape_branch.denoiser, batch.num_nodes, cfg.diffusion_bs
+    g = torch.Generator().manual_seed(4)
+    draws = {"change": torch.randn((n, cfg.embedding_dim), generator=g),
+             "t_scene": torch.randint(0, cfg.layout_diffusion.time_num,
+                                      (batch.num_scenes + 1,), generator=g),
+             "noise_box": torch.randn((n, 8), generator=g),
+             "t_shape": torch.randint(0, sd.timesteps, (m,), generator=g),
+             "noise_shape": torch.randn(
+                 (m, sd.image_size, sd.image_size, sd.image_size,
+                  cfg.shape_branch.vqvae.embed_dim), generator=g)}
+    runs = []
+    for device in ("cpu", "cuda"):
+        torch.manual_seed(0)
+        sg = SGDiff(cfg, 9, 16, device=device)
+        seeded_weights_(sg.module.cpu(), 0)
+        sg.module.to(device)
+        loss, _ = sg.loss_fn(batch.to(device), draws={
+            k: v.to(device) for k, v in draws.items()})
+        loss.backward()
+        params = trainable_parameters(sg.module)
+        names = [n for n, _ in params]
+        grads = [p.grad.detach().cpu() if p.grad is not None
+                 else torch.zeros(p.shape) for _, p in params]
+        runs.append((sg, loss.item(), grads))
+    (cpu, loss_c, grads_c), (card, loss_g, grads_g) = runs
+    loss_rel = abs(loss_g - loss_c) / abs(loss_c)
+    # each leaf within GRAD_LEAF_RTOL of the gradient peak of its part
+    # (layout_denoiser, shape_denoiser, ...) + 1e-7: a leaf whose gradient
+    # nearly cancels (a bias before a norm, ~1e-5) carries the f32 rounding
+    # of its part, up to 2e-3 of its own tiny peak on the card.  The card's
+    # GCN scatter adds atomically, in no fixed order, and batch norms over
+    # a dozen rows amplify that rounding, so card runs differ among
+    # themselves too
+    part = lambda n: n.split(".")[0]
+    peak = {}
+    for n, b in zip(names, grads_c):
+        peak[part(n)] = max(peak.get(part(n), 0.0), b.abs().max().item())
+    errs = [(a - b).abs().max().item() for a, b in zip(grads_g, grads_c)]
+    of_part = max(e / peak[part(n)] for n, e in zip(names, errs)
+                  if peak[part(n)] > 0)
+    bad = [n for n, e in zip(names, errs)
+           if not e <= GRAD_LEAF_RTOL * peak[part(n)] + 1e-7]
+    leaf = max(e / b.abs().max().item() for e, b in zip(errs, grads_c)
+               if b.abs().max() > 1e-6)
+    if not (loss_rel <= LOSS_RTOL and not bad):
+        fail(f"tiny training step, CUDA vs CPU: loss rel err {loss_rel:.3e} "
+             f"(limit {LOSS_RTOL}); gradient leaves off by more than "
+             f"{GRAD_LEAF_RTOL} of their part's peak + 1e-7: {bad[:8]} "
+             f"(largest error {of_part:.3e} of a part's peak)")
+    for sg in (cpu, card):
+        state = sg.init_train_state()
+        for _ in range(2):
+            sg.apply_gradients(state, [x.clone().to(sg.device)
+                                       for x in grads_c])
+    param_err = max((a.detach().cpu() - b.detach()).abs().max().item()
+                    for (_, a), (_, b) in zip(card.module.named_parameters(),
+                                              cpu.module.named_parameters()))
+    if not param_err <= PARAM_ATOL:
+        fail(f"AdamW on the CPU's gradients: parameters differ by "
+             f"{param_err:.3e} between CUDA and CPU (limit {PARAM_ATOL})")
+    return {"loss_rel_err": loss_rel, "grad_err_of_part_peak": of_part,
+            "grad_err_of_own_peak": leaf,
+            "param_abs_err_after_2_steps": param_err}
+
+
+def trainer_steps(sg, state, card: str, steps: int = 2) -> dict:
+    """Phase 7, the user's entry point: `Trainer.train` takes `steps` steps
+    at full width over a fake SG-FRONT training split (8 scenes a batch,
+    the node capacity train.cli gives them, diffusion_bs 8), its SDFs fed
+    by an in-memory loader of seeded analytic 64^3 grids (the card's
+    machine has no h5py); K1 / K2 counts set to 0 just before and read just
+    after; every logged loss finite."""
+    import zlib
+
+    import numpy as np
+    import torch
+    from echoscene_torch.benchmarks import NUM_OBJS, NUM_PREDS, analytic_sdf
+    from echoscene_torch.data.clip_text import ClipTextEncoder
+    from echoscene_torch.data.collate import CollateSpec
+    from echoscene_torch.data.fake import make_fake_dataset
+    from echoscene_torch.data.sgfront import SGFrontDataset
+    from echoscene_torch.kernels import flash_attention as fa
+    from echoscene_torch.train.trainer import Trainer
+
+    def in_memory_sdf(path):
+        """A seeded analytic grid per model path, clamped as the reader's."""
+        if path is None:
+            return np.zeros((64, 64, 64, 1), np.float32)
+        rng = np.random.default_rng(zlib.crc32(path.encode()))
+        grid = analytic_sdf(int(rng.integers(3)), 64, rng)
+        return np.clip(grid, -0.2, 0.2)[..., None].astype(np.float32)
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        root = make_fake_dataset(os.path.join(tmp, "data"), num_scenes=16,
+                                 min_objs=3, max_objs=5, with_sdf=False,
+                                 seed=1)
+        ds = SGFrontDataset(root, use_sdf=True, with_changes=True,
+                            clip=ClipTextEncoder("hash"), seed=3)
+        if (len(ds.classes), len(ds.pred_names)) != (NUM_OBJS, NUM_PREDS):
+            fail("the fake vocabulary does not match the flagship model's")
+        ds.load_sdf = in_memory_sdf
+        spec = CollateSpec(max_nodes=128, max_triples=384, max_scenes=8,
+                           diffusion_bs=8, with_sdf=True, sdf_res=64)
+        exp = os.path.join(tmp, "exp")
+        trainer = Trainer(sg, ds, spec, exp, batch_scenes=8, log_every=1)
+        first = state.step
+        torch.cuda.synchronize()
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        trainer.train(state, state.epoch + 1, max_steps=steps,
+                      final_save=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(fa.LAUNCHES)
+        with open(os.path.join(exp, "loss_log.txt")) as f:
+            lines = f.read().splitlines()
+    want = {"onepass_attention": 10 * steps, "stream_attention": steps}
+    if state.step - first != steps or launches != want:
+        fail(f"Trainer.train took {state.step - first} steps and launched "
+             f"{launches}, want {steps} steps and {want}")
+    losses = [float(x) for line in lines
+              for x in re.findall(r"(?:box|shape) (\S+?)[,.] ", line)]
+    if len(lines) != steps or len(losses) != 2 * steps or not all(
+            math.isfinite(x) for x in losses):
+        fail(f"Trainer.train logged {lines}")
+    print(f"training through Trainer.train: {steps} steps over a fake "
+          f"dataset with in-memory SDFs, {wall:.3f} s wall (first batches "
+          f"collated), launches {json.dumps(launches)}; log: {lines} "
+          f"[{card}]")
+    return {"steps": steps, "wall_s": wall, "launches": launches,
+            "log": lines}
+
+
+def train_path(sg, card: str) -> dict:
+    """Phase 7: the joint training step at full width, bf16, remat on, on
+    the phase-4 model with bench.py's train batch (8 scenes, max_nodes 48,
+    max_triples 112, diffusion_bs 8, seeded analytic 64^3 SDFs through the
+    frozen encoder): one warm step then 8 timed (K1 / K2 counts set to 0
+    just before, read just after), the busy share of one step, frozen VQ-VAE
+    and moved parameters, a save -> restore round trip, and one step at the
+    yaml's diffusion_bs of 64."""
+    import torch
+    from echoscene_torch.benchmarks import (NUM_OBJS, NUM_PREDS, profile_call,
+                                            synthetic_batch, time_train_step)
+    from echoscene_torch.kernels import flash_attention as fa
+    from echoscene_torch.models.sgdiff import SGDiff
+    from echoscene_torch.train.trainer import Trainer
+
+    cfg = sg.cfg
+    if not (cfg.compute_dtype == "bfloat16"
+            and cfg.shape_branch.denoiser.use_checkpoint
+            and cfg.layout_denoiser.use_checkpoint):
+        fail("the flagship config must train in bf16 with remat on")
+    batch = synthetic_batch(8, 48, 112, seed=0, diffusion_bs=8,
+                            sdf_res=64).to("cuda")
+    state = sg.init_train_state()
+    vq0 = {k: v.clone() for k, v in sg.module.vqvae.state_dict().items()}
+    p0 = {n: p.detach().clone() for n, p in sg.module.named_parameters()
+          if p.requires_grad}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    k = 8
+    sps, step_s, losses = time_train_step(sg, state, batch, 8, k=k)
+    launches = dict(fa.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    want = {"onepass_attention": 10 * (k + 1),
+            "stream_attention": 1 * (k + 1)}
+    if launches != want:
+        fail(f"training launched {launches} in {k + 1} steps, want {want} "
+             "(K1: 5 sites forward + 5 in the remat recompute; K2: one "
+             "encoder chunk of 8 rows)")
+    if not bool(torch.isfinite(losses).all()):
+        fail(f"training losses not finite: {losses.tolist()}")
+    moved = {}
+    for n, p in sg.module.named_parameters():
+        if n in p0:
+            top = n.split(".")[0]
+            moved[top] = max(moved.get(top, 0.0),
+                             (p.detach() - p0[n]).abs().max().item())
+    del p0
+    # the GCNs and predicate embeddings feed only c_s, which no loss reads
+    # (their gradients are zero in JAX too): they keep their weights
+    if not all(moved[top] > 0 for top in ("layout_denoiser", "shape_denoiser",
+                                          "rel_s_mlp", "obj_embeddings_ec")):
+        fail(f"some trainable parts did not move: {moved}")
+    vq = sg.module.vqvae.state_dict()
+    if not all(torch.equal(vq[key], v) for key, v in vq0.items()):
+        fail("the frozen VQ-VAE changed under training")
+    del vq0
+    gen = torch.Generator(device="cuda").manual_seed(23)
+
+    def one_step():
+        return sg.train_step(state, batch, gen)
+    one_step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one_step()
+    torch.cuda.synchronize()
+    busy = profile_call(one_step, sg.device,
+                        (time.perf_counter() - t0) * 1e3)
+
+    # the step in its parts, as train_step runs them: the forward and the
+    # losses, the backward, the optimizer (clip, NaN zeroing, AdamW); one
+    # pass timed by the host clock, one with each part under the profiler
+    params = [p for p in sg.module.parameters() if p.requires_grad]
+    held = {}
+
+    def forward():
+        held["loss"] = sg.loss_fn(batch, gen)[0]
+
+    def backward():
+        held["loss"].backward()
+
+    def optimizer():
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in params]
+        for p in params:
+            p.grad = None
+        sg.apply_gradients(state, grads)
+    steps = (("forward", forward), ("backward", backward),
+             ("optimizer", optimizer))
+    wall = {}
+    for name, fn in steps:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall[name] = (time.perf_counter() - t0) * 1e3
+    parts = {name: profile_call(fn, sg.device, wall[name])
+             for name, fn in steps}
+    del held
+
+    trainer = trainer_steps(sg, state, card)
+
+    # save -> restore into a model with other weights, bit for bit
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        t0 = time.perf_counter()
+        Trainer(sg, None, None, tmp).save(state, 0)
+        save_s = time.perf_counter() - t0
+        size = os.path.getsize(os.path.join(tmp, "checkpoint", "model0"))
+        torch.manual_seed(1)
+        other = SGDiff(cfg, NUM_OBJS, NUM_PREDS, device="cuda")
+        t0 = time.perf_counter()
+        st2 = Trainer(other, None, None, tmp).load(other.init_train_state(), 0)
+        load_s = time.perf_counter() - t0
+        a, b = sg.module.state_dict(), other.module.state_dict()
+        same = a.keys() == b.keys() and all(torch.equal(a[x], b[x]) for x in a)
+        oa, ob = state.optimizer.state_dict(), st2.optimizer.state_dict()
+        same = same and oa["state"].keys() == ob["state"].keys() and all(
+            torch.equal(v, ob["state"][i][key])
+            for i, st in oa["state"].items() for key, v in st.items())
+        if not (same and (st2.step, st2.epoch) == (state.step, state.epoch)):
+            fail("the checkpoint round trip is not bit-exact")
+        # both take the next step from the same draws: the same loss
+        # (the forward is deterministic; cuDNN's weight gradients need not
+        # be, so the updates are not compared bit for bit)
+        resumed = [m.train_step(s, batch, torch.Generator(
+            device="cuda").manual_seed(31))["loss"].item()
+            for m, s in ((sg, state), (other, st2))]
+        if not (math.isfinite(resumed[0]) and resumed[0] == resumed[1]):
+            fail(f"the step after the restore gave loss {resumed[1]}, the "
+                 f"model it was saved from {resumed[0]}")
+        del other, st2, a, b, oa, ob
+    torch.cuda.empty_cache()
+
+    # one step at the yaml's shape capacity (hyper.batch_size 64), on the
+    # node capacity train.cli gives 8 scenes (16 a scene, 3 triples a node)
+    batch64 = synthetic_batch(8, 128, 384, seed=0, diffusion_bs=64,
+                              sdf_res=64).to("cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    loss64 = sg.train_step(state, batch64, gen)["loss"]
+    torch.cuda.synchronize()
+    peak64 = torch.cuda.max_memory_allocated()
+    launches64 = dict(fa.LAUNCHES)
+    if launches64 != {"onepass_attention": 10, "stream_attention": 8}:
+        fail(f"the diffusion_bs 64 step launched {launches64}, want K1 10 "
+             "and K2 8 (eight encoder chunks of 8)")
+    if not bool(torch.isfinite(loss64)):
+        fail("the diffusion_bs 64 step's loss is not finite")
+    return {"scenes_per_sec": sps, "ms_per_step": step_s * 1e3,
+            "losses": losses.tolist(), "launches": launches,
+            "steps": k + 1, "peak_gib": peak / 2**30,
+            "busy_share": busy["busy_share"],
+            "step_device_ms": busy["device_ms"],
+            "step_wall_ms": busy["wall_ms"],
+            "step_kernel_launches": busy["kernel_launches"],
+            "step_parts": parts, "trainer": trainer,
+            "moved": moved, "checkpoint_bytes": size, "save_s": save_s,
+            "load_s": load_s, "peak_gib_diffusion_bs_64": peak64 / 2**30,
+            "loss_diffusion_bs_64": loss64.item(),
+            "launches_diffusion_bs_64": launches64}
+
+
 def main() -> int:
+    global T_START
+    T_START = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -614,7 +999,8 @@ def main() -> int:
     clock = max_sm_clock_hz()
     entries = [
         check_kernel("onepass_attention", fa.onepass_attention,
-                     (rows, 1024, 8, 56), [(3, 200, 2, 24), (3, 333, 8, 56)],
+                     (rows, 1024, 8, 56),
+                     [(3, 200, 2, 24), (3, 333, 8, 56), TRAIN_K1_SHAPE],
                      "echoscene_tpu/kernels/flash_attention.py:73", clock),
         check_kernel("stream_attention", fa.stream_attention,
                      (8, 4096, 1, 256), [(2, 77, 3, 200)],
@@ -636,6 +1022,18 @@ def main() -> int:
               f"{e['err_of_limit'][1]:.3f} of their limits, 32 keys left out "
               f"at {e['keys_dropped_err_of_limit'][0]:.3f} / "
               f"{e['keys_dropped_err_of_limit'][1]:.3f} [{card}]")
+    # K1 / K2 at the training shapes, through the differentiable Function
+    for e, shape in zip(entries, (TRAIN_K1_SHAPE, TRAIN_K2_SHAPE)):
+        wrapper = getattr(fa, e["name"])
+        e.update(check_kernel_backward(e["name"], wrapper, shape))
+        print(f"kernel {e['name']} {shape} forward + backward (kernel forward,"
+              f" plain recompute backward): {e['fwd_bwd_ms']:.4f} ms; plain "
+              f"forward + backward {e['plain_fwd_bwd_ms']:.4f} ms; sdpa "
+              f"forward + backward {e['library_fwd_bwd_ms']:.4f} ms; dq, dk, "
+              f"dv vs plain autograd: bit-equal {e['grad_bit_equal']}, max "
+              f"diff {e['grad_max_diff_of_peak']:.3e} of the peak; forward "
+              f"max / mean err at {e['train_err_of_limit'][0]:.3f} / "
+              f"{e['train_err_of_limit'][1]:.3f} of their limits [{card}]")
     # K4 at the metric shapes: the MMD step's chamfers (8 references of
     # 5000 points), a full batch of 16, one consistency pair, and a ragged
     # case
@@ -661,6 +1059,8 @@ def main() -> int:
     # 3. the rest of the port on the card vs on the CPU
     err = check_tiny_against_cpu()
     print(f"tiny config, CUDA vs CPU f32 sample: max abs err {err:.3e}")
+    tr = check_tiny_train_against_cpu()
+    print(f"tiny config, CUDA vs CPU f32 training step: {json.dumps(tr)}")
     worst = check_metrics_against_cpu()
     print(f"MMD / COV / 1-NN, CUDA vs CPU: largest relative differences "
           f"{json.dumps(worst)}")
@@ -718,9 +1118,30 @@ def main() -> int:
             str(p["shape"]), 0)
     print(f"eval path wall seconds: {json.dumps(ev)}; native library "
           f"available: {native.available()} [{card}]")
+    # 7. the joint training step at full width on the phase-4 model
+    t0 = time.perf_counter()
+    tr = train_path(sg, card)
+    for e in entries[:2]:
+        e["train_launches"] = tr["launches"][e["name"]]
+        e["train_launches_per_step"] = tr["launches"][e["name"]] // tr["steps"]
+    print(f"training: {tr['scenes_per_sec']:.4f} train scenes/sec, "
+          f"{tr['ms_per_step']:.3f} ms per step (8 scenes, diffusion_bs 8, "
+          f"bf16, remat; 1 warm + 8 timed steps), peak memory "
+          f"{tr['peak_gib']:.2f} GiB; one step: {tr['step_wall_ms']:.3f} ms "
+          f"wall, device busy share {tr['busy_share']:.3f}, "
+          f"{tr['step_kernel_launches']} kernel launches; diffusion_bs 64: "
+          f"peak memory {tr['peak_gib_diffusion_bs_64']:.2f} GiB [{card}]")
+    for name, p in tr["step_parts"].items():
+        print(f"training step part {name}: {p['wall_ms']:.3f} ms wall, "
+              f"device {p['device_ms']:.3f} ms, busy share "
+              f"{p['busy_share']:.3f}, {p['kernel_launches']} kernel "
+              f"launches [{card}]")
+    print(f"training details: {json.dumps(tr)}; phase 7 took "
+          f"{time.perf_counter() - t0:.1f} s")
     for e in entries:
         e["status"] = "ported: built, matches its plain version, on the path"
 
+    print(f"chip_smoke: {time.perf_counter() - T_START:.1f} s in all")
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

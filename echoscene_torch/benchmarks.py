@@ -1,13 +1,14 @@
 """Flagship model construction and generation timing for the port.
 
-Port of `build_flagship` and `time_generation` of echoscene_tpu/benchmarks.py.
-The flagship is EchoScene at full `configs/full_mp.yaml` widths with seeded
-random weights (no checkpoint is in the repository), sampling a seeded
-synthetic scene batch at the bench's shape: 8 scenes of 3-5 objects plus
-their `_scene_` root node, `max_nodes=48`, `max_triples=112`, scene-major
-nodes with all padding at the tail, and 512-d unit-norm text / relation
-features in place of CLIP's.  The data layer is not ported yet, so the batch
-is made here rather than by the collate of a fake dataset.
+Port of `build_flagship`, `time_generation` and `time_train_step` of
+echoscene_tpu/benchmarks.py.  The flagship is EchoScene at full
+`configs/full_mp.yaml` widths with seeded random weights (no checkpoint is
+in the repository), on a seeded synthetic scene batch at the bench's shape:
+8 scenes of 3-5 objects plus their `_scene_` root node, `max_nodes=48`,
+`max_triples=112`, scene-major nodes with all padding at the tail, 512-d
+unit-norm text / relation features in place of CLIP's, and for training a
+greedy shape sub-batch of seeded analytic 64^3 SDFs (the card's machine has
+no h5py to read a fake dataset's grids).
 """
 from __future__ import annotations
 
@@ -18,9 +19,10 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from .core.graphbatch import GraphBatch, SceneBatch
+from .core.graphbatch import GraphBatch, SceneBatch, ShapeSelection
 from .models.config import EchoSceneConfig, load_config
-from .models.sgdiff import SGDiff, compact_graph, shape_row_capacity
+from .models.sgdiff import (SGDiff, TrainState, compact_graph,
+                            shape_row_capacity)
 
 # the fake SG-FRONT vocabulary of the JAX package's data/fake.py: 9 coarse
 # classes (index 0 = `_scene_`) and "in" + 15 relationships
@@ -31,14 +33,35 @@ CLIP_DIM = 512
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+def analytic_sdf(kind: int, res: int, rng: np.random.Generator
+                 ) -> np.ndarray:
+    """A seeded analytic SDF on a [-1, 1]^3 grid of res^3 points: sphere
+    (kind 0), box (1) or ellipsoid (2; the scaled-radius approximation)."""
+    c = np.linspace(-1, 1, res, dtype=np.float32)
+    p = np.stack(np.meshgrid(c, c, c, indexing="ij"), -1)
+    if kind == 0:
+        return np.linalg.norm(p, axis=-1) - rng.uniform(0.3, 0.7)
+    half = rng.uniform(0.25, 0.6, 3)
+    if kind == 1:
+        q = np.abs(p) - half
+        return (np.linalg.norm(np.maximum(q, 0), axis=-1)
+                + np.minimum(q.max(-1), 0))
+    return (np.linalg.norm(p / half, axis=-1) - 1.0) * half.min()
+
+
 def synthetic_batch(batch_scenes: int = 8, max_nodes: int = 48,
                     max_triples: int = 112, seed: int = 0, min_objs: int = 3,
-                    max_objs: int = 5) -> SceneBatch:
+                    max_objs: int = 5, diffusion_bs: int = 0,
+                    sdf_res: int = 64) -> SceneBatch:
     """A collated-layout SceneBatch (CPU tensors) made from `seed`.
 
     Each scene has k in [min_objs, max_objs] objects and a `_scene_` root
     node; every object has an "in" (predicate 0) edge to the root and one
-    random relation to the next object of its scene."""
+    random relation to the next object of its scene.  With diffusion_bs > 0
+    it carries the training shape sub-batch: the greedy whole-scene prefix
+    of at most diffusion_bs rows (collate's rule), each real row a seeded
+    analytic SDF grid clamped to [-0.2, 0.2] like the dataset's, the
+    other rows zeros."""
     rng = np.random.default_rng(seed)
     n_cap, t_cap = max_nodes, max_triples
     objs = np.zeros(n_cap, np.int64)
@@ -76,6 +99,22 @@ def synthetic_batch(batch_scenes: int = 8, max_nodes: int = 48,
         return torch.from_numpy(x * mask[:, None])
 
     t = torch.from_numpy
+    shapes = None
+    if diffusion_bs:
+        sizes = np.bincount(obj_to_scene[obj_mask > 0],
+                            minlength=batch_scenes)
+        valid = 0
+        for k in sizes:
+            if valid + k > diffusion_bs:
+                break
+            valid += int(k)
+        sdf = np.zeros((diffusion_bs, sdf_res, sdf_res, sdf_res, 1),
+                       np.float32)
+        for i in range(valid):
+            sdf[i, ..., 0] = np.clip(analytic_sdf(i % 3, sdf_res, rng),
+                                     -0.2, 0.2)
+        shapes = ShapeSelection(sdf=t(sdf),
+                                num_valid=torch.tensor(valid))
     view = GraphBatch(objs=t(objs), triples=t(triples), obj_mask=t(obj_mask),
                       triple_mask=t(triple_mask),
                       text_feats=unit((n_cap, CLIP_DIM), obj_mask),
@@ -85,7 +124,7 @@ def synthetic_batch(batch_scenes: int = 8, max_nodes: int = 48,
                       triple_to_scene=t(triple_to_scene), boxes=t(boxes),
                       change_flags=torch.zeros(n_cap),
                       enc_obj_mask=t(obj_mask.copy()),
-                      num_scenes=batch_scenes)
+                      num_scenes=batch_scenes, shapes=shapes)
 
 
 def seeded_weights_(module: torch.nn.Module, seed: int,
@@ -145,6 +184,21 @@ def time_generation(sg: SGDiff, batch: SceneBatch, batch_scenes: int,
     return batch_scenes / dt, dt, out
 
 
+def time_train_step(sg: SGDiff, state: TrainState, batch: SceneBatch,
+                    batch_scenes: int, k: int = 8, seed: int = 17):
+    """Train scenes/sec as bench.py defines it: batch_scenes x k steps over
+    the wall seconds of k steps, after one untimed warm step; returns
+    (scenes_per_sec, seconds per step, the k losses)."""
+    gen = torch.Generator(device=sg.device).manual_seed(seed)
+    sg.train_step(state, batch, gen)
+    torch.cuda.synchronize(sg.device)
+    t0 = time.perf_counter()
+    losses = [sg.train_step(state, batch, gen)["loss"] for _ in range(k)]
+    torch.cuda.synchronize(sg.device)
+    dt = time.perf_counter() - t0
+    return batch_scenes * k / dt, dt / k, torch.stack(losses).cpu()
+
+
 @torch.no_grad()
 def device_busy_shares(sg: SGDiff, batch: SceneBatch, rows: int,
                        iters: int = 5) -> dict:
@@ -175,9 +229,6 @@ def device_busy_shares(sg: SGDiff, batch: SceneBatch, rows: int,
             z, t, uc_s, triples, obj_mask, tri_mask),
         "decode_chunk": lambda: model.decode_latent(z[:8]),
     }
-    cuda = torch.autograd.DeviceType.CUDA
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
     out = {}
     for name, fn in parts.items():
         fn()
@@ -186,16 +237,26 @@ def device_busy_shares(sg: SGDiff, batch: SceneBatch, rows: int,
         for _ in range(iters):
             fn()
         torch.cuda.synchronize(dev)
-        wall_ms = (time.perf_counter() - t0) / iters * 1e3
-        with torch.profiler.profile(activities=acts) as prof:
-            fn()
-            torch.cuda.synchronize(dev)
-        # CPU ops also carry the device time of their kernels: count only
-        # the device-side events
-        kernels = [e for e in prof.key_averages() if e.device_type == cuda]
-        dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-        out[name] = {"wall_ms": wall_ms,
-                     "device_ms": dev_ms if dev_ms > 0 else None,
-                     "busy_share": dev_ms / wall_ms if dev_ms > 0 else None,
-                     "kernel_launches": sum(e.count for e in kernels)}
+        out[name] = profile_call(fn, dev,
+                                 (time.perf_counter() - t0) / iters * 1e3)
     return out
+
+
+def profile_call(fn, device, wall_ms: float) -> dict:
+    """The device time and kernel launches of one call of `fn` under
+    torch.profiler (device-side events only), and their ratio to `wall_ms`,
+    the call's wall time measured without the profiler: the share of the
+    call the device is busy."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize(device)
+    # CPU ops also carry the device time of their kernels: count only the
+    # device-side events
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = [e for e in prof.key_averages() if e.device_type == cuda]
+    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    return {"wall_ms": wall_ms, "device_ms": dev_ms if dev_ms > 0 else None,
+            "busy_share": dev_ms / wall_ms if dev_ms > 0 else None,
+            "kernel_launches": sum(e.count for e in kernels)}

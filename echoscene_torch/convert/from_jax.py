@@ -16,6 +16,9 @@ Conventions (the inverse of torch_import's):
 
 Inputs are nested dicts of numpy arrays (`jax.device_get` of the variables).
 `to_state_dict` turns an output into torch tensors for `load_state_dict`.
+`module_to_checkpoint` is the inverse of `checkpoint_to_module`, and
+`adam_state_from_jax` carries optax's Adam moments (param-shaped trees)
+through the same key mapping into `torch.optim.AdamW` state.
 """
 from __future__ import annotations
 
@@ -389,6 +392,49 @@ def checkpoint_to_module(ckpt: Mapping[str, object]) -> StateDict:
         elif key not in ("epoch", "counter", "opt"):
             out[key] = value
     return out
+
+
+def module_to_checkpoint(sd: Mapping[str, object]) -> Dict[str, object]:
+    """The port's EchoSceneModule state_dict -> the reference checkpoint
+    layout (the inverse of `checkpoint_to_module`)."""
+    out: Dict[str, object] = {}
+    for key, value in sd.items():
+        head, _, rest = key.partition(".")
+        if head == "shape_denoiser":
+            out.setdefault("shape_df", {})[f"{SHAPE_PREFIX}.{rest}"] = value
+        elif head == "vqvae":
+            out.setdefault("vqvae", {})[rest] = value
+        elif head == "layout_denoiser":
+            out[f"{LAYOUT_PREFIX}.{rest}"] = value
+        else:
+            out[key] = value
+    return out
+
+
+def adam_state_from_jax(mu: Mapping, nu: Mapping, count: int,
+                        stats: Mapping, cfg,
+                        param_names: Sequence[str]) -> Dict[str, Dict]:
+    """optax ScaleByAdamState (mu, nu: param-shaped trees of numpy arrays,
+    the frozen `vqvae` subtree left out; count: its step count) -> per
+    parameter `torch.optim.AdamW` state {"step", "exp_avg", "exp_avg_sq"}
+    for each name of `param_names`.  mu and nu go through the key mapping
+    of `convert_echoscene_checkpoint` (`stats`, the batch statistics, only
+    fill the batch-norm entries that are dropped here)."""
+    maps = [checkpoint_to_module(convert_echoscene_checkpoint(t, stats, cfg))
+            for t in (mu, nu)]
+    return {name: {"step": torch.tensor(float(count)),
+                   "exp_avg": torch.from_numpy(np.array(maps[0][name])),
+                   "exp_avg_sq": torch.from_numpy(np.array(maps[1][name]))}
+            for name in param_names}
+
+
+def load_adam_state(optimizer: torch.optim.Optimizer,
+                    named_params: Sequence, state: Mapping[str, Dict]) -> None:
+    """Install `adam_state_from_jax`'s output into an AdamW over
+    `named_params` ((name, parameter) pairs, the optimizer's order)."""
+    for name, p in named_params:
+        optimizer.state[p] = {k: v.to(p.device) if k != "step" else v
+                              for k, v in state[name].items()}
 
 
 def to_state_dict(sd: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:

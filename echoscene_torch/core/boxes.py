@@ -65,6 +65,13 @@ def sincos_to_angle(sincos: torch.Tensor) -> torch.Tensor:
     return torch.atan2(sincos[..., 0:1], sincos[..., 1:2])
 
 
+def box_vec_from_boxes(boxes7: torch.Tensor) -> torch.Tensor:
+    """(..., 7) scaled boxes with the raw angle -> (..., 8) diffusion-space
+    vectors (size, translation, sin, cos)."""
+    return torch.cat([boxes7[..., :6], angle_to_sincos(boxes7[..., 6:7])],
+                     dim=-1)
+
+
 def standardize_box_params(box_params, stats_mean, stats_std,
                            scale: float = 3.0):
     """Mean/std standardisation (helpers/util.py:570-590)."""

@@ -62,6 +62,22 @@ class ShapeSelection:
     indices: Optional[torch.Tensor] = None  # long[M] node slot per row
     mp_valid: bool = True
 
+    @property
+    def capacity(self) -> int:
+        src = self.sdf if self.sdf is not None else self.latent
+        return src.shape[0]
+
+    def mask(self) -> torch.Tensor:
+        """f32[M] 1 for the real sub-batch slots."""
+        return (torch.arange(self.capacity, device=self.num_valid.device)
+                < self.num_valid).float()
+
+    def gather_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """This sub-batch's rows of a per-node array."""
+        if self.indices is None:
+            return x[:self.capacity]
+        return x[self.indices]
+
     def to(self, device) -> "ShapeSelection":
         return ShapeSelection(_to(self.sdf, device), _to(self.num_valid, device),
                               _to(self.latent, device), _to(self.indices, device),
@@ -86,6 +102,20 @@ class SceneBatch:
     @property
     def num_nodes(self) -> int:
         return self.boxes.shape[0]
+
+    def scene_one_hot(self) -> torch.Tensor:
+        """f32[N, S] scene membership (padded nodes map to no scene)."""
+        scenes = torch.arange(self.num_scenes, device=self.obj_to_scene.device)
+        return (self.obj_to_scene[:, None] == scenes[None, :]).float()
+
+    def same_scene_matrix(self) -> torch.Tensor:
+        """f32[N, N] 1 where two real nodes share a scene, diagonal zeroed
+        (the IoU collision loss's pair mask, diffusion_ddpm.py:412-418)."""
+        same = self.obj_to_scene[:, None] == self.obj_to_scene[None, :]
+        real = self.dec.obj_mask[:, None] * self.dec.obj_mask[None, :] > 0
+        n = self.num_nodes
+        eye = torch.eye(n, device=same.device)
+        return (same & real).float() * (1.0 - eye)
 
     def to(self, device) -> "SceneBatch":
         return SceneBatch(

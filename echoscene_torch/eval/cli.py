@@ -14,11 +14,12 @@ Manipulated eval (relationship / addition) keeps GT boxes for untouched nodes
 (:191-202) and scores changed and unchanged triples separately.
 
 `--epoch -1` (the default) samples from fresh weights drawn from seed 0, as
-JAX initialises from PRNGKey(0).  Not ported yet, and raising
-NotImplementedError: checkpoint restore (`--epoch >= 0`, the training
-slice), renders and the retrieval / txt2shape render types (the render /
-retrieval slice), `--dp_devices > 1` (the multi-GPU slice); the samplers and
-dtypes the port's SGDiff lacks raise there.
+JAX initialises from PRNGKey(0); `--epoch E` restores the parameters and
+batch-norm statistics of <exp>/checkpoint/model<E> (`restore_for_inference`,
+the training CLI's checkpoints).  Not ported yet, and raising
+NotImplementedError: renders and the retrieval / txt2shape render types (the
+render / retrieval slice), `--dp_devices > 1` (the multi-GPU slice); the
+samplers and dtypes the port's SGDiff lacks raise there.
 """
 from __future__ import annotations
 
@@ -38,11 +39,6 @@ def evaluate(args):
     from ..models.config import load_config
     from ..models.sgdiff import SGDiff
 
-    if args.epoch >= 0:
-        raise NotImplementedError(
-            "restoring a checkpoint (--epoch >= 0) comes with the port's "
-            "training slice, which defines its checkpoint format; use "
-            "--epoch -1 for fresh weights")
     if args.render_dir or args.render_type in ("retrieval", "txt2shape"):
         raise NotImplementedError(
             "renders and the retrieval / txt2shape render types come with "
@@ -91,6 +87,10 @@ def evaluate(args):
         torch.manual_seed(0)
         sg = SGDiff(cfg, num_objs=len(ds0.classes),
                     num_preds=len(ds0.pred_names), device=args.device)
+    if args.epoch >= 0:
+        from ..train.checkpoint import restore_for_inference
+        restore_for_inference(os.path.join(
+            args.exp, "checkpoint", f"model{args.epoch}"), sg.module)
 
     bin_angle = margs.get("bin_angle", False)
     evaluator = SceneEvaluator(

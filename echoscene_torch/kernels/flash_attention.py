@@ -10,6 +10,9 @@ Replaces the Pallas TPU kernels of echoscene_tpu/kernels/flash_attention.py:
     decode chunk.
 
 Both compute softmax(q k^T * D^-1/2) v with f32 scores and f32 accumulation.
+They are differentiable as in JAX: the forward is the kernel, the backward
+recomputes the plain version and differentiates it (`KernelAttention`; JAX
+has no backward Pallas kernel either).
 On a CUDA tensor each wrapper launches its hand-written sm_90a kernel
 (`csrc/flash_attention.cu`; see its header for the design and what bounds it
 on the H100) and raises on inputs the kernel does not take: dtype, layout,
@@ -159,22 +162,65 @@ def _launch(entry: str, q: torch.Tensor, k: torch.Tensor,
     return o
 
 
+class KernelAttention(torch.autograd.Function):
+    """A forward-only attention kernel made differentiable, as JAX's
+    `custom_vjp` does (`_fa_fwd` / `_fa_bwd`, flash_attention.py:226-243):
+    the forward is `fwd(q, k, v)`, the kernel; the backward recomputes
+    `attention_plain` from the saved q, k, v and differentiates it.  `fwd`
+    is a parameter so that a CPU test can run the wiring with
+    `attention_plain` standing in for the kernel."""
+
+    @staticmethod
+    def forward(ctx, fwd, q, k, v):
+        ctx.save_for_backward(q, k, v)
+        return fwd(q, k, v)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        inputs = [x.detach().requires_grad_(need) for x, need in
+                  zip(ctx.saved_tensors, ctx.needs_input_grad[1:])]
+        with torch.enable_grad():
+            out = attention_plain(*inputs)
+            wanted = [x for x in inputs if x.requires_grad]
+            grads = iter(torch.autograd.grad(out, wanted, grad_out))
+        return (None,) + tuple(next(grads) if x.requires_grad else None
+                               for x in inputs)
+
+
+def _differentiable(fwd, q, k, v) -> torch.Tensor:
+    """fwd(q, k, v), through `KernelAttention` when autograd records: no
+    Function (and no saved q, k, v) under torch.no_grad()."""
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return KernelAttention.apply(fwd, q, k, v)
+    return fwd(q, k, v)
+
+
+def _onepass_kernel(q, k, v):
+    return _launch("onepass_attention", q, k, v)
+
+
+def _stream_kernel(q, k, v):
+    return _launch("stream_attention", q, k, v)
+
+
 def onepass_attention(q: torch.Tensor, k: torch.Tensor,
                       v: torch.Tensor) -> torch.Tensor:
     """K1 (replaces `_onepass_kernel`): attention where JAX keeps all of K/V
-    resident.  CUDA: the sm_90a kernel; CPU: `attention_plain`."""
+    resident.  CUDA: the sm_90a kernel (differentiable through
+    `KernelAttention`); CPU: `attention_plain`."""
     if q.device.type == "cpu":
         return attention_plain(q, k, v)
-    return _launch("onepass_attention", q, k, v)
+    return _differentiable(_onepass_kernel, q, k, v)
 
 
 def stream_attention(q: torch.Tensor, k: torch.Tensor,
                      v: torch.Tensor) -> torch.Tensor:
     """K2 (replaces `_stream_kernel`): attention where JAX streams K/V in
-    blocks.  CUDA: the sm_90a kernel; CPU: `attention_plain`."""
+    blocks.  CUDA: the sm_90a kernel (differentiable through
+    `KernelAttention`); CPU: `attention_plain`."""
     if q.device.type == "cpu":
         return attention_plain(q, k, v)
-    return _launch("stream_attention", q, k, v)
+    return _differentiable(_stream_kernel, q, k, v)
 
 
 def kv_fits_onepass(s: int, d: int) -> bool:

@@ -1,12 +1,15 @@
 """EchoScene module: graph encoder + manipulator GCNs feeding the layout and
 shape diffusion branches.
 
-Port of the sampling methods of echoscene_tpu/models/echo_scene.py
-(reference model/EchoScene.py:14-543): `encode_context` (node streams of
-[CLIP text feature, class embedding], the 5-layer encoder GCN, zero latents
-for nodes absent from the encoder view, the change code, the manipulator
-GCN, and rel_s_mlp's shape-branch conditioning), `layout_eps`, `shape_eps`
-and `decode_latent`.  Training methods come with the training slice.
+Port of echoscene_tpu/models/echo_scene.py (reference model/EchoScene.py:
+14-543): `encode_context` (node streams of [CLIP text feature, class
+embedding], the 5-layer encoder GCN, zero latents for nodes absent from the
+encoder view, the change code, the manipulator GCN, and rel_s_mlp's
+shape-branch conditioning), `layout_eps`, `shape_eps`, `decode_latent`, and
+for training the frozen VQ encode `encode_sdf`, the shape sub-batch
+`select_shape_subbatch` and the joint forward `train_forward`, which is also
+the module's `forward`.  Batch-norm layers run on batch statistics in
+`.train()` mode, as JAX's `train=True`.
 
 Submodule names give the port's state_dict keys; convert/from_jax.py maps
 them to and from the reference checkpoint layout (LayoutDiff.df.model.*,
@@ -68,7 +71,7 @@ class EchoSceneModule(nn.Module):
                 attention_resolutions=tuple(sd.attention_resolutions),
                 channel_mult=tuple(sd.channel_mult), num_heads=sd.num_heads,
                 transformer_depth=sd.transformer_depth,
-                context_dim=sd.context_dim,
+                context_dim=sd.context_dim, use_checkpoint=sd.use_checkpoint,
                 conditioning_key=sd.conditioning_key,
                 message_passing=sd.message_passing,
                 enable_t_emb=sd.enable_t_emb,
@@ -92,7 +95,7 @@ class EchoSceneModule(nn.Module):
             conditioning_key=ld.conditioning_key, concat_dim=ld.concat_dim,
             crossattn_dim=ld.crossattn_dim, enable_t_emb=ld.enable_t_emb,
             gconv_num_layers=ld.gconv_num_layers, num_preds=16,
-            obj_dim=enc_out)
+            obj_dim=enc_out, use_checkpoint=ld.use_checkpoint)
 
     def _embed_graph(self, view: GraphBatch):
         """[CLIP feature, class / predicate embedding] (init_encoder
@@ -156,3 +159,62 @@ class EchoSceneModule(nn.Module):
     def decode_latent(self, z: torch.Tensor) -> torch.Tensor:
         """Quantize + decode to a 64^3 SDF grid (decode_no_quant)."""
         return self.vqvae.decode_no_quant(z)
+
+    @torch.no_grad()
+    def encode_sdf(self, sdf: torch.Tensor, chunk: int = 8) -> torch.Tensor:
+        """Frozen VQ-VAE pre-quant encode, (M, R, R, R, 1) -> (M, r, r, r,
+        z), without gradients (echo2shape.py:348-349); chunked as JAX
+        chunks it, by `chunk` rows when M is a multiple above it."""
+        m = sdf.shape[0]
+        if m % chunk == 0 and m > chunk:
+            return torch.cat([self.vqvae.encode_no_quant(sdf[i:i + chunk])
+                              for i in range(0, m, chunk)], 0)
+        return self.vqvae.encode_no_quant(sdf)
+
+    def select_shape_subbatch(self, batch: SceneBatch):
+        """(obj_mask, triples, triple_mask) of the shape sub-batch
+        (select_sdfs, EchoScene.py:246-319): greedy takes the scene-major
+        prefix of `num_valid` rows with the graph's triples remapped onto
+        it; random / balance rows carry no triples (mp_valid False)."""
+        shapes = batch.shapes
+        m, nv = shapes.capacity, shapes.num_valid
+        s, o = batch.dec.triples[:, 0], batch.dec.triples[:, 2]
+        mp = 1.0 if shapes.mp_valid else 0.0
+        tri_mask = (batch.dec.triple_mask * mp * (s < nv).float()
+                    * (o < nv).float())
+        triples = torch.stack([s.clamp(max=m - 1), batch.dec.triples[:, 1],
+                               o.clamp(max=m - 1)], dim=1)
+        return shapes.mask(), triples, tri_mask
+
+    def train_forward(self, batch: SceneBatch, change_noise: torch.Tensor,
+                      box_xt: torch.Tensor, t_box: torch.Tensor,
+                      shape_noise: Optional[torch.Tensor] = None,
+                      t_shape: Optional[torch.Tensor] = None,
+                      sqrt_ac: Optional[torch.Tensor] = None,
+                      sqrt_1m_ac: Optional[torch.Tensor] = None
+                      ) -> Dict[str, torch.Tensor]:
+        """The joint forward of one training step (Sg2ScDiffModel.forward,
+        EchoScene.py:328-386): the shared graph context, the layout
+        denoiser on the noised boxes, and the shape denoiser on the VQ
+        latents noised here with the caller's coefficients gathered at
+        t_shape.  Returns eps_box, and eps_shape and shape_mask for
+        echoscene."""
+        ctx = self.encode_context(batch, change_noise)
+        out = {"eps_box": self.layout_eps(box_xt, t_box, ctx["obj_embed"],
+                                          batch.dec.triples,
+                                          batch.dec.obj_mask,
+                                          batch.dec.triple_mask)}
+        if self.cfg.network_type == "echoscene":
+            shapes = batch.shapes
+            z0 = (shapes.latent if shapes.latent is not None
+                  else self.encode_sdf(shapes.sdf))
+            bc = (slice(None),) + (None,) * (z0.dim() - 1)
+            z_t = sqrt_ac[bc] * z0 + sqrt_1m_ac[bc] * shape_noise
+            obj_mask, triples, tri_mask = self.select_shape_subbatch(batch)
+            uc_s = shapes.gather_rows(ctx["uc_s"])[:, None, :]
+            out["eps_shape"] = self.shape_eps(z_t, t_shape, uc_s, triples,
+                                              obj_mask, tri_mask)
+            out["shape_mask"] = obj_mask
+        return out
+
+    forward = train_forward

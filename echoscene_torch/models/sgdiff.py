@@ -1,27 +1,41 @@
-"""SGDiff facade: builds the model and the diffusion tables, and samples.
+"""SGDiff facade: builds the model, the diffusion tables and the optimizer;
+trains and samples.
 
-Port of the sampling half of echoscene_tpu/models/sgdiff.py (reference
-model/SGDiff.py sample_box_and_shape, Sg2ScDiffModel.sample :388-420):
-`sample_fn` runs the graph context, the 1000-step layout DDPM chain and the
-100-step shape DDIM chain (each with the echo GCN inside every step) and the
-chunked VQ decode.  Training comes with the training slice.
+Port of echoscene_tpu/models/sgdiff.py (reference model/SGDiff.py and
+EchoScene.optimizer_ini / lr_lambda, EchoScene.py:117-141):
+  * `loss_fn` / `train_step`: both branches' losses, their gradients, the
+    shape denoiser's gradient clipped at norm 5 and NaN gradients zeroed
+    (train_3dfront.py:249-261), AdamW over everything but the frozen VQ-VAE
+    with a piecewise-constant lr, and gradient accumulation as
+    optax.MultiSteps (the clip runs on the accumulated mean);
+  * `sample_fn`: the graph context, the 1000-step layout DDPM chain and the
+    100-step shape DDIM chain (each with the echo GCN inside every step)
+    and the chunked VQ decode.
 
-Precision: with cfg.sample_dtype == "bfloat16" (the default) each sampling
-call runs a bf16 inference twin: a copy of the module whose parameters are
-cast to bf16 once per call (buffers, i.e. batch-norm running statistics,
-stay f32, as JAX casts only `params`); norms keep f32 statistics and chain
-math is f32.  TF32 is switched off for f32 matmuls and convolutions
+Precision: the module holds f32 master parameters; the AdamW state is f32.
+With cfg.compute_dtype == "bfloat16" (the default) each training step runs
+the module on bf16 casts of its parameters, made once per step with
+autograd (`torch.func.functional_call`), so gradients land on the f32
+masters; buffers (batch-norm running statistics) stay f32 and are updated
+in place, norms keep f32 statistics and the losses are f32.  With
+cfg.sample_dtype == "bfloat16" (the default) each sampling call runs a bf16
+inference twin: a copy of the module whose parameters are cast to bf16 once
+per call (buffers stay f32, as JAX casts only `params`).  TF32 is switched
+off for f32 matmuls and convolutions
 (`torch.backends.cuda.matmul.allow_tf32 = False`,
 `torch.backends.cudnn.allow_tf32 = False`), so f32 work stays f32.
 """
 from __future__ import annotations
 
 import copy
-from typing import Dict, Optional
+import dataclasses
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ..core import schedules as S
+from ..core.boxes import box_vec_from_boxes
 from ..core.graphbatch import SceneBatch
 from ..diffusion.ddpm import LayoutDiffusion
 from ..diffusion.ldm import ShapeDiffusion
@@ -53,6 +67,82 @@ def inference_twin(module: torch.nn.Module, dtype: torch.dtype
     return twin
 
 
+def lr_schedule(cfg: EchoSceneConfig) -> Callable[[int], float]:
+    """Piecewise-constant lr of the optimizer-step count (EchoScene.lr_lambda
+    :117-128), as optax.piecewise_constant_schedule: lr_init times the ratio
+    of each later lr whose boundary the count has reached (count >=
+    boundary)."""
+    lrs = [cfg.lr_init] + list(cfg.lr_evo)
+    scales = sorted({int(b): lrs[i + 1] / lrs[i]
+                     for i, b in enumerate(cfg.lr_step)}.items())
+
+    def schedule(count: int) -> float:
+        lr = cfg.lr_init
+        for boundary, scale in scales:
+            if count >= boundary:
+                lr *= scale
+        return lr
+
+    return schedule
+
+
+def trainable_parameters(module: torch.nn.Module
+                         ) -> List[Tuple[str, torch.nn.Parameter]]:
+    """Every parameter but the frozen VQ-VAE's (JAX labels those "frozen"
+    and gives them `set_to_zero`)."""
+    return [(n, p) for n, p in module.named_parameters()
+            if not n.startswith("vqvae.")]
+
+
+def make_optimizer(module: torch.nn.Module) -> torch.optim.AdamW:
+    """AdamW with optax.adamw's defaults (b1 0.9, b2 0.999, eps 1e-8, weight
+    decay 1e-4) over the trainable parameters; the VQ-VAE's stop requiring
+    gradients.  The lr is set before every step from `lr_schedule`."""
+    for n, p in module.named_parameters():
+        p.requires_grad_(not n.startswith("vqvae."))
+    return torch.optim.AdamW([p for _, p in trainable_parameters(module)],
+                             lr=0.0, betas=(0.9, 0.999), eps=1e-8,
+                             weight_decay=1e-4)
+
+
+def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of squares of every element (optax.global_norm)."""
+    return torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(t.float()) for t in tensors]))
+
+
+@torch.no_grad()
+def clip_and_sanitize_grads(names: Sequence[str],
+                            grads: Sequence[torch.Tensor],
+                            max_norm: float = 5.0) -> None:
+    """In place: the shape denoiser's gradients scaled by min(1, max_norm /
+    max(norm, 1e-6)) of their global norm, then NaN -> 0 on every gradient
+    (train_3dfront.py:253-259, JAX's formula, not clip_grad_norm_'s).  A
+    NaN norm makes the scale NaN, so the whole shape subtree is zeroed."""
+    shape = [g for n, g in zip(names, grads)
+             if n.startswith("shape_denoiser.")]
+    if shape:
+        norm = global_norm(shape)
+        scale = torch.minimum(torch.ones_like(norm), max_norm / torch.maximum(
+            norm, torch.full_like(norm, 1e-6)))
+        torch._foreach_mul_(shape, scale)
+    for g in grads:
+        torch.nan_to_num_(g, nan=0.0)
+
+
+@dataclasses.dataclass
+class TrainState:
+    """What JAX's TrainState holds beside params and batch stats (which
+    live in the module): the step count (train_step calls), the epoch, the
+    AdamW optimizer (its per-parameter step is optax's count), and the
+    running mean of the micro-batch gradients under accumulation
+    (optax.MultiSteps' acc_grads; None between optimizer steps)."""
+    optimizer: torch.optim.AdamW
+    step: int = 0
+    epoch: int = 0
+    accum: Optional[List[torch.Tensor]] = None
+
+
 def compact_graph(batch: SceneBatch, m: int):
     """(triples, obj_mask, triple_mask) of the decoder graph restricted to
     the first m node slots: endpoints clipped into [0, m), edges touching a
@@ -71,10 +161,12 @@ class SGDiff:
     """Owns the module (f32 master parameters) and the diffusion tables."""
 
     def __init__(self, cfg: EchoSceneConfig, num_objs: int, num_preds: int,
-                 device="cuda"):
+                 device="cuda", iou_stats: Optional[np.ndarray] = None):
         set_precision()
         if cfg.sample_dtype not in ("float32", "bfloat16"):
             raise NotImplementedError(f"sample_dtype {cfg.sample_dtype}")
+        if cfg.compute_dtype not in ("float32", "bfloat16"):
+            raise NotImplementedError(f"compute_dtype {cfg.compute_dtype}")
         self.cfg = cfg
         self.device = torch.device(device)
         self.module = EchoSceneModule(cfg, num_objs, num_preds).to(
@@ -86,7 +178,8 @@ class SGDiff:
             S.make_diffusion_tables(S.get_betas(
                 lc.schedule_type, lc.beta_start, lc.beta_end, lc.time_num)),
             model_mean_type=lc.model_mean_type,
-            model_var_type=lc.model_var_type)
+            model_var_type=lc.model_var_type, loss_iou=lc.loss_iou,
+            iou_type=lc.iou_type, iou_stats=iou_stats)
         self.is_echoscene = cfg.network_type == "echoscene"
         if self.is_echoscene:
             sb = cfg.shape_branch
@@ -100,10 +193,153 @@ class SGDiff:
                 sb.ddim_steps, sb.ddim_eta)
 
     def inference_module(self) -> EchoSceneModule:
-        """The module sampling runs: the bf16 twin, or the f32 module."""
+        """The module sampling runs (batch norms on their running
+        statistics): the bf16 twin, or the f32 module."""
         if self.cfg.sample_dtype == "bfloat16":
             return inference_twin(self.module, torch.bfloat16)
-        return self.module
+        return self.module.eval()
+
+    # ------------------------------------------------------------------
+    def init_train_state(self) -> TrainState:
+        return TrainState(optimizer=make_optimizer(self.module))
+
+    def _train_forward(self, *args, **kwargs) -> Dict[str, torch.Tensor]:
+        """The module's joint forward in training mode (the VQ-VAE frozen in
+        eval mode), on bf16 casts of the f32 masters when compute_dtype is
+        bfloat16."""
+        module = self.module.train()
+        if self.is_echoscene:
+            module.vqvae.eval()
+        if self.cfg.compute_dtype == "float32":
+            return module(*args, **kwargs)
+        cast = {n: p.to(torch.bfloat16) for n, p in module.named_parameters()}
+        return torch.func.functional_call(module, cast, args, kwargs)
+
+    def loss_fn(self, batch: SceneBatch,
+                generator: Optional[torch.Generator] = None,
+                draws: Optional[Dict[str, torch.Tensor]] = None
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Both branches' losses on one batch (JAX's loss_fn, sgdiff.py:
+        212-281; EchoScene.py:328-386 with diffusion_loss and the shape
+        p_losses).  Updates the batch-norm running statistics.
+
+        draws: optional injected random draws, each used in place of the
+        generator (JAX splits one key into these five streams):
+          "change"      (N, embedding_dim) change code,
+          "t_scene"     (num_scenes + 1,) layout timesteps, one per scene,
+          "noise_box"   (N, 8) layout noise,
+          "t_shape"     (M,) shape timesteps, one per sub-batch row,
+          "noise_shape" (M, r, r, r, z) latent noise.
+        Returns (total loss, metrics), JAX's metric names."""
+        cfg, ld, dev = self.cfg, self.layout_diff, self.device
+        draws = draws or {}
+
+        def draw(name, fn):
+            x = draws.get(name)
+            return fn() if x is None else x.to(dev)
+
+        n = batch.num_nodes
+        change = draw("change", lambda: torch.randn(
+            (n, cfg.embedding_dim), generator=generator, device=dev))
+        t_box = ld.scene_shared_timesteps(batch.obj_to_scene,
+                                          batch.num_scenes, generator,
+                                          draws.get("t_scene"))
+        x0 = box_vec_from_boxes(batch.boxes)
+        noise_box = draw("noise_box", lambda: torch.randn(
+            x0.shape, generator=generator, device=dev))
+        box_xt = ld.q_sample(x0, t_box, noise_box)
+        kwargs = {}
+        if self.is_echoscene:
+            sd = self.shape_diff
+            m = batch.shapes.capacity
+            r = cfg.shape_branch.denoiser.image_size
+            zc = cfg.shape_branch.vqvae.embed_dim
+            t_shape = draw("t_shape", lambda: torch.randint(
+                0, sd.num_timesteps, (m,), generator=generator, device=dev))
+            noise_shape = draw("noise_shape", lambda: torch.randn(
+                (m, r, r, r, zc), generator=generator, device=dev))
+            kwargs = dict(shape_noise=noise_shape, t_shape=t_shape,
+                          sqrt_ac=sd.coef("sqrt_alphas_cumprod", t_shape),
+                          sqrt_1m_ac=sd.coef("sqrt_one_minus_alphas_cumprod",
+                                             t_shape))
+        outs = self._train_forward(batch, change, box_xt, t_box, **kwargs)
+
+        # layout loss (diffusion_loss :451-477), target = noise
+        eps_box = outs["eps_box"].float()
+        om = batch.dec.obj_mask
+        metrics = ld.mse_terms((noise_box - eps_box) ** 2, om)
+        layout_loss = metrics["loss.bbox"]
+        zero = layout_loss.new_zeros(())
+        liou, biou = zero, zero
+        if ld.loss_iou:
+            liou, biou = ld.iou_loss(box_xt, t_box, eps_box,
+                                     batch.same_scene_matrix(), om)
+            layout_loss = layout_loss + liou
+        metrics.update({"loss.liou": liou, "loss.bbox_iou": biou})
+        shape_loss = zero
+        if self.is_echoscene:
+            # l_simple weight 1, elbo weight 0 (the VLB only logged)
+            shape_loss, shape_diag = self.shape_diff.loss_terms(
+                outs["eps_shape"].float(), noise_shape, t_shape,
+                outs["shape_mask"])
+            metrics.update(shape_diag)
+        metrics.update({"layout_loss": layout_loss, "shape_loss": shape_loss})
+        return layout_loss + shape_loss, metrics
+
+    def train_step(self, state: TrainState, batch: SceneBatch,
+                   generator: Optional[torch.Generator] = None,
+                   draws: Optional[Dict[str, torch.Tensor]] = None
+                   ) -> Dict[str, torch.Tensor]:
+        """One call of JAX's train_step: loss and gradients on `batch`, then
+        the optimizer (every `grad_accum` calls, on the running mean of the
+        micro-batch gradients).  Returns the metrics (device tensors),
+        with the loss and the global pre-clip gradient norm."""
+        params = trainable_parameters(self.module)
+        for _, p in params:
+            p.grad = None
+        loss, metrics = self.loss_fn(batch, generator, draws)
+        loss.backward()
+        # parameters the forward never reads (to_q / to_k of a one-token
+        # cross-attention) get JAX's zero gradients, so AdamW still decays
+        # them and their moments
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for _, p in params]
+        for _, p in params:
+            p.grad = None
+        metrics["loss"] = loss.detach()
+        metrics["grad_norm"] = global_norm(grads)
+        self.apply_gradients(state, grads)
+        return {k: v.detach() for k, v in metrics.items()}
+
+    def apply_gradients(self, state: TrainState,
+                        grads: List[torch.Tensor]) -> None:
+        """The optimizer chain on one call's gradients (aligned with
+        `trainable_parameters`), optax.MultiSteps(clip_and_sanitize ->
+        adamw) when grad_accum > 1; advances state.step."""
+        k = max(1, int(self.cfg.grad_accum or 1))
+        mini = state.step % k
+        if k > 1:
+            if state.accum is None:
+                state.accum = [torch.zeros_like(g) for g in grads]
+            with torch.no_grad():
+                for acc, g in zip(state.accum, grads):
+                    acc.add_((g - acc) / (mini + 1))
+            grads = state.accum
+        if mini == k - 1:
+            names = [n for n, _ in trainable_parameters(self.module)]
+            clip_and_sanitize_grads(names, grads)
+            opt = state.optimizer
+            lr = lr_schedule(self.cfg)(state.step // k)
+            for group in opt.param_groups:
+                group["lr"] = lr
+                for p, g in zip(group["params"], grads):
+                    p.grad = g
+            opt.step()
+            for group in opt.param_groups:
+                for p in group["params"]:
+                    p.grad = None
+            state.accum = None
+        state.step += 1
 
     @torch.no_grad()
     def sample_fn(self, batch: SceneBatch,

@@ -21,7 +21,7 @@ from torch import nn
 
 from ..kernels.attention import dot_product_attention
 from .blocks import GroupNorm32, layer_norm, zero_module
-from .layers import Linear, conv_nd, pointwise
+from .layers import Linear, conv_nd, pointwise, remat
 
 
 class GEGLU(nn.Module):
@@ -97,12 +97,15 @@ class BasicTransformerBlock(nn.Module):
 class SpatialTransformer(nn.Module):
     """Token attention over the flattened spatial dims of a channel-first
     (B, C, *spatial) input; 1x1 convs stored as the reference's conv
-    weights, applied as linear maps on the tokens."""
+    weights, applied as linear maps on the tokens.  With `use_checkpoint`
+    each transformer block is rematerialised (JAX's
+    `nn.remat(BasicTransformerBlock)`)."""
 
     def __init__(self, in_channels: int, n_heads: int, d_head: int,
                  depth: int = 1, context_dim: Optional[int] = None,
-                 dims: int = 3):
+                 dims: int = 3, use_checkpoint: bool = False):
         super().__init__()
+        self.use_checkpoint = use_checkpoint
         inner = n_heads * d_head
         self.norm = GroupNorm32(in_channels, eps=1e-6)
         self.proj_in = conv_nd(dims, in_channels, inner, 1)
@@ -117,6 +120,7 @@ class SpatialTransformer(nn.Module):
         h = self.norm(x).reshape(b, c, -1).transpose(1, 2)
         h = pointwise(self.proj_in, h)
         for block in self.transformer_blocks:
-            h = block(h, context)
+            h = (remat(block, h, context) if self.use_checkpoint
+                 else block(h, context))
         h = pointwise(self.proj_out, h)
         return h.transpose(1, 2).reshape(b, c, *spatial) + x

@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 
 class Linear(nn.Linear):
@@ -40,3 +41,17 @@ def pointwise(conv: nn.Module, tokens: torch.Tensor) -> torch.Tensor:
 def conv_nd(dims: int, *args, **kwargs) -> nn.Module:
     """Conv1d or Conv3d (the two spatial ranks the UNets use)."""
     return {1: Conv1d, 3: Conv3d}[dims](*args, **kwargs)
+
+
+def remat(module: nn.Module, *args):
+    """module(*args), rematerialised in the backward pass where autograd
+    records (JAX's `nn.remat`; `torch.utils.checkpoint`, non-reentrant).
+    The recompute runs on the tensors the module holds now: under
+    `torch.func.functional_call` those are the caller's cast copies, which
+    have left the module by the time the backward pass recomputes."""
+    if not torch.is_grad_enabled():
+        return module(*args)
+    state = dict(module.named_parameters(remove_duplicate=False))
+    return checkpoint(
+        lambda s, *a: torch.func.functional_call(module, s, a), state, *args,
+        use_reentrant=False)

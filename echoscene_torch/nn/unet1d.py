@@ -31,7 +31,8 @@ class LayoutDenoiser(UNetTorso):
                  conditioning_key: str = "crossattn", concat_dim: int = 1280,
                  crossattn_dim: int = 1280, enable_t_emb: bool = True,
                  gconv_dim: int = 64, gconv_num_layers: int = 5,
-                 num_preds: int = 16, obj_dim: int = 640):
+                 num_preds: int = 16, obj_dim: int = 640,
+                 use_checkpoint: bool = False):
         if conditioning_key not in ("crossattn", "concat"):
             raise NotImplementedError(conditioning_key)
         crossattn = conditioning_key == "crossattn"
@@ -39,7 +40,8 @@ class LayoutDenoiser(UNetTorso):
             in_channels + (0 if crossattn else concat_dim), model_channels,
             out_channels, num_res_blocks, attention_resolutions, channel_mult,
             num_heads, dims=1, transformer_depth=transformer_depth,
-            context_dim=crossattn_dim if crossattn else None)
+            context_dim=crossattn_dim if crossattn else None,
+            use_checkpoint=use_checkpoint)
         self.conditioning_key = conditioning_key
         self.model_channels = model_channels
         self.enable_t_emb = enable_t_emb

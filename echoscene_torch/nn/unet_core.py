@@ -16,17 +16,21 @@ from torch import nn
 
 from .attention import SpatialTransformer
 from .blocks import GroupNorm32, ResBlock, Upsample, Downsample, zero_module
-from .layers import conv_nd
+from .layers import conv_nd, remat
 
 
 class TimestepEmbedSequential(nn.Sequential):
     """Runs its children in order, passing the time embedding to ResBlocks
-    and the context to SpatialTransformers."""
+    and the context to SpatialTransformers; with `use_checkpoint` each
+    ResBlock is rematerialised (JAX's `nn.remat(ResBlock)`)."""
+
+    use_checkpoint = False
 
     def forward(self, x, emb, context=None):
         for layer in self:
             if isinstance(layer, ResBlock):
-                x = layer(x, emb)
+                x = (remat(layer, x, emb) if self.use_checkpoint
+                     else layer(x, emb))
             elif isinstance(layer, SpatialTransformer):
                 x = layer(x, context)
             else:
@@ -40,7 +44,8 @@ class UNetTorso(nn.Module):
                  attention_resolutions: Sequence[int],
                  channel_mult: Sequence[int], num_heads: int, dims: int,
                  transformer_depth: int = 1,
-                 context_dim: Optional[int] = None):
+                 context_dim: Optional[int] = None,
+                 use_checkpoint: bool = False):
         super().__init__()
         mc = model_channels
         emb_dim = mc * 4
@@ -50,7 +55,8 @@ class UNetTorso(nn.Module):
 
         def attn(ch):
             return SpatialTransformer(ch, num_heads, ch // num_heads,
-                                      transformer_depth, context_dim, dims=dims)
+                                      transformer_depth, context_dim, dims=dims,
+                                      use_checkpoint=use_checkpoint)
 
         self.input_blocks = nn.ModuleList([TimestepEmbedSequential(
             conv_nd(dims, in_channels, mc, 3, padding=1))])
@@ -88,6 +94,9 @@ class UNetTorso(nn.Module):
         self.out = nn.Sequential(
             GroupNorm32(ch), nn.SiLU(),
             zero_module(conv_nd(dims, mc, out_channels, 3, padding=1)))
+        for seq in self.modules():
+            if isinstance(seq, TimestepEmbedSequential):
+                seq.use_checkpoint = use_checkpoint
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor,
                 context: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -1,0 +1,209 @@
+"""Training loop: background batch producer, train step, logging,
+checkpoints, SIGINT save.
+
+Port of echoscene_tpu/train/trainer.py (reference scripts/
+train_3dfront.py:142-311), on one device: the same observable behaviour
+(the scalar names Loss_BBox / Loss_Translation / Loss_Size / Loss_Angle /
+Loss_IoU / Loss_Shape / learning_rate, the console and `loss_log.txt` line
+every `log_every` steps, epoch checkpoints at <exp>/checkpoint/model<epoch>,
+SIGINT -> finish the step, save, stop, and args.json for the eval CLI).
+Batches are collated on the host by a background thread and moved to the
+device per step.  The TensorBoard writer is optional.  Checkpoint saves are
+synchronous.
+"""
+from __future__ import annotations
+
+import json
+import os
+import queue
+import signal
+import threading
+import time
+from typing import Iterator, Optional
+
+import numpy as np
+import torch
+
+from ..data.collate import CollateSpec, collate_scenes
+from ..models.sgdiff import SGDiff, TrainState, lr_schedule
+from .checkpoint import restore_checkpoint, save_checkpoint
+from .profiling import StepTimer
+
+
+class InterruptHandler:
+    """SIGINT -> finish the current step, save, exit
+    (helpers/interrupt_handler.py:4-35)."""
+
+    def __init__(self):
+        self.interrupted = False
+        self._orig = None
+
+    def __enter__(self):
+        self._orig = signal.getsignal(signal.SIGINT)
+
+        def handler(sig, frame):
+            self.interrupted = True
+        signal.signal(signal.SIGINT, handler)
+        return self
+
+    def __exit__(self, *a):
+        signal.signal(signal.SIGINT, self._orig)
+        return False
+
+
+def batch_iterator(dataset, spec: CollateSpec, batch_scenes: int,
+                   rng: np.random.Generator) -> Iterator:
+    """One epoch of collated batches (CPU tensors) in an order drawn from
+    `rng`; the rng also drives non-greedy shape sampling."""
+    order = rng.permutation(len(dataset))
+    buf = []
+    for i in order:
+        ex = dataset[int(i)]
+        if ex is None:
+            continue
+        buf.append(ex)
+        if len(buf) == batch_scenes:
+            b = collate_scenes(buf, spec, sdf_loader=dataset.load_sdf, rng=rng)
+            if b is not None:
+                yield b
+            buf = []
+    if buf:
+        b = collate_scenes(buf, spec, sdf_loader=dataset.load_sdf, rng=rng)
+        if b is not None:
+            yield b
+
+
+class Prefetcher:
+    """Background-thread batch producer (the torch DataLoader worker
+    analog); an exception in the producer is raised in the consumer."""
+
+    def __init__(self, make_iter, depth: int = 2):
+        self.make_iter = make_iter
+        self.q: queue.Queue = queue.Queue(maxsize=depth)
+        self.thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+
+    def _run(self):
+        try:
+            for b in self.make_iter():
+                self.q.put(b)
+        except Exception as e:
+            self._error = e
+        finally:
+            self.q.put(None)
+
+    def __iter__(self):
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+        while True:
+            b = self.q.get()
+            if b is None:
+                self.thread.join()
+                if self._error is not None:
+                    raise self._error
+                return
+            yield b
+
+
+class Trainer:
+    def __init__(self, sgdiff: SGDiff, dataset, spec: CollateSpec,
+                 exp_dir: str, batch_scenes: int = 64, log_every: int = 50,
+                 ckpt_every_epochs: int = 100, seed: int = 0, writer=None):
+        self.sgdiff = sgdiff
+        self.dataset = dataset
+        self.spec = spec
+        self.exp_dir = exp_dir
+        self.batch_scenes = batch_scenes
+        self.log_every = log_every
+        self.ckpt_every_epochs = ckpt_every_epochs
+        self.rng = np.random.default_rng(seed)
+        self.generator = torch.Generator(
+            device=sgdiff.device).manual_seed(seed)
+        self.writer = writer
+        os.makedirs(os.path.join(exp_dir, "checkpoint"), exist_ok=True)
+        self.loss_log = os.path.join(exp_dir, "loss_log.txt")
+        open(self.loss_log, "a").close()
+
+    def _log_scalars(self, metrics, counter: int, lr: float):
+        w = self.writer
+        if w is None:
+            return
+        # reference scalar names (train_3dfront.py:266-281)
+        w.add_scalar("learning_rate", lr, counter)
+        w.add_scalar("Loss_BBox", float(metrics["layout_loss"]), counter)
+        w.add_scalar("Loss_Translation", float(metrics["loss.trans"]), counter)
+        w.add_scalar("Loss_Size", float(metrics["loss.size"]), counter)
+        w.add_scalar("Loss_Angle", float(metrics["loss.angle"]), counter)
+        w.add_scalar("Loss_IoU", float(metrics["loss.liou"]), counter)
+        w.add_scalar("Loss_Shape", float(metrics["shape_loss"]), counter)
+
+    def current_lr(self, counter: int) -> float:
+        """The lr the schedule gives at `counter` train steps: it advances
+        once per optimizer step, every grad_accum steps."""
+        cfg = self.sgdiff.cfg
+        return lr_schedule(cfg)(counter // max(1, int(cfg.grad_accum or 1)))
+
+    def train(self, state: TrainState, epochs: int,
+              max_steps: Optional[int] = None,
+              final_save: bool = True) -> TrainState:
+        counter = state.step
+        t_start = time.time()
+        steps_done = 0
+        timer = StepTimer(self.batch_scenes)
+        dev = self.sgdiff.device
+        with InterruptHandler() as h:
+            for epoch in range(state.epoch, epochs):
+                for batch in Prefetcher(lambda: batch_iterator(
+                        self.dataset, self.spec, self.batch_scenes,
+                        self.rng)):
+                    metrics = self.sgdiff.train_step(state, batch.to(dev),
+                                                     self.generator)
+                    timer.tick()
+                    counter += 1
+                    steps_done += 1
+                    if counter % self.log_every == 0:
+                        lr = self.current_lr(counter)
+                        msg = ("loss at {}: box {:.4f}, shape {:.4f}. "
+                               "Lr:{:.6f}".format(
+                                   counter, float(metrics["layout_loss"]),
+                                   float(metrics["shape_loss"]), lr))
+                        print(msg)
+                        with open(self.loss_log, "a") as f:
+                            f.write(msg + "\n")
+                        self._log_scalars(metrics, counter, lr)
+                        if self.writer is not None:
+                            self.writer.add_scalar("scenes_per_sec_per_chip",
+                                                   timer.scenes_per_sec,
+                                                   counter)
+                    if h.interrupted or (max_steps and steps_done >= max_steps):
+                        break
+                state.epoch += 1
+                if h.interrupted or (max_steps and steps_done >= max_steps):
+                    break
+                if epoch % self.ckpt_every_epochs == 0:
+                    self.save(state, epoch)
+            dt_steps = time.time() - t_start
+            if final_save:
+                t_save = time.time()
+                self.save(state, state.epoch)
+                print(f"[trainer] final save took {time.time() - t_save:.1f}s")
+        if steps_done:
+            print(f"[trainer] {steps_done} steps in {dt_steps:.1f}s "
+                  f"({steps_done / dt_steps:.3f} steps/s)")
+        return state
+
+    def save(self, state: TrainState, epoch: int):
+        save_checkpoint(os.path.join(self.exp_dir, "checkpoint",
+                                     f"model{epoch}"), self.sgdiff, state)
+        print(f"saved model_{epoch}")
+
+    def load(self, state: TrainState, epoch: int) -> TrainState:
+        return restore_checkpoint(os.path.join(
+            self.exp_dir, "checkpoint", f"model{epoch}"), self.sgdiff, state)
+
+
+def dump_args(exp_dir: str, args: dict):
+    """args.json contract (train_3dfront.py:205-206; eval reads it back)."""
+    os.makedirs(exp_dir, exist_ok=True)
+    with open(os.path.join(exp_dir, "args.json"), "w") as f:
+        json.dump(args, f, indent=2)

@@ -524,7 +524,7 @@ def test_eval_cli_raises_on_unported_options(eval_run):
     from echoscene_torch.eval import cli
 
     _, _, _, argv, _ = eval_run
-    for extra in (["--epoch", "0"], ["--dp_devices", "2"],
+    for extra in (["--dp_devices", "2"],
                   ["--render_dir", "x"], ["--render_type", "retrieval"],
                   ["--layout_sampler", "dpmpp"], ["--sample_dtype", "int8"]):
         with pytest.raises(NotImplementedError):

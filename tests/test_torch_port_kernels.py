@@ -209,6 +209,42 @@ def test_cuda_attention_raises_on_inputs_it_does_not_take(entry):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("entry,shape", [
+    ("onepass_attention", (2, 333, 8, 56)),
+    ("onepass_attention", (8, 1024, 8, 56)),    # the training step's K1
+    ("stream_attention", (2, 77, 3, 200)),
+    ("stream_attention", (8, 4096, 1, 256)),    # the VQ encoder's K2
+])
+def test_cuda_kernel_gradients_match_plain_autograd(entry, shape):
+    """The kernel's output carries the differentiable Function; its dq, dk,
+    dv (the plain version recomputed and differentiated) equal plain
+    autograd's from the same inputs and upstream gradient, and the backward
+    launches no kernel.  An f32 input still raises."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    q, k, v, g = (torch.randn(shape, generator=gen, device="cuda").to(
+        torch.bfloat16) for _ in range(4))
+    fn = getattr(port_fa, entry)
+    port_fa.reset_launches()
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    out = fn(*leaves)
+    assert type(out.grad_fn).__name__ == "KernelAttentionBackward"
+    got = torch.autograd.grad(out, leaves, g)
+    assert port_fa.LAUNCHES[entry] == 1
+    plain = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    want = torch.autograd.grad(port_fa.attention_plain(*plain), plain, g)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16
+        assert ((a.float() - b.float()).abs().max()
+                <= 1e-6 * b.float().abs().max())
+    with torch.no_grad():
+        assert fn(q, k, v).grad_fn is None
+    with pytest.raises(TypeError):
+        fn(*(x.float().requires_grad_(True) for x in (q, k, v)))
+
+
+@pytest.mark.cuda
 def test_cuda_dispatcher_routes_long_self_attention_to_kernels():
     """Self-attention at >= 512 tokens launches a kernel, and raises on f32
     (the kernels take bf16); 256-token sites take the einsum math."""
