@@ -36,6 +36,14 @@ result line):
        share of the bound, the earlier direct-form design
        (`csrc/chamfer_direct.cu`, same inputs, same tolerance) and the host
        time of one wrapper call;
+     * K1 / K2 on f32 inputs (f32 sampling and training), the f32 FMA
+       kernel (`csrc/flash_attention_f32.cu`) at the same shapes: against
+       the plain version in f32, max abs error <= 2^-14 of the plain
+       output's peak and mean abs error <= 1e-5 of its mean magnitude, a
+       tolerance that must reject the plain version with its last 32 keys
+       left out; times beside the f32 bound (f32 FMAs at 67 TFLOP/s, exp2,
+       4-byte elements), SDPA in f32 with TF32 off, the plain version and
+       the host time of one wrapper call;
      * K1 / K2 at the training step's shapes ((8, 1024, 8, 56), the VQ
        encoder's (8, 4096, 1, 256)) through the differentiable Function:
        the output carries its grad_fn, the forward meets `error_ratios`,
@@ -86,10 +94,25 @@ result line):
      `Trainer.save` -> `restore_checkpoint` round trip into a model with
      other weights, bit-exact, and one step after it with the same loss as
      the saved model's; one step at the yaml's diffusion_bs of 64 (K1 = 10,
-     K2 = 8), its peak memory.
+     K2 = 8), its peak memory; one step with compute_dtype float32 (K1 =
+     10 and K2 = 1 launches, all f32; finite loss, its ms and peak memory);
+  8. drive the generation service on the phase-4 model at the fast profile
+     (DPM++ with 50 layout and 20 shape steps, bf16; row buckets 16, 32,
+     48): warmup; 8 concurrent clients with 16 requests of 3-6 objects
+     through the MicroBatcher (10 ms window): latency p50 / p95,
+     requests/sec, batches, reserved memory; an addition and a
+     relationship change against earlier results (untouched objects'
+     boxes and SDFs bit-equal); a mesh request; an HTTP round trip on
+     127.0.0.1 and a malformed request (400); an f32 request (K1 / K2 in
+     f32); two fresh seed-0 services on one request (boxes bit-equal).
+     Checks no variant after warmup, finite outputs, and K1 = 5 x 20 and
+     K2 = ceil(rows / 8) per dispatch, with the counts set to 0 just before
+     each part and read just after.
 
-Prints the total seconds, the `kernels` JSON line (K1 / K2 also carry
-their training launches and forward + backward times), the card's name and
+Prints the total seconds, the `kernels` JSON line (K1 / K2 in bf16 and in
+f32, each entry with its dtype; K1 / K2 also carry their training launches,
+serving launches and forward + backward times; the f32 entries' launches
+are phase 8's f32 request), the card's name and
 power limit (nvidia-smi), and as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Needs one card; exits 2 without CUDA or without the repository beside it.
@@ -115,7 +138,6 @@ PARAM_ATOL = 1e-6            # ... parameters after AdamW on the same grads
 # diffusion_bs 8 rows, the frozen VQ encoder's mid attention on 8 SDFs
 TRAIN_K1_SHAPE = (8, 1024, 8, 56)
 TRAIN_K2_SHAPE = (8, 4096, 1, 256)
-PEAK_F32_FLOPS = 67e12       # H100 SXM f32 outside the tensor cores
 CD_RTOL = 1e-5               # chamfer values, card vs plain / CPU
 T_START = 0.0
 EMD_RTOL = 1e-4              # auction EMD values, card vs CPU
@@ -254,7 +276,7 @@ def check_kernel(name, wrapper, shape, ragged_shapes, replaces, sm_clock_hz):
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt),
                          iters=20)
     bound = fa.attention_bound(*shape, sm_clock_hz=sm_clock_hz)
-    return {"name": name, "route": "cuda",
+    return {"name": name, "route": "cuda", "dtype": "bfloat16",
             "source": "echoscene_torch/csrc/flash_attention.cu",
             "replaces": replaces, "launches": None, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound["ms"],
@@ -262,6 +284,69 @@ def check_kernel(name, wrapper, shape, ragged_shapes, replaces, sm_clock_hz):
             "earlier_ms": earlier_ms, "shape": list(shape),
             "bound_detail": {key: bound[key] for key in (
                 "by", "tensor_core_ms", "exp2_ms", "bytes_ms")},
+            "tflops": bound["flops"] / ms * 1e-9,
+            "share_of_bound": bound["ms"] / ms, "vs_library": ms / library_ms,
+            "host_us_per_call": host_us, "err_of_limit": ratios,
+            "keys_dropped_err_of_limit": dropped}
+
+
+def check_kernel_f32(name, wrapper, shape, ragged_shapes, replaces,
+                     sm_clock_hz):
+    """Phase 2 for the f32 kernel of one attention wrapper: f32 inputs
+    against `attention_plain` in f32 at the path shape and the ragged ones
+    (`error_ratios`' f32 limits: max abs err <= 2^-14 of the plain output's
+    peak, mean abs err <= 1e-5 of its mean magnitude, which must reject the
+    plain version with its last 32 keys left out); times beside the f32
+    bound, SDPA in f32 with TF32 off, the plain version and the host time
+    of one wrapper call.  Returns its `kernels` entry."""
+    import torch
+    import torch.nn.functional as F
+    from echoscene_torch.kernels import flash_attention as fa
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("TF32 is on: the f32 yardsticks would not be f32")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for shp in (*ragged_shapes, shape):
+        q, k, v = (torch.randn(shp, generator=gen, device="cuda")
+                   for _ in range(3))
+        fa.reset_launches()
+        out = wrapper(q, k, v)
+        torch.cuda.synchronize()
+        if fa.LAUNCHES_BY_DTYPE != {(name, "float32"): 1}:
+            fail(f"{name} on f32 at {shp} launched "
+                 f"{fa.LAUNCHES_BY_DTYPE}, want one f32 launch")
+        ref = fa.attention_plain(q, k, v)
+        ratios = fa.error_ratios(out, ref)
+        if not (out.dtype == torch.float32 and max(ratios) <= 1.0):
+            fail(f"{name} f32 at {shp}: {out.dtype} output, max / mean abs "
+                 f"err at {ratios[0]:.3f} / {ratios[1]:.3f} of their limits")
+    err = (out - ref).abs().max().item()
+    dropped = fa.error_ratios(
+        fa.attention_plain(q, k[:, :-32], v[:, :-32]), ref)
+    if not min(dropped) > 1.0:
+        fail(f"{name} f32: the tolerance passes the plain version with 32 "
+             f"keys left out ({dropped[0]:.3f} / {dropped[1]:.3f})")
+    ms = cuda_ms(lambda: wrapper(q, k, v), iters=10)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        wrapper(q, k, v)
+    host_us = (time.perf_counter() - t0) / 10 * 1e6
+    torch.cuda.synchronize()
+    plain_ms = cuda_ms(lambda: fa.attention_plain(q, k, v), iters=3, warmup=1)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt),
+                         iters=10)
+    bound = fa.attention_bound(*shape, sm_clock_hz=sm_clock_hz,
+                               dtype=torch.float32)
+    return {"name": f"{name}_f32", "route": "cuda", "dtype": "float32",
+            "source": "echoscene_torch/csrc/flash_attention_f32.cu",
+            "replaces": replaces, "launches": None, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound["ms"],
+            "bound_by": bound["bound_by"], "library_ms": library_ms,
+            "shape": list(shape),
+            "bound_detail": {key: bound[key] for key in (
+                "by", "fma_ms", "exp2_ms", "bytes_ms")},
             "tflops": bound["flops"] / ms * 1e-9,
             "share_of_bound": bound["ms"] / ms, "vs_library": ms / library_ms,
             "host_us_per_call": host_us, "err_of_limit": ratios,
@@ -384,7 +469,7 @@ def check_chamfer_kernel(shapes, ragged_shape):
             "earlier_err_of_limit": earlier})
         torch.cuda.empty_cache()
     top = per_shape[0]
-    entry = {"name": "nn_distance", "route": "cuda",
+    entry = {"name": "nn_distance", "route": "cuda", "dtype": "float32",
              "source": "echoscene_torch/csrc/chamfer.cu",
              "replaces": "echoscene_tpu/kernels/chamfer_pallas.py:27",
              "launches": None}
@@ -679,10 +764,10 @@ def check_tiny_train_against_cpu() -> dict:
     # each leaf within GRAD_LEAF_RTOL of the gradient peak of its part
     # (layout_denoiser, shape_denoiser, ...) + 1e-7: a leaf whose gradient
     # nearly cancels (a bias before a norm, ~1e-5) carries the f32 rounding
-    # of its part, up to 2e-3 of its own tiny peak on the card.  The card's
-    # GCN scatter adds atomically, in no fixed order, and batch norms over
-    # a dozen rows amplify that rounding, so card runs differ among
-    # themselves too
+    # of its part, up to 2e-3 of its own tiny peak on the card (card and CPU
+    # sum in other orders, and batch norms over a dozen rows amplify that
+    # rounding; the GCN pooling is a one-hot product, the same on every
+    # card run)
     part = lambda n: n.split(".")[0]
     peak = {}
     for n, b in zip(names, grads_c):
@@ -907,8 +992,9 @@ def train_path(sg, card: str) -> dict:
         if not (same and (st2.step, st2.epoch) == (state.step, state.epoch)):
             fail("the checkpoint round trip is not bit-exact")
         # both take the next step from the same draws: the same loss
-        # (the forward is deterministic; cuDNN's weight gradients need not
-        # be, so the updates are not compared bit for bit)
+        # (the forward is deterministic, the GCN pooling a one-hot product;
+        # cuDNN's weight gradients need not be, so the updates are not
+        # compared bit for bit)
         resumed = [m.train_step(s, batch, torch.Generator(
             device="cuda").manual_seed(31))["loss"].item()
             for m, s in ((sg, state), (other, st2))]
@@ -934,6 +1020,31 @@ def train_path(sg, card: str) -> dict:
              "and K2 8 (eight encoder chunks of 8)")
     if not bool(torch.isfinite(loss64)):
         fail("the diffusion_bs 64 step's loss is not finite")
+    del batch64
+    torch.cuda.empty_cache()
+
+    # one step in f32 (compute_dtype float32, f32 masters used as they
+    # are): K1 / K2 launch their f32 kernels; one warm step, one timed
+    cfg.compute_dtype = "float32"
+    try:
+        sg.train_step(state, batch, gen)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        loss32 = sg.train_step(state, batch, gen)["loss"]
+        torch.cuda.synchronize()
+        f32_ms = (time.perf_counter() - t0) * 1e3
+        peak32 = torch.cuda.max_memory_allocated()
+        launches32 = dict(fa.LAUNCHES_BY_DTYPE)
+    finally:
+        cfg.compute_dtype = "bfloat16"
+    if launches32 != {("onepass_attention", "float32"): 10,
+                      ("stream_attention", "float32"): 1}:
+        fail(f"the f32 training step launched {launches32}, want K1 10 and "
+             "K2 1, all f32")
+    if not bool(torch.isfinite(loss32)):
+        fail("the f32 training step's loss is not finite")
     return {"scenes_per_sec": sps, "ms_per_step": step_s * 1e3,
             "losses": losses.tolist(), "launches": launches,
             "steps": k + 1, "peak_gib": peak / 2**30,
@@ -945,7 +1056,275 @@ def train_path(sg, card: str) -> dict:
             "moved": moved, "checkpoint_bytes": size, "save_s": save_s,
             "load_s": load_s, "peak_gib_diffusion_bs_64": peak64 / 2**30,
             "loss_diffusion_bs_64": loss64.item(),
-            "launches_diffusion_bs_64": launches64}
+            "launches_diffusion_bs_64": launches64,
+            "f32_step_ms": f32_ms, "f32_peak_gib": peak32 / 2**30,
+            "f32_loss": loss32.item(),
+            "f32_launches": {f"{k[0]}/{k[1]}": c
+                             for k, c in launches32.items()}}
+
+
+def serve_path(sg, card: str) -> dict:
+    """Phase 8: the generation service on the phase-4 model, at the fast
+    profile (DPM++ with 50 layout and 20 shape steps, bf16), the vocabulary
+    and box stats of a fake dataset, buckets of 48 nodes / 160 triples / 8
+    scenes and the row ladder (16, 32, 48).  Warmup; 8 concurrent clients
+    through the MicroBatcher (10 ms window); an addition and a relationship
+    change against earlier results (untouched objects bit-equal); a mesh
+    request; an HTTP round trip and a malformed request; an f32 request;
+    two fresh seed-0 services on one request.  K1 / K2 counts are set to 0
+    just before each part and read just after: K1 = 5 x 20 and K2 =
+    ceil(rows / 8) per dispatch.  Runs last: it leaves the model on the
+    fast profile."""
+    import socket
+    import threading
+    import urllib.error
+    import urllib.request
+
+    import numpy as np
+    import torch
+    from echoscene_torch.benchmarks import (NUM_OBJS, NUM_PREDS,
+                                            concurrent_latency)
+    from echoscene_torch.data.clip_text import ClipTextEncoder
+    from echoscene_torch.data.collate import CollateSpec
+    from echoscene_torch.data.fake import make_fake_dataset
+    from echoscene_torch.data.sgfront import SGFrontDataset
+    from echoscene_torch.kernels import flash_attention as fa
+    from echoscene_torch.serve.cli import run_http
+    from echoscene_torch.serve.service import GenerationService
+
+    t_phase = time.perf_counter()
+    clip = ClipTextEncoder("hash")
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        root = make_fake_dataset(os.path.join(tmp, "data"), num_scenes=8,
+                                 min_objs=3, max_objs=6, with_sdf=False,
+                                 seed=0)
+        ds = SGFrontDataset(root, split="test", shuffle_objs=False,
+                            use_sdf=False, with_changes=False, clip=clip,
+                            seed=47)
+    if (len(ds.classes), len(ds.pred_names)) != (NUM_OBJS, NUM_PREDS):
+        fail("the fake vocabulary does not match the flagship model's")
+    spec = CollateSpec(max_nodes=48, max_triples=160, max_scenes=8,
+                       diffusion_bs=48, with_sdf=False)
+    cfg = sg.cfg
+    cfg.layout_diffusion.sampler, cfg.layout_diffusion.sample_steps = (
+        "dpmpp", 50)
+    cfg.shape_branch.sampler, cfg.shape_branch.ddim_steps = "dpmpp", 20
+    sg.layout_fast_tables["dpmpp"] = sg.layout_diff.make_dpmpp_tables(50)
+    sg.ddim_tables = sg.shape_diff.make_dpmpp_tables(20)
+    steps = sg.ddim_tables.num_steps
+    buckets = (16, 32, 48)
+
+    def service(**kw):
+        kw.setdefault("result_format", "arrays")
+        return GenerationService(sg, spec, ds.box_stats, ds.classes,
+                                 ds.rel_dict, clip=clip, row_buckets=buckets,
+                                 **kw)
+
+    # the rows of every dispatch, to hold K1 / K2 to their per-dispatch counts
+    dispatch_rows = []
+    sample_fn = sg.sample_fn
+
+    def logged_sample_fn(batch, generator=None, **kw):
+        dispatch_rows.append(kw["shape_rows"])
+        return sample_fn(batch, generator, **kw)
+    sg.sample_fn = logged_sample_fn
+
+    def counted(part, fn, dtype="bfloat16"):
+        """fn() with the counts set to 0 just before and read just after;
+        fails unless each dispatch launched K1 5 x steps and K2 ceil(rows /
+        8) times, all in `dtype`."""
+        dispatch_rows.clear()
+        torch.cuda.synchronize()
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = dict(fa.LAUNCHES_BY_DTYPE)
+        want = {("onepass_attention", dtype): 5 * steps * len(dispatch_rows),
+                ("stream_attention", dtype): sum(
+                    math.ceil(r / 8) for r in dispatch_rows)}
+        if not dispatch_rows or got != want:
+            fail(f"serving {part}: {len(dispatch_rows)} dispatches at rows "
+                 f"{dispatch_rows} launched {got}, want {want}")
+        return out, wall, list(dispatch_rows), got
+
+    def finite(res):
+        keys = [k for k in ("sizes", "translations", "angles", "sdfs")
+                if k in res]
+        return all(np.isfinite(np.asarray(res[k])).all() for k in keys)
+
+    names = [n for n in ds.classes if n != "_scene_"]
+    preds = list(ds.rel_dict)
+    rng = np.random.default_rng(8)
+
+    def request(rid):
+        k = int(rng.integers(3, 7))
+        pairs = [(s, o) for s in range(k) for o in range(k) if s != o]
+        pick = rng.choice(len(pairs), int(rng.integers(2, 5)), replace=False)
+        return {"id": rid,
+                "objects": [names[int(i)] for i in rng.integers(0, len(names),
+                                                                k)],
+                "triples": [[pairs[i][0], preds[int(rng.integers(len(preds)))],
+                             pairs[i][1]] for i in pick]}
+
+    svc = service(gen_shape=True, seed=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n_warm = svc.warmup(verbose=False)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    warmed = svc.compiled_variants()
+    print(f"serving warmup: {n_warm} variants {warmed} in {warm_s:.3f} s "
+          f"[{card}]")
+
+    # 8 concurrent clients, 16 requests of 3-6 objects and 2-4 triples
+    reqs = [request(f"s{i}") for i in range(16)]
+    reserved0 = torch.cuda.memory_reserved()
+    stream, stream_s, stream_rows, stream_launches = counted(
+        "stream", lambda: concurrent_latency(svc, reqs, 10.0, 8))
+    reserved1 = torch.cuda.memory_reserved()
+    results = stream["results"]
+    if sorted(results) != list(range(len(reqs))) or not all(
+            finite(r) and r["id"] == reqs[i]["id"]
+            for i, r in results.items()):
+        fail("the concurrent stream's results are missing or not finite")
+    lat = np.asarray(stream["latencies_s"])
+    st = stream["stats"]
+    print(f"serving 8 concurrent clients: {len(reqs)} requests, latency p50 "
+          f"{np.percentile(lat, 50):.3f} s, p95 {np.percentile(lat, 95):.3f}"
+          f" s, {stream['req_per_sec']:.4f} requests/sec, {st['batches']} "
+          f"batches (mean size {st['mean_batch_size']:.2f}), dispatches at "
+          f"rows {stream_rows}; reserved memory {reserved0 / 2**30:.2f} -> "
+          f"{reserved1 / 2**30:.2f} GiB [{card}]")
+
+    # an addition and a relationship change against earlier results
+    base_add, base_rel = results[0], results[1]
+    old_pred = reqs[1]["triples"][0][1]
+    manips = [
+        (base_add, {"previous": "s0", "id": "m_add", "manipulation": {
+            "type": "addition", "object": names[0],
+            "triples": [[-1, preds[0], 0]]}}),
+        (base_rel, {"previous": "s1", "id": "m_rel", "manipulation": {
+            "type": "relationship", "index": 0,
+            "predicate": next(p for p in preds if p != old_pred)}})]
+    manip_s = []
+    for prev, req in manips:
+        (out,), wall, _, _ = counted(req["id"],
+                                     lambda: svc.generate([req]))
+        manip_s.append(wall)
+        kept = [j for j, k in enumerate(out["keep"]) if k == 1.0]
+        changed = [j for j, k in enumerate(out["keep"]) if k == 0.0]
+        if not (finite(out) and kept and changed):
+            fail(f"manipulation {req['id']}: keep {out['keep']}")
+        for j in kept:
+            same = all(out[f][j] == prev[f][j]
+                       for f in ("sizes", "translations", "angles"))
+            if not (same and np.array_equal(out["sdfs"][j], prev["sdfs"][j])):
+                fail(f"manipulation {req['id']}: untouched object {j} "
+                     "differs from the previous response")
+    if svc.compiled_variants() != warmed:
+        fail(f"serving ran variants {svc.compiled_variants()} after warming "
+             f"{warmed}")
+    print(f"serving manipulations: addition {manip_s[0]:.3f} s, "
+          f"relationship {manip_s[1]:.3f} s, untouched objects bit-equal; "
+          f"no variant after warmup [{card}]")
+
+    # meshes of the real rows
+    mesh_svc = service(gen_shape=True, seed=1, return_meshes=True)
+    (meshed,), mesh_s, _, _ = counted(
+        "meshes", lambda: mesh_svc.generate([dict(reqs[2], id="mesh")]))
+    tris = [len(m["faces"]) for m in meshed["meshes"]]
+    if len(tris) != len(reqs[2]["objects"]) or min(tris) == 0 or not all(
+            np.isfinite(m["vertices"]).all() for m in meshed["meshes"]):
+        fail(f"mesh request: {len(tris)} meshes with {tris} triangles")
+    print(f"serving meshes: {len(tris)} objects, {tris} triangles, "
+          f"{mesh_s:.3f} s [{card}]")
+
+    # the HTTP endpoint on 127.0.0.1 (layout only, as the CLI serves by
+    # default), and a malformed request
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    http_svc = service(gen_shape=False, seed=2, result_format="json")
+    threading.Thread(target=run_http, args=(http_svc, "127.0.0.1", port),
+                     daemon=True).start()
+    url = f"http://127.0.0.1:{port}/generate"
+    payload = json.dumps([dict(reqs[3], id="h0")]).encode()
+    t0 = time.perf_counter()
+    for _ in range(100):
+        try:
+            resp = urllib.request.urlopen(urllib.request.Request(
+                url, data=payload,
+                headers={"Content-Type": "application/json"}), timeout=300)
+            break
+        except urllib.error.URLError as e:
+            if isinstance(e, urllib.error.HTTPError):
+                fail(f"HTTP round trip: {e.code} {e.read()[:300]}")
+            time.sleep(0.05)
+    else:
+        fail("the HTTP endpoint did not answer")
+    body = json.loads(resp.read())
+    http_s = time.perf_counter() - t0
+    if [r["id"] for r in body["results"]] != ["h0"] or not finite(
+            body["results"][0]):
+        fail(f"HTTP round trip returned {str(body)[:300]}")
+    try:
+        urllib.request.urlopen(urllib.request.Request(
+            url, data=json.dumps([{"objects": ["nope"]}]).encode()),
+            timeout=60)
+        fail("a malformed request was answered with 200")
+    except urllib.error.HTTPError as e:
+        if e.code != 400 or "error" not in json.loads(e.read()):
+            fail(f"a malformed request got {e.code}, want 400")
+    print(f"serving HTTP: POST round trip {http_s:.3f} s, malformed request "
+          f"-> 400 [{card}]")
+
+    # one request sampled in f32: K1 / K2 launch their f32 kernels
+    cfg.sample_dtype = "float32"
+    try:
+        f32_svc = service(gen_shape=True, seed=3)
+        (f32_out,), f32_s, f32_rows, f32_launches = counted(
+            "f32", lambda: f32_svc.generate([dict(reqs[4], id="f32")]),
+            dtype="float32")
+    finally:
+        cfg.sample_dtype = "bfloat16"
+    if not finite(f32_out):
+        fail("the f32 request's outputs are not finite")
+    print(f"serving f32 request: {f32_s:.3f} s at rows {f32_rows}, launches "
+          f"{f32_launches} [{card}]")
+
+    # two fresh seed-0 services, one request: the same bits
+    twins = [service(gen_shape=True, seed=0).generate(
+        [dict(reqs[5], id="twin")])[0] for _ in range(2)]
+    same = all(twins[0][f] == twins[1][f]
+               for f in ("sizes", "translations", "angles"))
+    sdf_diff = float(np.abs(twins[0]["sdfs"] - twins[1]["sdfs"]).max())
+    if not same:
+        fail("two seed-0 services gave different boxes for one request")
+    print(f"serving reproducibility: two seed-0 services, boxes bit-equal, "
+          f"SDFs max abs difference {sdf_diff:.3e} [{card}]")
+    del sg.sample_fn
+    return {"warmup_s": warm_s, "warmed_variants": [list(v) for v in warmed],
+            "latency_p50_s": float(np.percentile(lat, 50)),
+            "latency_p95_s": float(np.percentile(lat, 95)),
+            "latencies_s": stream["latencies_s"],
+            "req_per_sec": stream["req_per_sec"], "stream_s": stream_s,
+            "batches": st["batches"],
+            "mean_batch_size": st["mean_batch_size"],
+            "dispatch_rows": stream_rows,
+            "stream_launches": {f"{k[0]}/{k[1]}": c
+                                for k, c in stream_launches.items()},
+            "reserved_gib_before": reserved0 / 2**30,
+            "reserved_gib_after": reserved1 / 2**30,
+            "manipulation_s": manip_s, "mesh_s": mesh_s,
+            "mesh_triangles": tris, "http_s": http_s, "f32_s": f32_s,
+            "f32_rows": f32_rows,
+            "f32_launches": {f"{k[0]}/{k[1]}": c
+                             for k, c in f32_launches.items()},
+            "twin_sdf_max_diff": sdf_diff,
+            "phase_s": time.perf_counter() - t_phase}
 
 
 def main() -> int:
@@ -975,7 +1354,8 @@ def main() -> int:
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     # 1. build: one nvcc per source, all started together
-    sources = (fa.SOURCE, BASELINE_SOURCE, k4.SOURCE, K4_DIRECT_SOURCE)
+    sources = (fa.SOURCE, fa.SOURCE_F32, BASELINE_SOURCE, k4.SOURCE,
+               K4_DIRECT_SOURCE)
     t0 = time.perf_counter()
     built = build.build_all(sources)
     for source in sources:
@@ -1034,6 +1414,31 @@ def main() -> int:
               f"diff {e['grad_max_diff_of_peak']:.3e} of the peak; forward "
               f"max / mean err at {e['train_err_of_limit'][0]:.3f} / "
               f"{e['train_err_of_limit'][1]:.3f} of their limits [{card}]")
+    # K1 / K2 on f32 inputs (f32 sampling and training), the f32 kernel
+    f32_entries = [
+        check_kernel_f32("onepass_attention", fa.onepass_attention,
+                         (rows, 1024, 8, 56),
+                         [(3, 200, 2, 24), (3, 333, 8, 56), TRAIN_K1_SHAPE],
+                         "echoscene_tpu/kernels/flash_attention.py:73", clock),
+        check_kernel_f32("stream_attention", fa.stream_attention,
+                         (8, 4096, 1, 256), [(2, 77, 3, 200)],
+                         "echoscene_tpu/kernels/flash_attention.py:35",
+                         clock)]
+    for e in f32_entries:
+        d = e["bound_detail"]
+        print(f"kernel {e['name']} {e['shape']} f32: {e['ms']:.4f} ms, "
+              f"{e['tflops']:.2f} TFLOP/s, {e['share_of_bound']:.3f} of the "
+              f"f32 bound {e['bound_ms']:.4f} ms (by {d['by']}: f32 FMA "
+              f"{d['fma_ms']:.4f}, exp2 {d['exp2_ms']:.4f}, bytes "
+              f"{d['bytes_ms']:.4f}); sdpa f32 (TF32 off) "
+              f"{e['library_ms']:.4f} ms ({e['vs_library']:.3f} x its "
+              f"time), plain {e['plain_ms']:.3f} ms; host "
+              f"{e['host_us_per_call']:.1f} us per wrapper call; max abs err "
+              f"{e['max_abs_err']:.3e}, max / mean err at "
+              f"{e['err_of_limit'][0]:.4f} / {e['err_of_limit'][1]:.4f} of "
+              f"their limits (2^-14 / 1e-5), 32 keys left out at "
+              f"{e['keys_dropped_err_of_limit'][0]:.1f} / "
+              f"{e['keys_dropped_err_of_limit'][1]:.1f} [{card}]")
     # K4 at the metric shapes: the MMD step's chamfers (8 references of
     # 5000 points), a full batch of 16, one consistency pair, and a ragged
     # case
@@ -1136,8 +1541,25 @@ def main() -> int:
               f"device {p['device_ms']:.3f} ms, busy share "
               f"{p['busy_share']:.3f}, {p['kernel_launches']} kernel "
               f"launches [{card}]")
+    print(f"training in f32 (compute_dtype float32): one step "
+          f"{tr['f32_step_ms']:.3f} ms, peak memory {tr['f32_peak_gib']:.2f} "
+          f"GiB, loss {tr['f32_loss']:.6g}, launches "
+          f"{json.dumps(tr['f32_launches'])} [{card}]")
     print(f"training details: {json.dumps(tr)}; phase 7 took "
           f"{time.perf_counter() - t0:.1f} s")
+    for e, name in zip(f32_entries, ("onepass_attention", "stream_attention")):
+        e["train_launches_per_step"] = tr["f32_launches"][f"{name}/float32"]
+
+    # 8. the generation service at the fast profile on the phase-4 model
+    sv = serve_path(sg, card)
+    for e in entries[:2]:
+        e["serve_launches"] = sv["stream_launches"][f"{e['name']}/bfloat16"]
+    for e, name in zip(f32_entries, ("onepass_attention", "stream_attention")):
+        # the f32 kernels' main path: the f32 request of phase 8
+        e["launches"] = sv["f32_launches"][f"{name}/float32"]
+    print(f"serving details: {json.dumps(sv)}; phase 8 took "
+          f"{sv['phase_s']:.1f} s")
+    entries[2:2] = f32_entries
     for e in entries:
         e["status"] = "ported: built, matches its plain version, on the path"
 

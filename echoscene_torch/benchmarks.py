@@ -1,7 +1,8 @@
-"""Flagship model construction and generation timing for the port.
+"""Flagship model construction, generation / training / serving timing.
 
 Port of `build_flagship`, `time_generation` and `time_train_step` of
-echoscene_tpu/benchmarks.py.  The flagship is EchoScene at full
+echoscene_tpu/benchmarks.py, and of `concurrent_latency` of
+scripts/bench_serve.py.  The flagship is EchoScene at full
 `configs/full_mp.yaml` widths with seeded random weights (no checkpoint is
 in the repository), on a seeded synthetic scene batch at the bench's shape:
 8 scenes of 3-5 objects plus their `_scene_` root node, `max_nodes=48`,
@@ -260,3 +261,52 @@ def profile_call(fn, device, wall_ms: float) -> dict:
     return {"wall_ms": wall_ms, "device_ms": dev_ms if dev_ms > 0 else None,
             "busy_share": dev_ms / wall_ms if dev_ms > 0 else None,
             "kernel_launches": sum(e.count for e in kernels)}
+
+
+def concurrent_latency(service, requests, window_ms: float, n_clients: int,
+                       timeout: float = 600.0) -> dict:
+    """`n_clients` threads, each sending its share of `requests` one at a
+    time through a MicroBatcher with a `window_ms` window in front of
+    `service` (scripts/bench_serve.py:51-86).  Returns each request's
+    latency in seconds (`latencies_s`, in completion order), `req_per_sec`
+    over the wall time of the whole stream, `wall_s`, the batcher's
+    `stats` and the `results` by request index."""
+    import threading
+
+    from .serve.batcher import MicroBatcher
+
+    mb = MicroBatcher(service, max_wait_ms=window_ms)
+    latencies, results, errors = [], {}, []
+    lock = threading.Lock()
+
+    def client(idx):
+        for i in idx:
+            t0 = time.perf_counter()
+            try:
+                (res,) = mb.generate([requests[i]], timeout=timeout)
+            except Exception as e:  # reported after the stream, not lost
+                with lock:
+                    errors.append((i, e))
+                continue
+            dt = time.perf_counter() - t0
+            with lock:
+                latencies.append(dt)
+                results[i] = res
+
+    threads = [threading.Thread(target=client,
+                                args=(range(c, len(requests), n_clients),))
+               for c in range(n_clients)]
+    t0 = time.perf_counter()
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout)
+        wall = time.perf_counter() - t0
+        stats = mb.stats()
+    finally:
+        mb.close()
+    if errors or any(t.is_alive() for t in threads):
+        raise RuntimeError(f"concurrent clients failed: {errors[:3]}")
+    return {"latencies_s": latencies, "req_per_sec": len(requests) / wall,
+            "wall_s": wall, "stats": stats, "results": results}

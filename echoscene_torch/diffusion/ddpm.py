@@ -8,7 +8,8 @@ scene (get_loss_iter :600-603), the per-component MSE diagnostics
 the variational bound in bits (vb_terms, prior_bpd, calc_bpd :375-548), the
 eps -> x0 inversion, the posterior mean and fixed variances, the full
 ancestral chain (p_sample_loop_sg :330-345, a `lax.scan` in JAX, a Python
-loop here) and `split_sample`.
+loop here), JAX's few-step layout samplers (DDIM and DPM-Solver++ over a
+sub-schedule, a capability the reference lacks) and `split_sample`.
 
 Noise is injectable: JAX's random streams cannot be reproduced in torch, so
 every function that draws takes its draws from the caller (tests draw them
@@ -25,7 +26,9 @@ import numpy as np
 import torch
 
 from ..core.boxes import angle_to_sincos, descale_box_params, sincos_to_angle
-from ..core.schedules import DiffusionTables
+from ..core.schedules import (DDIMTables, DiffusionTables, ddim_tables,
+                              ddim_timesteps, lambda_uniform_timesteps)
+from .samplers import CHAINS
 
 
 def masked_mean(x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
@@ -273,6 +276,31 @@ class LayoutDiffusion:
             else:
                 x = mean
         return x
+
+    def make_ddim_tables(self, num_steps: int, eta: float = 0.0
+                         ) -> DDIMTables:
+        """Sub-schedule of the fast DDIM layout sampler (the reference only
+        runs the full ancestral chain for layouts)."""
+        steps = ddim_timesteps(num_steps, self.num_timesteps)
+        return ddim_tables(self.t.alphas_cumprod, steps, eta)
+
+    def make_dpmpp_tables(self, num_steps: int) -> DDIMTables:
+        """Lambda-uniform sub-schedule of the DPM-Solver++ layout sampler."""
+        ac = self.t.alphas_cumprod
+        return ddim_tables(ac, lambda_uniform_timesteps(num_steps, ac), 0.0)
+
+    def sample_chain_fast(self, denoise_fn, shape: Tuple[int, ...],
+                          tables: DDIMTables, method: str = "ddim",
+                          x_T: Optional[torch.Tensor] = None,
+                          generator: Optional[torch.Generator] = None,
+                          device="cuda") -> torch.Tensor:
+        """Few-step layout sampling, `method` "ddim" or "dpmpp" (eps
+        parameterisation only)."""
+        if self.model_mean_type != "eps":
+            raise ValueError(f"the fast layout samplers need eps "
+                             f"parameterisation, got {self.model_mean_type}")
+        return CHAINS[method](denoise_fn, shape, tables, x_T=x_T,
+                              generator=generator, device=device)
 
     @staticmethod
     def split_sample(vec8: torch.Tensor) -> Dict[str, torch.Tensor]:

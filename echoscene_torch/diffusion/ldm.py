@@ -3,9 +3,10 @@
 Port of echoscene_tpu/diffusion/ldm.py (reference diffusion_shape/
 echo2shape.py:149-331 and samplers/ddim.py:127-262): the forward process and
 the eps loss with per-object timesteps (l_simple weight 1, the VLB only
-logged), the DDIM sub-schedule, the DDIM chain over (M, D, H, W, C) latents,
-and the shared initial noise of consistency sampling (one grid repeated over
-all objects, echo2shape.py:508-510).
+logged), the DDIM and the lambda-uniform DPM-Solver++ sub-schedules, both
+chains over (M, D, H, W, C) latents, and the shared initial noise of
+consistency sampling (one grid repeated over all objects,
+echo2shape.py:508-510).
 """
 from __future__ import annotations
 
@@ -14,9 +15,9 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from ..core.schedules import (DDIMTables, DiffusionTables, ddim_tables,
-                              ddim_timesteps)
+                              ddim_timesteps, lambda_uniform_timesteps)
 from .ddpm import masked_mean
-from .samplers import ddim_chain
+from .samplers import ddim_chain, dpmpp_chain
 
 
 class ShapeDiffusion:
@@ -70,6 +71,11 @@ class ShapeDiffusion:
         steps = ddim_timesteps(num_steps, self.num_timesteps)
         return ddim_tables(self.t.alphas_cumprod, steps, eta)
 
+    def make_dpmpp_tables(self, num_steps: int) -> DDIMTables:
+        """Lambda-uniform sub-schedule, the spacing DPM-Solver++ wants."""
+        steps = lambda_uniform_timesteps(num_steps, self.t.alphas_cumprod)
+        return ddim_tables(self.t.alphas_cumprod, steps, 0.0)
+
     def ddim_sample_chain(self, denoise_fn, shape: Tuple[int, ...],
                           tables: DDIMTables,
                           x_T: Optional[torch.Tensor] = None,
@@ -77,6 +83,15 @@ class ShapeDiffusion:
                           device="cuda") -> torch.Tensor:
         return ddim_chain(denoise_fn, shape, tables, x_T=x_T,
                           generator=generator, device=device)
+
+    def dpmpp_sample_chain(self, denoise_fn, shape: Tuple[int, ...],
+                           tables: DDIMTables,
+                           x_T: Optional[torch.Tensor] = None,
+                           generator: Optional[torch.Generator] = None,
+                           device="cuda") -> torch.Tensor:
+        """DPM-Solver++(2M) over the same kind of sub-schedule."""
+        return dpmpp_chain(denoise_fn, shape, tables, x_T=x_T,
+                           generator=generator, device=device)
 
     @staticmethod
     def shared_noise(batch: int, item_shape: Tuple[int, ...],

@@ -16,10 +16,12 @@ Manipulated eval (relationship / addition) keeps GT boxes for untouched nodes
 `--epoch -1` (the default) samples from fresh weights drawn from seed 0, as
 JAX initialises from PRNGKey(0); `--epoch E` restores the parameters and
 batch-norm statistics of <exp>/checkpoint/model<E> (`restore_for_inference`,
-the training CLI's checkpoints).  Not ported yet, and raising
-NotImplementedError: renders and the retrieval / txt2shape render types (the
-render / retrieval slice), `--dp_devices > 1` (the multi-GPU slice); the
-samplers and dtypes the port's SGDiff lacks raise there.
+the training CLI's checkpoints).  The layout and shape samplers of JAX's
+CLI all run (`--layout_sampler ddpm|ddim|dpmpp`, `--shape_sampler
+ddim|dpmpp`).  Not ported yet, and raising NotImplementedError: renders and
+the retrieval / txt2shape render types (the render / retrieval slice),
+`--dp_devices > 1` (the multi-GPU slice) and `--sample_dtype int8` (raised
+in SGDiff).
 """
 from __future__ import annotations
 
@@ -64,8 +66,7 @@ def evaluate(args):
                       with_clip=margs["with_CLIP"])
     cfg.replace_latent = margs["replace_latent"]
     cfg.residual = margs["residual"]
-    # sampler overrides (protocol default: full DDPM + DDIM-100); the
-    # samplers the port lacks raise in SGDiff
+    # sampler overrides (protocol default: full DDPM + DDIM-100)
     if args.layout_sampler:
         cfg.layout_diffusion.sampler = args.layout_sampler
     if args.layout_steps:

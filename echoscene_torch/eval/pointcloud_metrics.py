@@ -6,7 +6,8 @@ scripts/compute_mmd_cov_1nn.py:12-350).  Conventions kept:
     summed (:88);
   * EMD = mean matched Euclidean distance (:48), exact on the host
     (`emd_exact`, Hungarian) or by a fixed-iteration auction on the device
-    (`emd_auction`, an upper bound);
+    (`emd_auction`, JAX's fixed-iteration auction, which is not a bound:
+    it can fall below the exact EMD, see `_auction_emd_batch`);
   * MMD / COV from the (ref x sample) matrix transposed (:204-214);
   * 1-NN two-sample accuracy with +inf diagonal (:154-183).
 

@@ -11,8 +11,9 @@ JAX (the shape UNet's 1024-token sites K1, the VQ-VAE's 4096-token site K2).
 Everything else (the 256-token sites, cross-attention, masked attention) is
 the einsum math `attention_plain`, as XLA einsum in JAX.  There is no
 fallback: on CUDA a routed call launches its kernel or raises (the kernels
-take bf16, the sampling dtype, so an f32 tensor at a routed site raises).
-The threshold is JAX's TPU value, not yet re-measured on the H100.
+take bf16 and f32, as JAX's keep the input dtype; any other dtype at a
+routed site raises).  The threshold is JAX's TPU value, not yet re-measured
+on the H100.
 """
 from __future__ import annotations
 

@@ -8,9 +8,11 @@ EchoScene.optimizer_ini / lr_lambda, EchoScene.py:117-141):
     (train_3dfront.py:249-261), AdamW over everything but the frozen VQ-VAE
     with a piecewise-constant lr, and gradient accumulation as
     optax.MultiSteps (the clip runs on the accumulated mean);
-  * `sample_fn`: the graph context, the 1000-step layout DDPM chain and the
-    100-step shape DDIM chain (each with the echo GCN inside every step)
-    and the chunked VQ decode.
+  * `sample_fn`: the graph context, the layout chain (the 1000-step DDPM
+    chain, or JAX's few-step DDIM / DPM-Solver++ over `sample_steps`) and
+    the shape chain (DDIM or DPM-Solver++ over `ddim_steps`), each with the
+    echo GCN inside every step, and the chunked VQ decode.  The samplers
+    are read from the live config at every call, as in JAX.
 
 Precision: the module holds f32 master parameters; the AdamW state is f32.
 With cfg.compute_dtype == "bfloat16" (the default) each training step runs
@@ -172,8 +174,6 @@ class SGDiff:
         self.module = EchoSceneModule(cfg, num_objs, num_preds).to(
             self.device).eval()
         lc = cfg.layout_diffusion
-        if lc.sampler != "ddpm":
-            raise NotImplementedError(f"layout sampler {lc.sampler}")
         self.layout_diff = LayoutDiffusion(
             S.make_diffusion_tables(S.get_betas(
                 lc.schedule_type, lc.beta_start, lc.beta_end, lc.time_num)),
@@ -181,16 +181,23 @@ class SGDiff:
             model_var_type=lc.model_var_type, loss_iou=lc.loss_iou,
             iou_type=lc.iou_type, iou_stats=iou_stats)
         self.is_echoscene = cfg.network_type == "echoscene"
+        # both fast layout tables are built (tiny (S,) arrays): sample_fn
+        # dispatches on the live cfg.layout_diffusion.sampler, as JAX does
+        self.layout_fast_tables = {
+            "ddim": self.layout_diff.make_ddim_tables(lc.sample_steps),
+            "dpmpp": self.layout_diff.make_dpmpp_tables(lc.sample_steps)}
         if self.is_echoscene:
             sb = cfg.shape_branch
-            if sb.sampler != "ddim":
-                raise NotImplementedError(f"shape sampler {sb.sampler}")
             sd = sb.denoiser
             self.shape_diff = ShapeDiffusion(S.make_diffusion_tables(
                 S.ldm_linear_betas(sd.linear_start, sd.linear_end,
                                    sd.timesteps)))
-            self.ddim_tables = self.shape_diff.make_ddim_tables(
-                sb.ddim_steps, sb.ddim_eta)
+            if sb.sampler == "dpmpp":
+                self.ddim_tables = self.shape_diff.make_dpmpp_tables(
+                    sb.ddim_steps)
+            else:
+                self.ddim_tables = self.shape_diff.make_ddim_tables(
+                    sb.ddim_steps, sb.ddim_eta)
 
     def inference_module(self) -> EchoSceneModule:
         """The module sampling runs (batch norms on their running
@@ -348,7 +355,8 @@ class SGDiff:
                   decode_chunk: int = 8, shape_rows: Optional[int] = None,
                   noise: Optional[Dict[str, torch.Tensor]] = None
                   ) -> Dict[str, torch.Tensor]:
-        """Generate layouts (full DDPM chain) and shapes (DDIM + VQ decode).
+        """Generate layouts (the configured layout chain) and shapes (DDIM
+        or DPM-Solver++, then the VQ decode).
 
         shape_rows: row count of both chains (>= the real-node count, see
         `shape_row_capacity`); nodes are scene-major with padding at the
@@ -356,8 +364,10 @@ class SGDiff:
         it, and outputs for later rows are zeros.
         noise: optional injected draws, each used in place of the generator:
           "change"     (N, embedding_dim) manipulation change code,
-          "box_x_T"    (N, 8) initial layout state,
-          "box_steps"  (T, N, 8) per-step layout noise, chain order,
+          "box_x_T"    (N, 8) initial layout state (every sampler; the
+                       chains take its first rows),
+          "box_steps"  (T, N, 8) per-step layout noise of the DDPM chain,
+                       chain order,
           "shape_x_T"  one latent grid broadcast over the rows.
         Returns sizes / translations / angles / keep and, with gen_shape,
         shapes (N, 64, 64, 64, 1), the JAX output dict.
@@ -381,13 +391,28 @@ class SGDiff:
         m = n if shape_rows is None else min(int(shape_rows), n)
         triples, obj_mask, tri_mask = compact_graph(batch, m)
         obj_embed = ctx["obj_embed"][:m]
-        vec8 = self.layout_diff.sample_chain(
-            lambda x, t: model.layout_eps(x, t, obj_embed, triples, obj_mask,
-                                          tri_mask),
-            (m, cfg.layout_denoiser.in_channels), clip_denoised=False,
-            noise_rows=n, x_T=noise.get("box_x_T"),
-            step_noise=noise.get("box_steps"), generator=generator,
-            device=dev)
+
+        def box_denoise(x, t):
+            return model.layout_eps(x, t, obj_embed, triples, obj_mask,
+                                    tri_mask)
+
+        box_shape = (m, cfg.layout_denoiser.in_channels)
+        lc = cfg.layout_diffusion
+        if lc.sampler == "ddpm":
+            vec8 = self.layout_diff.sample_chain(
+                box_denoise, box_shape, clip_denoised=False, noise_rows=n,
+                x_T=noise.get("box_x_T"), step_noise=noise.get("box_steps"),
+                generator=generator, device=dev)
+        else:
+            # drawn at n rows and sliced, as JAX draws its x_T
+            x_T = noise.get("box_x_T")
+            if x_T is None:
+                x_T = torch.randn((n, box_shape[1]), generator=generator,
+                                  device=dev)
+            vec8 = self.layout_diff.sample_chain_fast(
+                box_denoise, box_shape, self.layout_fast_tables[lc.sampler],
+                method=lc.sampler, x_T=x_T.to(dev)[:m], generator=generator,
+                device=dev)
         if m < n:
             vec8 = torch.cat([vec8, vec8.new_zeros((n - m, vec8.shape[1]))], 0)
         out = dict(self.layout_diff.split_sample(vec8))
@@ -400,7 +425,10 @@ class SGDiff:
             x_T = self.shape_diff.shared_noise(
                 m, (r, r, r, zc), generator=generator, device=dev,
                 single=noise.get("shape_x_T"))
-            z0 = self.shape_diff.ddim_sample_chain(
+            chain = (self.shape_diff.dpmpp_sample_chain
+                     if sb.sampler == "dpmpp"
+                     else self.shape_diff.ddim_sample_chain)
+            z0 = chain(
                 lambda z, t: model.shape_eps(z, t, uc_s, triples, obj_mask,
                                              tri_mask),
                 (m, r, r, r, zc), self.ddim_tables, x_T=x_T,

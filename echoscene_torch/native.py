@@ -3,7 +3,8 @@
 Port of echoscene_tpu/native.py over the same `cpp/libechoscene_native.so`
 (source `cpp/echoscene_native.cpp`): marching-tetrahedra isosurface
 extraction, area-weighted mesh sampling, the SDF -> point-cloud step of the
-consistency and MMD metrics, and host chamfer / approximate EMD.  These are
+consistency and MMD metrics, host chamfer / approximate EMD, and the
+top-down rasterizer of the renders.  These are
 host routines, not TPU kernels.  The library is built with `make -C cpp` on
 first use if it is missing; if it cannot be built or loaded, the NumPy
 fallbacks serve (`available()` says which), and `chamfer_batch` falls back
@@ -52,6 +53,11 @@ def _load() -> Optional[ctypes.CDLL]:
     lib.sample_mesh.argtypes = [f32p, i32p, ctypes.c_int, ctypes.c_int,
                                 ctypes.c_uint64, f32p]
     lib.sample_mesh.restype = None
+    lib.rasterize_topdown.argtypes = [f32p, i32p, f32p, ctypes.c_int,
+                                      ctypes.c_float, ctypes.c_float,
+                                      ctypes.POINTER(ctypes.c_uint8),
+                                      ctypes.c_int, ctypes.c_int]
+    lib.rasterize_topdown.restype = None
     _LIB = lib
     return lib
 
@@ -151,6 +157,28 @@ def sdf_to_point_cloud(grid: np.ndarray, n_points: int = 5000,
         scale = np.abs(pts).max() + 1e-8
         pts = pts / scale * 0.5
     return pts.astype(np.float32)
+
+
+def rasterize_topdown(verts: np.ndarray, tris: np.ndarray,
+                      tri_colors: np.ndarray, width: int = 256,
+                      height: int = 256, cam_height: float = 8.0,
+                      yfov: float = np.pi / 2) -> np.ndarray:
+    """Top-down perspective render -> (H, W, 3) uint8: camera at
+    (0, cam_height, 0) looking at the origin, up = -z (the reference's
+    pyrender camera, helpers/visualize_scene.py:122-153).  Needs the C++
+    library: there is no NumPy rasterizer."""
+    verts = np.ascontiguousarray(verts, np.float32)
+    tris = np.ascontiguousarray(tris, np.int32)
+    tri_colors = np.ascontiguousarray(tri_colors, np.float32)
+    lib = _load()
+    if lib is None:
+        raise RuntimeError("native rasterizer unavailable (make -C cpp)")
+    img = np.zeros((height, width, 3), np.uint8)
+    lib.rasterize_topdown(
+        _fp(verts), _ip(tris), _fp(tri_colors), tris.shape[0],
+        ctypes.c_float(cam_height), ctypes.c_float(yfov),
+        img.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), width, height)
+    return img
 
 
 # --- NumPy fallbacks -------------------------------------------------------

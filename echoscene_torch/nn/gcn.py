@@ -4,9 +4,11 @@ Port of echoscene_tpu/nn/gcn.py (reference model/graph.py:37-250).  Per layer:
 gather subject/object vectors for every triple, run the per-triple MLP net1
 on [s, p, o], scatter-pool the new s/o vectors back to their nodes ('sum',
 'avg' with counts clamped to >= 1, or 'wAvg' with learned sigmoid weights),
-run the node MLP net2, and add the residual projections.  The JAX package
-pools with a one-hot matmul (TPU-friendly); here masked `index_add_` does the
-same sum: padded triples contribute zero rows.
+run the node MLP net2, and add the residual projections.  Pooling is JAX's
+one-hot matmul: a masked (T, N) one-hot matrix times the values, accumulated
+in f32, so padded triples contribute zero rows.  On the card that is one f32
+product (TF32 off), which adds in a fixed order and gives the same bits on
+every run, where an atomic scatter (`index_add_`) would not.
 """
 from __future__ import annotations
 
@@ -22,12 +24,12 @@ from .mlp import MLP
 def scatter_sum(values: torch.Tensor, idx: torch.Tensor,
                 mask: Optional[torch.Tensor], num_nodes: int) -> torch.Tensor:
     """sum over t with idx[t] == n and mask[t] == 1 of values[t] -> (N, D),
-    accumulated in f32."""
-    v = values.float()
+    as JAX's `scatter_sum_onehot`: onehot^T values with f32 accumulation."""
+    nodes = torch.arange(num_nodes, device=idx.device)
+    onehot = (idx[:, None] == nodes[None, :]).float()
     if mask is not None:
-        v = v * mask.float()[:, None]
-    out = torch.zeros(num_nodes, v.shape[1], device=v.device, dtype=v.dtype)
-    return out.index_add_(0, idx, v).to(values.dtype)
+        onehot = onehot * mask.float()[:, None]
+    return (onehot.t() @ values.float()).to(values.dtype)
 
 
 class WeightNetGCN(nn.Module):

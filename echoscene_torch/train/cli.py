@@ -13,9 +13,10 @@ model from it), trains, and saves <exp>/checkpoint/model<epoch>.
 Not ported, and refused at start: `--dp_devices > 1` and `--zero1` (the
 multi-GPU slice), `--latent_cache` (it comes with precompute_latents),
 shape previews (`--preview_every > 0` with a TensorBoard writer on an
-echoscene run: they need eval/render.py), `--compute_dtype float32` on
-CUDA (the attention kernels take bf16) and bf16 on the CPU (CPU torch's
-bf16 conv1d weight gradient at stride 2 on a one-token input is wrong).
+echoscene run: they are not wired to eval/render.py yet) and bf16 on the CPU
+(CPU torch's bf16 conv1d weight gradient at stride 2 on a one-token input
+is wrong).  f32 training runs on the CPU and on CUDA, where the attention
+kernels take f32 too.
 """
 from __future__ import annotations
 
@@ -76,7 +77,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--compute_dtype", default=None,
                    choices=["float32", "bfloat16"],
                    help="training compute precision (default: the config's, "
-                        "bfloat16, on CUDA only); float32 on the CPU only")
+                        "bfloat16, on CUDA only); float32 on the CPU or CUDA")
     p.add_argument("--max_steps", type=int, default=0,
                    help="stop after N train steps (0 = unlimited)")
     p.add_argument("--latent_cache", default=None,
@@ -109,10 +110,6 @@ def _refuse_unported(args, cfg) -> None:
         raise NotImplementedError(
             "--latent_cache comes with the port of precompute_latents")
     on_cuda = torch.device(args.device).type == "cuda"
-    if on_cuda and cfg.compute_dtype == "float32":
-        raise NotImplementedError(
-            "--compute_dtype float32 on CUDA: the attention kernels take "
-            "bfloat16 only; f32 training runs on the CPU (--device cpu)")
     if not on_cuda and cfg.compute_dtype == "bfloat16":
         raise NotImplementedError(
             "bfloat16 training on the CPU: CPU torch's bf16 conv1d weight "
@@ -182,8 +179,7 @@ def main(argv=None):
         writer.close()
         raise NotImplementedError(
             "shape previews (--preview_every > 0 with a TensorBoard writer) "
-            "need eval/render.py, which is not ported; pass "
-            "--preview_every 0")
+            "are not wired to eval/render.py yet; pass --preview_every 0")
 
     with contextlib.ExitStack() as stack:
         if writer is not None:

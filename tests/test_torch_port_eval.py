@@ -526,9 +526,29 @@ def test_eval_cli_raises_on_unported_options(eval_run):
     _, _, _, argv, _ = eval_run
     for extra in (["--dp_devices", "2"],
                   ["--render_dir", "x"], ["--render_type", "retrieval"],
-                  ["--layout_sampler", "dpmpp"], ["--sample_dtype", "int8"]):
+                  ["--sample_dtype", "int8"]):
         with pytest.raises(NotImplementedError):
             cli.main(argv + extra)
+
+
+def test_eval_cli_fast_samplers_cpu(eval_run, tmp_path):
+    """The eval CLI on the CPU with DPM++ layout and shape samplers: the
+    report is written, the dumped SDFs are finite."""
+    from echoscene_torch.eval import cli
+
+    _, _, _, argv, _ = eval_run
+    i = argv.index("--store_path")
+    argv = argv[:i + 1] + [str(tmp_path)] + argv[i + 2:]
+    results = cli.main(argv + ["--layout_sampler", "dpmpp", "--layout_steps",
+                               "5", "--shape_sampler", "dpmpp",
+                               "--shape_steps", "3", "--limit", "1"])
+    assert sum(len(v) for v in results["none"].values()) > 0
+    assert (tmp_path / "none_accuracy_analysis.txt").read_text().startswith(
+        "acc & L/R:")
+    dumps = [f for f in tmp_path.iterdir() if f.suffix == ".npz"]
+    assert len(dumps) == 1
+    with np.load(dumps[0]) as d:
+        assert np.isfinite(d["sdfs"]).all() and np.abs(d["sdfs"]).max() > 0
 
 
 def test_metric_clis_run_on_eval_outputs(eval_run):

@@ -173,7 +173,7 @@ def test_cuda_kernel_matches_plain(entry, shape):
     ref = port_fa.attention_plain(q, k, v)
     assert max(port_fa.error_ratios(out, ref)) <= 1.0
     with pytest.raises(TypeError):
-        getattr(port_fa, entry)(q.float(), k.float(), v.float())
+        getattr(port_fa, entry)(q.half(), k.half(), v.half())
 
 
 @pytest.mark.cuda
@@ -181,7 +181,7 @@ def test_cuda_kernel_matches_plain(entry, shape):
 def test_cuda_attention_raises_on_inputs_it_does_not_take(entry):
     """No fallback: a CUDA tensor the kernel cannot take raises, and no
     launch is counted.  D % 8 != 0 (TMA needs 16-byte row strides), D > 256,
-    f32, non-contiguous, no keys."""
+    f16, non-contiguous, no keys."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     fn = getattr(port_fa, entry)
@@ -197,7 +197,7 @@ def test_cuda_attention_raises_on_inputs_it_does_not_take(entry):
     with pytest.raises(ValueError):
         fn(*qkv((1, 64, 1, 264)))
     with pytest.raises(TypeError):
-        fn(*qkv((1, 64, 1, 64), torch.float32))
+        fn(*qkv((1, 64, 1, 64), torch.float16))
     q, k, v = qkv((1, 64, 2, 64))
     with pytest.raises(ValueError):
         fn(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
@@ -219,7 +219,7 @@ def test_cuda_kernel_gradients_match_plain_autograd(entry, shape):
     """The kernel's output carries the differentiable Function; its dq, dk,
     dv (the plain version recomputed and differentiated) equal plain
     autograd's from the same inputs and upstream gradient, and the backward
-    launches no kernel.  An f32 input still raises."""
+    launches no kernel.  An f16 input raises."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -241,13 +241,14 @@ def test_cuda_kernel_gradients_match_plain_autograd(entry, shape):
     with torch.no_grad():
         assert fn(q, k, v).grad_fn is None
     with pytest.raises(TypeError):
-        fn(*(x.float().requires_grad_(True) for x in (q, k, v)))
+        fn(*(x.half().requires_grad_(True) for x in (q, k, v)))
 
 
 @pytest.mark.cuda
 def test_cuda_dispatcher_routes_long_self_attention_to_kernels():
-    """Self-attention at >= 512 tokens launches a kernel, and raises on f32
-    (the kernels take bf16); 256-token sites take the einsum math."""
+    """Self-attention at >= 512 tokens launches a kernel, the bf16 one for
+    bf16 and the f32 one for f32, and raises on f16 (no kernel takes it);
+    256-token sites take the einsum math."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -255,13 +256,119 @@ def test_cuda_dispatcher_routes_long_self_attention_to_kernels():
                for _ in range(3))
     port_fa.reset_launches()
     with pytest.raises(TypeError):
-        port_attn.dot_product_attention(q, k, v)
+        port_attn.dot_product_attention(q.half(), k.half(), v.half())
     short = [x[:, :256].to(torch.bfloat16) for x in (q, k, v)]
     out = port_attn.dot_product_attention(*short)
     assert port_fa.LAUNCHES == {"onepass_attention": 0, "stream_attention": 0}
     assert torch.equal(out, port_fa.attention_plain(*short))
     port_attn.dot_product_attention(*(x.to(torch.bfloat16) for x in (q, k, v)))
     assert port_fa.LAUNCHES["onepass_attention"] == 1
+    out = port_attn.dot_product_attention(q, k, v)
+    assert out.dtype == torch.float32
+    assert port_fa.LAUNCHES["onepass_attention"] == 2
+    assert port_fa.LAUNCHES_BY_DTYPE == {("onepass_attention", "bfloat16"): 1,
+                                         ("onepass_attention", "float32"): 1}
+    assert max(port_fa.error_ratios(out, port_fa.attention_plain(q, k, v))
+               ) <= 1.0
+
+
+def test_attention_bound_f32():
+    """`attention_bound` for f32 inputs: the products as f32 FMAs at 67
+    TFLOP/s (the kernel uses no tensor cores), 4-byte elements; at both
+    path shapes the FMAs bound it."""
+    for shape in ((42, 1024, 8, 56), (8, 4096, 1, 256)):
+        b, l, h, d = shape
+        f32 = port_fa.attention_bound(*shape, dtype=torch.float32)
+        bf16 = port_fa.attention_bound(*shape)
+        assert (f32["by"], f32["bound_by"]) == ("fma", "operations")
+        assert "tensor_core_ms" not in f32
+        np.testing.assert_allclose(
+            f32["ms"], 4 * b * h * l * l * d / 67e12 * 1e3, rtol=1e-12)
+        assert f32["bytes"] == 2 * bf16["bytes"] == 4 * 4 * b * l * h * d
+        assert f32["exp2_ms"] == bf16["exp2_ms"]
+    np.testing.assert_allclose(
+        port_fa.attention_bound(42, 1024, 8, 56, dtype=torch.float32)["ms"],
+        1.17791, rtol=1e-5)
+
+
+def test_kernel_tolerance_f32_passes_rounding_and_fails_dropped_keys(rng):
+    """`error_ratios` on f32 outputs (max err <= 2^-14 of the peak, mean err
+    <= 1e-5 of the mean magnitude): the f64 result rounded to f32 passes,
+    the plain version with its last 32 of 1024 keys left out fails both."""
+    q, k, v = (torch.from_numpy(x) for x in _qkv(rng, 2, 1024, 2, 56))
+    ref = port_fa.attention_plain(q, k, v)
+    f64 = port_fa.attention_plain(q.double(), k.double(), v.double())
+    assert max(port_fa.error_ratios(f64.float(), ref)) <= 1.0
+    dropped = port_fa.attention_plain(q, k[:, :-32], v[:, :-32])
+    assert min(port_fa.error_ratios(dropped, ref)) > 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry,shape", [
+    ("onepass_attention", (42, 1024, 8, 56)),   # the UNet site, 42 rows
+    ("onepass_attention", (3, 200, 2, 24)),
+    ("onepass_attention", (3, 333, 8, 56)),     # L, S not multiples of 64
+    ("stream_attention", (8, 4096, 1, 256)),    # the VQ-VAE site
+    ("stream_attention", (2, 77, 3, 200)),      # ragged L, S; D_pad 256
+    ("stream_attention", (9, 2048, 2, 128)),
+])
+def test_cuda_f32_kernel_matches_plain(entry, shape):
+    """The f32 kernel vs the plain version in f32, within `error_ratios`'
+    f32 limits (max abs err <= 2^-14 of the peak, mean <= 1e-5 of the mean
+    magnitude); one launch, counted as f32; f32 output."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda")
+               for _ in range(3))
+    port_fa.reset_launches()
+    out = getattr(port_fa, entry)(q, k, v)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32
+    assert port_fa.LAUNCHES[entry] == 1
+    assert port_fa.LAUNCHES_BY_DTYPE == {(entry, "float32"): 1}
+    assert max(port_fa.error_ratios(out, port_fa.attention_plain(q, k, v))
+               ) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["onepass_attention", "stream_attention"])
+def test_cuda_attention_raises_on_a_dtype_mix(entry):
+    """q, k, v of two dtypes raise before any launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    q, k, v = (torch.randn((1, 64, 2, 64), device="cuda") for _ in range(3))
+    port_fa.reset_launches()
+    fn = getattr(port_fa, entry)
+    for mix in ((q, k.bfloat16(), v), (q.bfloat16(), k.bfloat16(), v)):
+        with pytest.raises(TypeError):
+            fn(*mix)
+    assert port_fa.LAUNCHES == {"onepass_attention": 0, "stream_attention": 0}
+    assert port_fa.LAUNCHES_BY_DTYPE == {}
+
+
+@pytest.mark.cuda
+def test_cuda_gcn_pooling_is_bit_reproducible():
+    """Two calls of a GCN on the card give the same bits: the one-hot
+    product adds in a fixed order (an atomic scatter would not)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from echoscene_torch.nn.gcn import GraphTripleConvNet, scatter_sum
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    n, t, d = 48, 160, 64
+    net = GraphTripleConvNet(d, d, num_layers=5, hidden_dim=128,
+                             pooling="avg").cuda()
+    obj = torch.randn((n, d), generator=g, device="cuda")
+    pred = torch.randn((t, d), generator=g, device="cuda")
+    edges = torch.randint(0, n, (t, 2), generator=g, device="cuda")
+    mask = (torch.arange(t, device="cuda") < 130).float()
+    outs = [net(obj, pred, edges, None, mask) for _ in range(2)]
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    vals = torch.randn((t, 512), generator=g, device="cuda")
+    sums = [scatter_sum(vals, edges[:, 0], mask, n) for _ in range(2)]
+    assert torch.equal(*sums)
 
 
 # --- K4: one-way nearest-neighbour distance (chamfer) ----------------------

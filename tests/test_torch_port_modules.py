@@ -147,7 +147,7 @@ def _port_gcn(pooling, params, stats):
 
 @pytest.mark.parametrize("pooling", ["avg", "sum", "wAvg"])
 def test_gcn_matches_jax(rng, pooling):
-    """Eval mode (running statistics); masked index_add_ pooling."""
+    """Eval mode (running statistics); masked one-hot pooling."""
     jm, v, inputs = _jax_gcn(rng, pooling)
     want = jax.jit(jm.apply)(v, *map(jnp.asarray, inputs))
     pm = _port_gcn(pooling, *_variables(v))
@@ -155,6 +155,31 @@ def test_gcn_matches_jax(rng, pooling):
         got = pm(*map(_t, inputs))
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_scatter_sum_matches_jax_onehot(rng, dtype):
+    """`scatter_sum` against JAX's `scatter_sum_onehot` on padded, masked
+    triples (the last 12 of 40 masked out, one node never hit), f32
+    accumulation, the result in the input dtype: within 1e-6.  The bf16
+    values sit on a grid whose sums are exact in f32, so both round the same
+    sums."""
+    from echoscene_tpu.nn.gcn import scatter_sum_onehot
+
+    t, n, d = 40, 12, 24
+    idx = rng.integers(0, n - 1, t).astype(np.int32)
+    mask = (np.arange(t) < 28).astype(np.float32)
+    values = (rng.normal(size=(t, d)) if dtype == "float32"
+              else rng.integers(-512, 512, (t, d)) / 64).astype(np.float32)
+    want = np.asarray(scatter_sum_onehot(
+        jnp.asarray(values, dtype), jnp.asarray(idx), jnp.asarray(mask),
+        n).astype(jnp.float32))
+    got = port_gcn.scatter_sum(
+        torch.from_numpy(values).to(getattr(torch, dtype)),
+        torch.from_numpy(idx).long(), torch.from_numpy(mask), n)
+    assert got.dtype == getattr(torch, dtype)
+    assert np.all(want[n - 1] == 0) and np.abs(want).max() > 1
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0, atol=1e-6)
 
 
 def test_masked_batchnorm_train_mode_matches_jax(rng):

@@ -156,6 +156,132 @@ def test_sample_fn_matches_jax(fake_batch):
     assert np.all(got["shapes"][rows:].numpy() == 0)
 
 
+def _jax_fast_noise(rng, n, cfg):
+    """The draws JAX's sample_fn makes from `rng` with a fast layout
+    sampler (sgdiff.py:349, :393-395): x_T at n rows, then the shared grid;
+    the chains draw nothing else at eta = 0."""
+    k_change, k_box, k_shape = jax.random.split(rng, 3)
+    change = jax.random.normal(k_change, (n, cfg.embedding_dim))
+    _, k_init = jax.random.split(k_box)
+    box_x_T = jax.random.normal(k_init, (n, cfg.layout_denoiser.in_channels))
+    r = cfg.shape_branch.denoiser.image_size
+    shape_x_T = jax.random.normal(
+        k_shape, (1, r, r, r, cfg.shape_branch.vqvae.embed_dim))
+    as_t = lambda a: torch.from_numpy(np.array(a))
+    return {"change": as_t(change), "box_x_T": as_t(box_x_T),
+            "shape_x_T": as_t(shape_x_T)}
+
+
+@pytest.mark.parametrize("layout,shape", [
+    ("ddim", "dpmpp"), ("dpmpp", "ddim"), ("dpmpp", "dpmpp")])
+def test_sample_fn_fast_samplers_match_jax(fake_batch, layout, shape):
+    """The tiny f32 sample_fn under the few-step samplers (DDIM / DPM++
+    over sub-schedules, layout and shape), from JAX's draws: boxes and SDFs
+    within 1e-4."""
+    from echoscene_tpu.models.sgdiff import SGDiff as JSGDiff
+    from echoscene_tpu.models.sgdiff import shape_row_capacity
+    from echoscene_torch.models.sgdiff import SGDiff as PSGDiff
+
+    batch, num_objs, num_preds = fake_batch
+    cfg = _jax_config(2)
+    cfg.layout_diffusion.sampler = layout
+    cfg.layout_diffusion.sample_steps = 6
+    cfg.shape_branch.sampler = shape
+    cfg.shape_branch.ddim_steps = 3
+    jsg = JSGDiff(cfg, num_objs=num_objs, num_preds=num_preds)
+    n = batch.num_nodes
+    params, stats = _params_and_stats(jsg.module, batch,
+                                      jnp.zeros((n, cfg.embedding_dim)))
+    rows = shape_row_capacity(batch)
+    rng = jax.random.PRNGKey(5)
+    want = jax.jit(functools.partial(
+        jsg.sample_fn, gen_shape=True, with_manipulation=True,
+        shape_rows=rows))(params, stats, batch, rng)
+
+    psg = PSGDiff(_port_config(cfg), num_objs, num_preds, device="cpu")
+    assert psg.ddim_tables.num_steps == jsg.ddim_tables.num_steps
+    psg.module.load_state_dict(from_jax.to_state_dict(
+        from_jax.checkpoint_to_module(
+            from_jax.convert_echoscene_checkpoint(params, stats, cfg))),
+        strict=True)
+    got = psg.sample_fn(to_port_batch(batch), with_manipulation=True,
+                        shape_rows=rows, noise=_jax_fast_noise(rng, n, cfg))
+    for k in ("sizes", "translations", "angles", "keep", "shapes"):
+        w = np.asarray(want[k])
+        assert tuple(got[k].shape) == w.shape, k
+        np.testing.assert_allclose(got[k].numpy(), w, atol=ATOL, err_msg=k)
+    assert np.abs(np.asarray(want["shapes"])).max() > 1e-2
+
+
+def test_fast_sampler_tables_match_jax():
+    """The DDIM and lambda-uniform DPM++ sub-schedules of both branches, at
+    the flagship schedules and the fast profile's step counts, equal JAX's
+    (the same float32 tables)."""
+    import dataclasses
+
+    from echoscene_tpu.core import schedules as JS
+    from echoscene_tpu.diffusion.ddpm import LayoutDiffusion as JLD
+    from echoscene_tpu.diffusion.ldm import ShapeDiffusion as JSD
+    from echoscene_tpu.models.config import load_config as jload
+    from echoscene_torch.core import schedules as PS
+    from echoscene_torch.diffusion.ddpm import LayoutDiffusion as PLD
+    from echoscene_torch.diffusion.ldm import ShapeDiffusion as PSD
+
+    cfg = jload(os.path.join(REPO, "configs", "full_mp.yaml"))
+    lc, sd = cfg.layout_diffusion, cfg.shape_branch.denoiser
+    betas = (lc.schedule_type, lc.beta_start, lc.beta_end, lc.time_num)
+    shape_betas = (sd.linear_start, sd.linear_end, sd.timesteps)
+    jl = JLD(JS.make_diffusion_tables(JS.get_betas(*betas)))
+    pl = PLD(PS.make_diffusion_tables(PS.get_betas(*betas)))
+    js = JSD(JS.make_diffusion_tables(JS.ldm_linear_betas(*shape_betas)))
+    ps = PSD(PS.make_diffusion_tables(PS.ldm_linear_betas(*shape_betas)))
+    pairs = [(jl.make_ddim_tables(50), pl.make_ddim_tables(50)),
+             (jl.make_dpmpp_tables(50), pl.make_dpmpp_tables(50)),
+             (js.make_ddim_tables(100, 0.3), ps.make_ddim_tables(100, 0.3)),
+             (js.make_dpmpp_tables(20), ps.make_dpmpp_tables(20))]
+    for want, got in pairs:
+        for f in dataclasses.fields(want):
+            w, g = getattr(want, f.name), getattr(got, f.name)
+            assert np.asarray(g).dtype == np.asarray(w).dtype, f.name
+            np.testing.assert_array_equal(g, w, err_msg=f.name)
+    assert pairs[1][1].num_steps == 50 and pairs[3][1].num_steps == 20
+
+
+@pytest.mark.parametrize("method", ["ddim", "dpmpp"])
+def test_chains_on_closed_form_denoiser_match_jax(method):
+    """ddim_chain / dpmpp_chain with the optimal eps of a Gaussian data
+    distribution (tests/test_samplers.py's closed form) on a 20-step
+    lambda-uniform sub-schedule: the port within 1e-6 of the output's peak
+    of JAX's chain.  (XLA's f32 log / log1p / expm1 differ from torch's by
+    an ulp, and 20 steps carry that to ~2e-6 absolute at a peak of ~3.)"""
+    from echoscene_tpu.core import schedules as JS
+    from echoscene_tpu.diffusion import samplers as jsamp
+    from echoscene_torch.diffusion import samplers as psamp
+
+    mu, sigma = 1.7, 0.6
+    tables = JS.make_diffusion_tables(JS.ddpm_linear_betas(1e-4, 0.02, 1000))
+    sub = JS.ddim_tables(
+        tables.alphas_cumprod,
+        JS.lambda_uniform_timesteps(20, tables.alphas_cumprod), eta=0.0)
+    ac = tables.alphas_cumprod
+
+    def eps(x, t, xp):
+        a = xp.asarray(ac)[t].reshape(-1, 1)
+        return xp.sqrt(1 - a) * (x - xp.sqrt(a) * mu) / (a * sigma ** 2 + 1 - a)
+
+    x_T = np.random.default_rng(0).normal(size=(16, 4)).astype(np.float32)
+    want = getattr(jsamp, f"{method}_chain")(
+        lambda x, t: eps(x, t, jnp), x_T.shape, jax.random.PRNGKey(1), sub,
+        x_T=jnp.asarray(x_T))
+    got = psamp.CHAINS[method](
+        lambda x, t: eps(x, t, torch), x_T.shape, sub,
+        x_T=torch.from_numpy(x_T), device="cpu")
+    assert got.dtype == torch.float32
+    want = np.asarray(want)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=1e-6 * np.abs(want).max())
+
+
 def test_compacted_rows_match_full_width(fake_batch):
     """Port-only: the compacted chains reproduce the full-width chains on
     the real rows (noise drawn at full width and sliced, padded slots
@@ -241,7 +367,7 @@ def test_port_imports_no_jax():
         "       m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',\n"
         "                           'echoscene_tpu')]\n"
         "assert not bad, bad\n"
-        "assert len(mods) >= 52, mods\n"
+        "assert len(mods) >= 57, mods\n"
         "print(len(mods))\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

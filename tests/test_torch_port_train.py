@@ -943,12 +943,11 @@ def test_train_cli_then_eval_cli_round_trip(port_data, tmp_path):
 
 @pytest.mark.parametrize("extra", [
     ["--dp_devices", "2"], ["--zero1"], ["--latent_cache", "x"],
-    ["--preview_every", "10"], ["--device", "cuda"],
+    ["--preview_every", "10"],
     ["--device", "cpu", "--compute_dtype", "bfloat16"]])
 def test_train_cli_refuses_unported_options(extra, port_data, tmp_path):
     """Refused at start with a clear message, before any step: multi-GPU,
-    the latent cache, shape previews with a writer, f32 on CUDA and bf16
-    on the CPU."""
+    the latent cache, shape previews with a writer and bf16 on the CPU."""
     from echoscene_torch.train import cli as train_cli
 
     _, root, _, _, _ = port_data
@@ -961,3 +960,23 @@ def test_train_cli_refuses_unported_options(extra, port_data, tmp_path):
     with pytest.raises(NotImplementedError):
         train_cli.main(argv)
     assert not (exp / "checkpoint").exists()
+
+
+@pytest.mark.parametrize("device", ["cuda", "cpu"])
+def test_train_cli_accepts_f32(device):
+    """f32 training is no longer refused on CUDA (the attention kernels take
+    f32), nor on the CPU; the config's bf16 still is on the CPU."""
+    from echoscene_torch.models.config import tiny_config
+    from echoscene_torch.train import cli as train_cli
+
+    args = train_cli.build_parser().parse_args(
+        ["--dataset", "d", "--device", device])
+    cfg = tiny_config()
+    cfg.compute_dtype = "float32"
+    train_cli._refuse_unported(args, cfg)
+    cfg.compute_dtype = "bfloat16"
+    if device == "cpu":
+        with pytest.raises(NotImplementedError):
+            train_cli._refuse_unported(args, cfg)
+    else:
+        train_cli._refuse_unported(args, cfg)
