@@ -36,14 +36,17 @@ result line):
        share of the bound, the earlier direct-form design
        (`csrc/chamfer_direct.cu`, same inputs, same tolerance) and the host
        time of one wrapper call;
-     * K1 / K2 on f32 inputs (f32 sampling and training), the f32 FMA
-       kernel (`csrc/flash_attention_f32.cu`) at the same shapes: against
-       the plain version in f32, max abs error <= 2^-14 of the plain
-       output's peak and mean abs error <= 1e-5 of its mean magnitude, a
-       tolerance that must reject the plain version with its last 32 keys
-       left out; times beside the f32 bound (f32 FMAs at 67 TFLOP/s, exp2,
-       4-byte elements), SDPA in f32 with TF32 off, the plain version and
-       the host time of one wrapper call;
+     * K1 / K2 on f32 inputs (f32 sampling and training), the 3xTF32
+       kernel (`csrc/flash_attention_tf32x3.cu`) at the same shapes and
+       ragged ones (D 8 to 256): against the plain version in f32, max abs
+       error <= 2^-14 of the plain output's peak and mean abs error <= 1e-5
+       of its mean magnitude, a tolerance that must reject the plain
+       version with its last 32 keys left out; times beside the f32 bound
+       (three TF32 products per product at 495 TFLOP/s, exp2, 4-byte
+       elements; the f32 FMA route at 67 TFLOP/s beside it), its pre-pass
+       alone, the earlier f32 FMA design (`csrc/flash_attention_f32.cu`,
+       same inputs, same tolerance), SDPA in f32 with TF32 off, the plain
+       version and the host time of one wrapper call;
      * K1 / K2 at the training step's shapes ((8, 1024, 8, 56), the VQ
        encoder's (8, 4096, 1, 256)) through the differentiable Function:
        the output carries its grad_fn, the forward meets `error_ratios`,
@@ -199,6 +202,57 @@ def mma_baseline(q, k, v):
     return o
 
 
+# the earlier (f32 FMA, CUDA cores) design of the f32 K1 / K2 kernel, timed
+# beside the 3xTF32 kernel in the same run; no path of the port calls it
+F32_SIMT_SOURCE = "flash_attention_f32.cu"
+_baseline_f32 = []
+
+
+def f32_simt_baseline(q, k, v):
+    """softmax(q k^T D^-1/2) v on f32 inputs by the earlier design's kernel."""
+    import ctypes
+    import torch
+    from echoscene_torch.kernels import build
+    if not _baseline_f32:
+        fn = build.load(F32_SIMT_SOURCE).echoscene_onepass_attention_f32
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+            ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _baseline_f32.append(fn)
+    b, l, h, d = q.shape
+    o = torch.empty_like(q)
+    err = _baseline_f32[0](q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                           o.data_ptr(), b, h, l, k.shape[1], d, d ** -0.5,
+                           torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        fail(f"the earlier f32 kernel failed to launch: CUDA error {err}")
+    return o
+
+
+_prepass = []
+
+
+def f32_prepass(q, k, v, scratch):
+    """The f32 kernel's pre-pass alone (split of k and v into TF32 hi / lo
+    parts, v transposed) into `scratch`."""
+    import ctypes
+    import torch
+    from echoscene_torch.kernels import build
+    from echoscene_torch.kernels import flash_attention as fa
+    if not _prepass:
+        fn = build.load(fa.SOURCE_F32).echoscene_attention_f32_prepass
+        fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [
+            ctypes.c_void_p] * 2
+        fn.restype = ctypes.c_int
+        _prepass.append(fn)
+    b, l, h, d = q.shape
+    err = _prepass[0](k.data_ptr(), v.data_ptr(), b, h, l,
+                      k.shape[1], d, torch.cuda.current_stream().cuda_stream,
+                      scratch.data_ptr())
+    if err != 0:
+        fail(f"the f32 pre-pass failed to launch: CUDA error {err}")
+
+
 # the earlier (direct f32 form) design of K4, timed beside the f64
 # tensor-core kernel in the same run; no path of the port calls it
 K4_DIRECT_SOURCE = "chamfer_direct.cu"
@@ -292,13 +346,16 @@ def check_kernel(name, wrapper, shape, ragged_shapes, replaces, sm_clock_hz):
 
 def check_kernel_f32(name, wrapper, shape, ragged_shapes, replaces,
                      sm_clock_hz):
-    """Phase 2 for the f32 kernel of one attention wrapper: f32 inputs
-    against `attention_plain` in f32 at the path shape and the ragged ones
-    (`error_ratios`' f32 limits: max abs err <= 2^-14 of the plain output's
-    peak, mean abs err <= 1e-5 of its mean magnitude, which must reject the
-    plain version with its last 32 keys left out); times beside the f32
-    bound, SDPA in f32 with TF32 off, the plain version and the host time
-    of one wrapper call.  Returns its `kernels` entry."""
+    """Phase 2 for the f32 kernel of one attention wrapper (3xTF32 on the
+    tensor cores): f32 inputs against `attention_plain` in f32 at the path
+    shape and the ragged ones (`error_ratios`' f32 limits: max abs err <=
+    2^-14 of the plain output's peak, mean abs err <= 1e-5 of its mean
+    magnitude, which must reject the plain version with its last 32 keys
+    left out); times beside the f32 bound (the 3xTF32 products, exp2,
+    bytes; the f32 FMA route beside it), its pre-pass alone, the earlier
+    f32 FMA design (`csrc/flash_attention_f32.cu`, same inputs, same
+    tolerance), SDPA in f32 with TF32 off, the plain version and the host
+    time of one wrapper call.  Returns its `kernels` entry."""
     import torch
     import torch.nn.functional as F
     from echoscene_torch.kernels import flash_attention as fa
@@ -326,7 +383,16 @@ def check_kernel_f32(name, wrapper, shape, ragged_shapes, replaces,
     if not min(dropped) > 1.0:
         fail(f"{name} f32: the tolerance passes the plain version with 32 "
              f"keys left out ({dropped[0]:.3f} / {dropped[1]:.3f})")
+    earlier = fa.error_ratios(f32_simt_baseline(q, k, v), ref)
+    if not max(earlier) <= 1.0:
+        fail(f"the earlier f32 design at {shape}: max / mean err at "
+             f"{earlier[0]:.3f} / {earlier[1]:.3f} of their limits")
     ms = cuda_ms(lambda: wrapper(q, k, v), iters=10)
+    earlier_ms = cuda_ms(lambda: f32_simt_baseline(q, k, v), iters=10)
+    b, _, h, d = q.shape
+    scratch = torch.empty(fa.f32_scratch_floats(b, h, d, k.shape[1]),
+                          device="cuda")
+    prepass_ms = cuda_ms(lambda: f32_prepass(q, k, v, scratch), iters=10)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(10):
@@ -340,13 +406,14 @@ def check_kernel_f32(name, wrapper, shape, ragged_shapes, replaces,
     bound = fa.attention_bound(*shape, sm_clock_hz=sm_clock_hz,
                                dtype=torch.float32)
     return {"name": f"{name}_f32", "route": "cuda", "dtype": "float32",
-            "source": "echoscene_torch/csrc/flash_attention_f32.cu",
+            "source": f"echoscene_torch/csrc/{fa.SOURCE_F32}",
             "replaces": replaces, "launches": None, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound["ms"],
             "bound_by": bound["bound_by"], "library_ms": library_ms,
+            "earlier_ms": earlier_ms, "prepass_ms": prepass_ms,
             "shape": list(shape),
             "bound_detail": {key: bound[key] for key in (
-                "by", "fma_ms", "exp2_ms", "bytes_ms")},
+                "by", "fma_ms", "tf32x3_ms", "exp2_ms", "bytes_ms")},
             "tflops": bound["flops"] / ms * 1e-9,
             "share_of_bound": bound["ms"] / ms, "vs_library": ms / library_ms,
             "host_us_per_call": host_us, "err_of_limit": ratios,
@@ -1354,8 +1421,8 @@ def main() -> int:
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     # 1. build: one nvcc per source, all started together
-    sources = (fa.SOURCE, fa.SOURCE_F32, BASELINE_SOURCE, k4.SOURCE,
-               K4_DIRECT_SOURCE)
+    sources = (fa.SOURCE, fa.SOURCE_F32, BASELINE_SOURCE, F32_SIMT_SOURCE,
+               k4.SOURCE, K4_DIRECT_SOURCE)
     t0 = time.perf_counter()
     built = build.build_all(sources)
     for source in sources:
@@ -1421,18 +1488,22 @@ def main() -> int:
                          [(3, 200, 2, 24), (3, 333, 8, 56), TRAIN_K1_SHAPE],
                          "echoscene_tpu/kernels/flash_attention.py:73", clock),
         check_kernel_f32("stream_attention", fa.stream_attention,
-                         (8, 4096, 1, 256), [(2, 77, 3, 200)],
+                         (8, 4096, 1, 256),
+                         [(2, 77, 3, 200), (3, 129, 2, 256), (2, 300, 2, 8)],
                          "echoscene_tpu/kernels/flash_attention.py:35",
                          clock)]
     for e in f32_entries:
         d = e["bound_detail"]
-        print(f"kernel {e['name']} {e['shape']} f32: {e['ms']:.4f} ms, "
-              f"{e['tflops']:.2f} TFLOP/s, {e['share_of_bound']:.3f} of the "
-              f"f32 bound {e['bound_ms']:.4f} ms (by {d['by']}: f32 FMA "
-              f"{d['fma_ms']:.4f}, exp2 {d['exp2_ms']:.4f}, bytes "
-              f"{d['bytes_ms']:.4f}); sdpa f32 (TF32 off) "
-              f"{e['library_ms']:.4f} ms ({e['vs_library']:.3f} x its "
-              f"time), plain {e['plain_ms']:.3f} ms; host "
+        print(f"kernel {e['name']} {e['shape']} f32: {e['ms']:.4f} ms "
+              f"(pre-pass {e['prepass_ms']:.4f} of it), {e['tflops']:.2f} "
+              f"TFLOP/s, {e['share_of_bound']:.3f} of the f32 bound "
+              f"{e['bound_ms']:.4f} ms (by {d['by']}: 3xTF32 "
+              f"{d['tf32x3_ms']:.4f}, f32 FMA {d['fma_ms']:.4f}, exp2 "
+              f"{d['exp2_ms']:.4f}, bytes {d['bytes_ms']:.4f}); sdpa f32 "
+              f"(TF32 off) {e['library_ms']:.4f} ms ({e['vs_library']:.3f} "
+              f"x its time), earlier f32 FMA design {e['earlier_ms']:.4f} "
+              f"ms ({e['earlier_ms'] / e['ms']:.2f} x this), plain "
+              f"{e['plain_ms']:.3f} ms; host "
               f"{e['host_us_per_call']:.1f} us per wrapper call; max abs err "
               f"{e['max_abs_err']:.3e}, max / mean err at "
               f"{e['err_of_limit'][0]:.4f} / {e['err_of_limit'][1]:.4f} of "

@@ -25,7 +25,9 @@ inference twin: a copy of the module whose parameters are cast to bf16 once
 per call (buffers stay f32, as JAX casts only `params`).  TF32 is switched
 off for f32 matmuls and convolutions
 (`torch.backends.cuda.matmul.allow_tf32 = False`,
-`torch.backends.cudnn.allow_tf32 = False`), so f32 work stays f32.
+`torch.backends.cudnn.allow_tf32 = False`), so f32 work stays f32 (the
+f32 attention kernel splits each operand for three TF32 products, which
+keeps f32 accuracy: `kernels/flash_attention.py`).
 """
 from __future__ import annotations
 
@@ -54,7 +56,8 @@ def shape_row_capacity(batch: SceneBatch, multiple: int = 4) -> int:
 
 
 def set_precision() -> None:
-    """The port's stated matmul precision: no TF32 anywhere."""
+    """The port's stated matmul precision: no TF32 in PyTorch's f32
+    matmuls and convolutions."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from echoscene_torch.kernels import attention as port_attn
+from echoscene_torch.kernels import attention_variants as port_av
 from echoscene_torch.kernels import flash_attention as port_fa
 
 torch.set_num_threads(1)
@@ -273,22 +274,118 @@ def test_cuda_dispatcher_routes_long_self_attention_to_kernels():
 
 
 def test_attention_bound_f32():
-    """`attention_bound` for f32 inputs: the products as f32 FMAs at 67
-    TFLOP/s (the kernel uses no tensor cores), 4-byte elements; at both
-    path shapes the FMAs bound it."""
+    """`attention_bound` for f32 inputs: the products on the faster of the
+    two f32-accurate routes, three TF32 tensor-core products per product at
+    495 TFLOP/s ("tf32x3", the f32 kernel's route) rather than f32 FMAs at
+    67 TFLOP/s ("fma", still reported), 4-byte elements; at both path
+    shapes the 3xTF32 products bound it."""
     for shape in ((42, 1024, 8, 56), (8, 4096, 1, 256)):
         b, l, h, d = shape
         f32 = port_fa.attention_bound(*shape, dtype=torch.float32)
         bf16 = port_fa.attention_bound(*shape)
-        assert (f32["by"], f32["bound_by"]) == ("fma", "operations")
+        assert (f32["by"], f32["bound_by"]) == ("tf32x3", "operations")
         assert "tensor_core_ms" not in f32
+        flops = 4 * b * h * l * l * d
         np.testing.assert_allclose(
-            f32["ms"], 4 * b * h * l * l * d / 67e12 * 1e3, rtol=1e-12)
+            [f32["ms"], f32["tf32x3_ms"], f32["fma_ms"]],
+            [3 * flops / 495e12 * 1e3, 3 * flops / 495e12 * 1e3,
+             flops / 67e12 * 1e3], rtol=1e-12)
+        assert f32["fma_ms"] > f32["ms"] > f32["exp2_ms"]
         assert f32["bytes"] == 2 * bf16["bytes"] == 4 * 4 * b * l * h * d
         assert f32["exp2_ms"] == bf16["exp2_ms"]
     np.testing.assert_allclose(
-        port_fa.attention_bound(42, 1024, 8, 56, dtype=torch.float32)["ms"],
-        1.17791, rtol=1e-5)
+        [port_fa.attention_bound(42, 1024, 8, 56, dtype=torch.float32)["ms"],
+         port_fa.attention_bound(8, 4096, 1, 256, dtype=torch.float32)["ms"]],
+        [0.478303, 0.832963], rtol=1e-5)
+
+
+# (f32 value, its nearest TF32 value with ties away from zero), as bits
+TF32_CASES = [
+    (0x3F800000, 0x3F800000),   # 1.0: exact
+    (0x3F800FFF, 0x3F800000),   # just below half an ulp: down
+    (0x3F801000, 0x3F802000),   # a tie: away from zero
+    (0x3F803000, 0x3F804000),   # a tie with an odd kept bit: away as well
+    (0xBF801000, 0xBF802000),   # a negative tie: away from zero
+    (0xBF800FFF, 0xBF800000),   # negative, below half: towards zero
+    (0x3FFFF000, 0x40000000),   # carry through the mantissa into the exponent
+    (0x7F7FF000, 0x7F800000),   # carry past the largest finite: infinity
+    (0x00000000, 0x00000000),   # +0
+    (0x80000000, 0x80000000),   # -0
+    (0x00001000, 0x00002000),   # a subnormal tie: away, stays subnormal
+    (0x00000FFF, 0x00000000),   # the smallest subnormals round to 0
+    (0x807FF000, 0x80800000),   # negative subnormal carries to the smallest normal
+]
+
+
+@pytest.mark.parametrize("bits,want", TF32_CASES)
+def test_tf32_round_bit_patterns(bits, want):
+    """`tf32_round`, the kernel's `cvt.rna.tf32.f32`: nearest TF32 value,
+    ties away from zero, on hand-picked bit patterns."""
+    x = torch.tensor([bits], dtype=torch.int64).to(torch.int32).view(
+        torch.float32)
+    got = port_av.tf32_round(x).view(torch.int32).item() & 0xFFFFFFFF
+    assert got == want
+
+
+def test_tf32_round_splits_exactly(rng):
+    """hi = tf32(x) and lo = tf32(x - hi) carry 11 significant bits each,
+    and hi + lo is within 2^-21 of x (the split the kernel feeds its three
+    products)."""
+    x = torch.from_numpy(rng.normal(size=4096).astype(np.float32))
+    hi = port_av.tf32_round(x)
+    lo = port_av.tf32_round(x - hi)
+    for part in (hi, lo):
+        assert not (part.view(torch.int32) & 0x1FFF).any()
+    assert ((hi - x).abs() <= x.abs() * 2.0 ** -11).all()
+    assert ((hi + lo - x).abs() <= x.abs() * 2.0 ** -21).all()
+
+
+EMULATION_SHAPES = [
+    ((2, 100, 2, 8), 64),       # D 8, ragged last key tile
+    ((2, 130, 3, 56), 64),      # the UNet site's head dim
+    ((1, 200, 2, 64), 64),
+    ((1, 96, 1, 256), 16),      # the VQ-VAE site's head dim, its key tiles
+]
+
+
+@pytest.mark.parametrize("shape,block_n", EMULATION_SHAPES)
+def test_tf32x3_emulation_meets_f32_limits(rng, shape, block_n):
+    """The f32 kernel's arithmetic (3xTF32 products, online softmax over
+    key tiles) passes `error_ratios`' f32 limits against the plain version
+    in f32."""
+    q, k, v = (torch.from_numpy(x) for x in _qkv(rng, *shape))
+    out = port_av.attention_tf32x3_emulated(q, k, v, block_n=block_n)
+    ref = port_fa.attention_plain(q, k, v)
+    assert out.dtype == torch.float32 and out.shape == ref.shape
+    assert max(port_fa.error_ratios(out, ref)) <= 0.5
+
+
+@pytest.mark.parametrize("shape,block_n", EMULATION_SHAPES)
+def test_plain_tf32_fails_f32_limits(rng, shape, block_n):
+    """One TF32 product per product (hi x hi only) fails the f32 limits:
+    the split is needed, and the tolerance tells the two apart."""
+    q, k, v = (torch.from_numpy(x) for x in _qkv(rng, *shape))
+    out = port_av.attention_tf32x3_emulated(q, k, v, block_n=block_n,
+                                            products=1)
+    ref = port_fa.attention_plain(q, k, v)
+    assert max(port_fa.error_ratios(out, ref)) > 2.0
+
+
+def test_tf32x3_emulation_matches_jax_stream_kernel(rng):
+    """The emulation against JAX's streaming kernel in Pallas interpret mode
+    (f32) on the same inputs, within the f32 limits."""
+    import jax.numpy as jnp
+    from jax.experimental.pallas import tpu as pltpu
+    from echoscene_tpu.kernels.flash_attention import _stream_impl
+
+    q, k, v = _qkv(rng, 1, 72, 2, 56)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(_stream_impl(jnp.asarray(q), jnp.asarray(k),
+                                       jnp.asarray(v), q_block=32,
+                                       k_block=32))
+    got = port_av.attention_tf32x3_emulated(
+        *(torch.from_numpy(x) for x in (q, k, v)))
+    assert max(port_fa.error_ratios(got, torch.from_numpy(want.copy()))) <= 1.0
 
 
 def test_kernel_tolerance_f32_passes_rounding_and_fails_dropped_keys(rng):
@@ -303,19 +400,27 @@ def test_kernel_tolerance_f32_passes_rounding_and_fails_dropped_keys(rng):
     assert min(port_fa.error_ratios(dropped, ref)) > 1.0
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("entry,shape", [
+F32_CUDA_SHAPES = [
     ("onepass_attention", (42, 1024, 8, 56)),   # the UNet site, 42 rows
     ("onepass_attention", (3, 200, 2, 24)),
     ("onepass_attention", (3, 333, 8, 56)),     # L, S not multiples of 64
+    ("onepass_attention", (2, 97, 3, 8)),       # D 8, ragged L, S
+    ("onepass_attention", (2, 130, 2, 64)),     # D 64, one key past a tile
     ("stream_attention", (8, 4096, 1, 256)),    # the VQ-VAE site
     ("stream_attention", (2, 77, 3, 200)),      # ragged L, S; D_pad 256
+    ("stream_attention", (3, 129, 2, 256)),     # D 256, H > 1, ragged
     ("stream_attention", (9, 2048, 2, 128)),
-])
+    ("stream_attention", (2, 45, 4, 128)),      # D 128, S < one key tile
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry,shape", F32_CUDA_SHAPES)
 def test_cuda_f32_kernel_matches_plain(entry, shape):
-    """The f32 kernel vs the plain version in f32, within `error_ratios`'
-    f32 limits (max abs err <= 2^-14 of the peak, mean <= 1e-5 of the mean
-    magnitude); one launch, counted as f32; f32 output."""
+    """The f32 (3xTF32) kernel vs the plain version in f32, within
+    `error_ratios`' f32 limits (max abs err <= 2^-14 of the peak, mean <=
+    1e-5 of the mean magnitude); one launch, counted as f32, for the
+    pre-pass and the kernel together; f32 output."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -327,6 +432,53 @@ def test_cuda_f32_kernel_matches_plain(entry, shape):
     assert out.dtype == torch.float32
     assert port_fa.LAUNCHES[entry] == 1
     assert port_fa.LAUNCHES_BY_DTYPE == {(entry, "float32"): 1}
+    assert max(port_fa.error_ratios(out, port_fa.attention_plain(q, k, v))
+               ) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 333, 8, 56), (2, 77, 3, 200),
+                                   (3, 129, 2, 256), (2, 97, 3, 8)])
+def test_cuda_f32_kernel_matches_its_emulation(shape):
+    """The f32 kernel vs `attention_tf32x3_emulated` (its arithmetic in
+    plain PyTorch, at the kernel's key tile for the head dim) within the
+    same f32 limits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda")
+               for _ in range(3))
+    out = port_fa.onepass_attention(q, k, v)
+    block_n = {8: 64, 56: 64, 200: 16, 256: 16}[shape[-1]]
+    emulated = port_av.attention_tf32x3_emulated(q, k, v, block_n=block_n)
+    torch.cuda.synchronize()
+    assert max(port_fa.error_ratios(out, emulated)) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(42, 1024, 8, 56), (2, 77, 3, 200)])
+def test_cuda_earlier_f32_kernel_still_matches_plain(shape):
+    """The earlier f32 design (`csrc/flash_attention_f32.cu`, FMAs on the
+    CUDA cores), which chip_smoke.py times beside the 3xTF32 kernel, still
+    builds and meets the f32 limits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import ctypes
+    from echoscene_torch.kernels import build
+
+    fn = build.load("flash_attention_f32.cu").echoscene_onepass_attention_f32
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+        ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda")
+               for _ in range(3))
+    b, l, h, d = shape
+    out = torch.empty_like(q)
+    assert fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h,
+              l, l, d, d ** -0.5, torch.cuda.current_stream().cuda_stream) == 0
+    torch.cuda.synchronize()
     assert max(port_fa.error_ratios(out, port_fa.attention_plain(q, k, v))
                ) <= 1.0
 
