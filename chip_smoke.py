@@ -110,18 +110,45 @@ result line):
      f32); two fresh seed-0 services on one request (boxes bit-equal).
      Checks no variant after warmup, finite outputs, and K1 = 5 x 20 and
      K2 = ceil(rows / 8) per dispatch, with the counts set to 0 just before
-     each part and read just after.
+     each part and read just after;
+  9. drive the training pipeline: VQ-VAE training at configs/vqvae_snet.yaml
+     widths (ch 64, ch_mult 1-2-4, 8192 codes, 64^3 grids), batch 8, seeded
+     weights and analytic SDFs: 3 f32 steps (median ms, peak memory; K2 f32
+     = 2 a step, the encoder's and the decoder's mid attention), one under
+     torch.profiler (device time, busy share, launches), 2 bf16 steps (K2
+     bf16 = 2 a step, f32 masters), eval_iou over 64 grids (K2 = 2 a
+     batch); K2 in f32 with a gradient at (8, 4096, 1, 256): dq, dk, dv
+     bit-equal to plain autograd's, timed beside the plain forward +
+     backward, SDPA f32 forward + backward (TF32 off) and the bound of
+     forward + backward; one tiny VQ-VAE f32 step card vs CPU (loss within
+     1e-5 relative, each gradient leaf within 1e-3 of its own peak + 1e-7,
+     Adam from the CPU's gradients within 1e-6); the VQ checkpoint (the
+     VQ CLI's writer) -> `precompute_latents` over a fake dataset's SDF
+     paths (K2 f32 = one a batch of 8) -> the cache file ->
+     `train.cli.main` at full_mp.yaml width in bf16 with --vq_ckpt,
+     --latent_cache, 4 steps and one preview at the fast profile (DPM++ 50
+     / 20, a yaml copy in a temporary directory; K1 = 10 a step + 100 for
+     the preview, K2 = 0 a step + one per decode chunk of the preview's
+     128 rows; exactly two images, gen_shape_0 / 1, once); the joint step
+     from latents on the phase-4 model, timed as phase 7's (K1 = 10, K2 =
+     0 a step); a background checkpoint save at full width (its blocking
+     part and the whole write) with a parameter changed in place right after
+     it returns, restored bit-exact and without that change, and a
+     synchronous save, timed.
 
 Prints the total seconds, the `kernels` JSON line (K1 / K2 in bf16 and in
 f32, each entry with its dtype; K1 / K2 also carry their training launches,
 serving launches and forward + backward times; the f32 entries' launches
-are phase 8's f32 request), the card's name and
+are phase 8's f32 request; the f32 K2 entry also carries its VQ-VAE
+launches; `stream_attention_f32_train` is K2 f32 forward + plain backward
+at the VQ-VAE site, its launches phase 9's 3 f32 steps), the card's name and
 power limit (nvidia-smi), and as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Needs one card; exits 2 without CUDA or without the repository beside it.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -141,6 +168,9 @@ PARAM_ATOL = 1e-6            # ... parameters after AdamW on the same grads
 # diffusion_bs 8 rows, the frozen VQ encoder's mid attention on 8 SDFs
 TRAIN_K1_SHAPE = (8, 1024, 8, 56)
 TRAIN_K2_SHAPE = (8, 4096, 1, 256)
+VQ_BATCH = 8                 # VQ-VAE training batch (scripts/train_vqvae.py)
+VQ_GRAD_SHAPE = (8, 4096, 1, 256)   # K2 at the VQ-VAE's mid attention
+VQ_LEAF_RTOL = 1e-3          # tiny VQ-VAE step, each leaf of its own peak
 CD_RTOL = 1e-5               # chamfer values, card vs plain / CPU
 T_START = 0.0
 EMD_RTOL = 1e-4              # auction EMD values, card vs CPU
@@ -874,25 +904,14 @@ def trainer_steps(sg, state, card: str, steps: int = 2) -> dict:
     by an in-memory loader of seeded analytic 64^3 grids (the card's
     machine has no h5py); K1 / K2 counts set to 0 just before and read just
     after; every logged loss finite."""
-    import zlib
-
-    import numpy as np
     import torch
-    from echoscene_torch.benchmarks import NUM_OBJS, NUM_PREDS, analytic_sdf
+    from echoscene_torch.benchmarks import NUM_OBJS, NUM_PREDS
     from echoscene_torch.data.clip_text import ClipTextEncoder
     from echoscene_torch.data.collate import CollateSpec
     from echoscene_torch.data.fake import make_fake_dataset
     from echoscene_torch.data.sgfront import SGFrontDataset
     from echoscene_torch.kernels import flash_attention as fa
     from echoscene_torch.train.trainer import Trainer
-
-    def in_memory_sdf(path):
-        """A seeded analytic grid per model path, clamped as the reader's."""
-        if path is None:
-            return np.zeros((64, 64, 64, 1), np.float32)
-        rng = np.random.default_rng(zlib.crc32(path.encode()))
-        grid = analytic_sdf(int(rng.integers(3)), 64, rng)
-        return np.clip(grid, -0.2, 0.2)[..., None].astype(np.float32)
 
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
@@ -1394,6 +1413,472 @@ def serve_path(sg, card: str) -> dict:
             "phase_s": time.perf_counter() - t_phase}
 
 
+def in_memory_sdf(path, res: int = 64):
+    """A seeded analytic grid per SDF path, clamped as the dataset reader
+    clamps (the card's machine has no h5py); zeros for None."""
+    import zlib
+
+    import numpy as np
+    from echoscene_torch.benchmarks import analytic_sdf
+
+    if path is None:
+        return np.zeros((res, res, res, 1), np.float32)
+    rng = np.random.default_rng(zlib.crc32(path.encode()))
+    grid = analytic_sdf(int(rng.integers(3)), res, rng)
+    return np.clip(grid, -0.2, 0.2)[..., None].astype(np.float32)
+
+
+def vq_config():
+    from echoscene_torch.train.vqvae_cli import load_vq_config
+    return load_vq_config(os.path.join(ROOT, "configs", "vqvae_snet.yaml"))
+
+
+def vq_train_path(card: str) -> dict:
+    """Phase 9, VQ-VAE training at configs/vqvae_snet.yaml's widths (ch 64,
+    ch_mult 1-2-4, 8192 codes, 64^3), batch 8, seeded weights and analytic
+    SDFs: 3 f32 steps (JAX's default precision; K2 f32 counts set to 0 just
+    before, read just after: 2 a step), one more under the profiler, 2 bf16
+    steps (the second timed), and eval_iou over 64 grids (2 K2 launches a
+    batch).  Returns the numbers and the f32 state."""
+    import numpy as np
+    import torch
+    from echoscene_torch.benchmarks import profile_call
+    from echoscene_torch.kernels import flash_attention as fa
+    from echoscene_torch.train.vqvae_trainer import VQVAETrainer
+
+    cfg = vq_config()
+    grids = np.stack([in_memory_sdf(f"vq/{i}") for i in range(64)])
+    batches = [torch.from_numpy(grids[i:i + VQ_BATCH]).cuda()
+               for i in range(0, 64, VQ_BATCH)]
+    trainer = VQVAETrainer(cfg, device="cuda")
+    state = trainer.init(torch.Generator(device="cuda").manual_seed(0))
+    n_params = sum(p.numel() for p in state.module.parameters())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    step_ms, losses = [], []
+    for i in range(3):
+        t0 = time.perf_counter()
+        logs = trainer.train_step(state, batches[i])
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(logs["loss_total"].item())
+    launches = dict(fa.LAUNCHES_BY_DTYPE)
+    peak = torch.cuda.max_memory_allocated()
+    if launches != {("stream_attention", "float32"): 6}:
+        fail(f"3 f32 VQ-VAE steps launched {launches}, want K2 f32 6 (the "
+             "encoder's and the decoder's mid attention, each step)")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"VQ-VAE losses not finite: {losses}")
+    median = sorted(step_ms)[1]
+    busy = profile_call(lambda: trainer.train_step(state, batches[3]),
+                        trainer.device, median)
+
+    bf16 = VQVAETrainer(cfg, compute_dtype="bfloat16", device="cuda")
+    st16 = bf16.init(torch.Generator(device="cuda").manual_seed(0))
+    bf16.train_step(st16, batches[0])
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    loss16 = bf16.train_step(st16, batches[1])["loss_total"].item()
+    torch.cuda.synchronize()
+    bf16_ms = (time.perf_counter() - t0) * 1e3
+    launches16 = dict(fa.LAUNCHES_BY_DTYPE)
+    if launches16 != {("stream_attention", "bfloat16"): 2}:
+        fail(f"the bf16 VQ-VAE step launched {launches16}, want K2 bf16 2")
+    if not math.isfinite(loss16):
+        fail("the bf16 VQ-VAE loss is not finite")
+    master = next(st16.module.parameters())
+    if master.dtype != torch.float32:
+        fail("bf16 VQ-VAE training must keep f32 masters")
+    del bf16, st16
+
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    iou, iou_std = trainer.eval_iou(state, batches)
+    torch.cuda.synchronize()
+    iou_s = time.perf_counter() - t0
+    iou_launches = dict(fa.LAUNCHES_BY_DTYPE)
+    if iou_launches != {("stream_attention", "float32"): 2 * len(batches)}:
+        fail(f"eval_iou over 64 grids launched {iou_launches}, want K2 f32 "
+             f"{2 * len(batches)}")
+    if not (0.0 <= iou <= 1.0 and math.isfinite(iou_std)):
+        fail(f"eval_iou gave {iou} +- {iou_std}")
+    res = {"params": n_params, "f32_step_ms": step_ms,
+           "f32_median_ms": median, "f32_peak_gib": peak / 2**30,
+           "f32_losses": losses, "busy_share": busy["busy_share"],
+           "step_device_ms": busy["device_ms"],
+           "step_kernel_launches": busy["kernel_launches"],
+           "f32_launches_per_step": 2, "bf16_step_ms": bf16_ms,
+           "bf16_loss": loss16, "eval_iou": iou, "eval_iou_std": iou_std,
+           "eval_iou_s": iou_s, "eval_iou_launches": 2 * len(batches)}
+    dev = ("not measured" if busy["device_ms"] is None else
+           f"{busy['device_ms']:.1f} ms, busy share {busy['busy_share']:.3f}")
+    print(f"VQ-VAE training ({n_params} parameters, batch {VQ_BATCH}, 64^3): "
+          f"f32 steps {', '.join(f'{x:.1f}' for x in step_ms)} ms (median "
+          f"{median:.1f}), peak memory {peak / 2**30:.2f} GiB; one f32 step "
+          f"under the profiler: device {dev}, {busy['kernel_launches']} "
+          f"kernel launches; K2 f32 "
+          f"{launches[('stream_attention', 'float32')] // 3}"
+          f" a step; bf16 step {bf16_ms:.1f} ms (K2 bf16 2); eval_iou over "
+          f"64 grids {iou:.4f} +- {iou_std:.4f} in {iou_s:.2f} s [{card}]")
+    return res, trainer, state
+
+
+def check_k2_f32_backward(clock: float) -> dict:
+    """Phase 9, K2 in f32 with a gradient at the VQ-VAE's shape: the
+    forward is the f32 kernel, dq, dk, dv (the plain recompute
+    differentiated) bit-equal to plain autograd's; times the kernel forward
+    + plain backward beside the plain forward + backward, SDPA f32 forward
+    + backward with TF32 off, and the bound of forward + backward: the
+    forward's products three times over (two products forward, four
+    backward), its exp2 once, and 8 tensors' bytes (q, k, v, dO in; O, dq,
+    dk, dv out)."""
+    import torch
+    import torch.nn.functional as F
+    from echoscene_torch.kernels import flash_attention as fa
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("TF32 is on: the f32 yardsticks would not be f32")
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    q, k, v, g = (torch.randn(VQ_GRAD_SHAPE, generator=gen, device="cuda")
+                  for _ in range(4))
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    fa.reset_launches()
+    out = fa.stream_attention(*leaves)
+    if type(out.grad_fn).__name__ != "KernelAttentionBackward":
+        fail(f"K2 f32 output grad_fn {out.grad_fn}, want the Function")
+    got = torch.autograd.grad(out, leaves, g)
+    if fa.LAUNCHES_BY_DTYPE != {("stream_attention", "float32"): 1}:
+        fail(f"K2 f32 forward + backward launched {fa.LAUNCHES_BY_DTYPE}")
+    ref = fa.attention_plain(q, k, v)
+    ratios = fa.error_ratios(out.detach(), ref)
+    if not max(ratios) <= 1.0:
+        fail(f"K2 f32 with a gradient: max / mean err at {ratios[0]:.3f} / "
+             f"{ratios[1]:.3f} of their limits")
+    plain = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    want = torch.autograd.grad(fa.attention_plain(*plain), plain, g)
+    if not all(a.dtype == torch.float32 and torch.equal(a, b)
+               for a, b in zip(got, want)):
+        diffs = [(a - b).abs().max().item() for a, b in zip(got, want)]
+        fail(f"K2 f32 dq, dk, dv differ from plain autograd's by {diffs}")
+
+    def fwd_bwd(fn, xs, gx):
+        return lambda: torch.autograd.grad(fn(*xs), xs, gx)
+
+    ms = cuda_ms(fwd_bwd(fa.stream_attention, leaves, g), iters=5)
+    plain_ms = cuda_ms(fwd_bwd(fa.attention_plain, plain, g), iters=3,
+                       warmup=1)
+    tr = [x.detach().transpose(1, 2).contiguous().requires_grad_(True)
+          for x in (q, k, v)]
+    library_ms = cuda_ms(fwd_bwd(F.scaled_dot_product_attention, tr,
+                                 g.transpose(1, 2).contiguous()), iters=5)
+    fwd = fa.attention_bound(*VQ_GRAD_SHAPE, sm_clock_hz=clock,
+                             dtype=torch.float32)
+    products = 3 * min(fwd["fma_ms"], fwd["tf32x3_ms"])
+    parts = {"operations": max(products, fwd["exp2_ms"]),
+             "bytes": 2 * fwd["bytes_ms"]}
+    by = max(parts, key=parts.get)
+    return {"name": "stream_attention_f32_train", "route": "cuda",
+            "dtype": "float32",
+            "source": f"echoscene_torch/csrc/{fa.SOURCE_F32}",
+            "replaces": "echoscene_tpu/kernels/flash_attention.py:35",
+            "launches": None, "max_abs_err": (out.detach() - ref).abs().max(
+                ).item(), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": parts[by], "bound_by": by, "library_ms": library_ms,
+            "shape": list(VQ_GRAD_SHAPE), "what": "forward (the f32 kernel) "
+            "+ KernelAttention's plain backward, the VQ-VAE training site",
+            "forward_bound_ms": fwd["ms"], "grad_bit_equal": True,
+            "share_of_bound": parts[by] / ms, "vs_library": ms / library_ms,
+            "err_of_limit": ratios}
+
+
+def check_tiny_vq_against_cpu() -> dict:
+    """Phase 9: one tiny VQ-VAE f32 step on the card and on the CPU from
+    the same weights and batch (the mid attention's 512 tokens take K1 f32
+    on the card): the loss within LOSS_RTOL, each gradient leaf within
+    VQ_LEAF_RTOL of its own peak + 1e-7, then Adam on each from the CPU's
+    gradients, parameters within PARAM_ATOL."""
+    import numpy as np
+    import torch
+    from echoscene_torch.models.config import VQVAEConfig
+    from echoscene_torch.train.vqvae_trainer import VQVAETrainer
+
+    cfg = VQVAEConfig(n_embed=64, ch=8, ch_mult=(1, 2), resolution=16)
+    x = torch.from_numpy(np.stack([in_memory_sdf(f"tiny/{i}", 16)
+                                   for i in range(4)]))
+    runs = []
+    for device in ("cpu", "cuda"):
+        tr = VQVAETrainer(cfg, lr=1e-3, device=device)
+        st = tr.init(torch.Generator().manual_seed(0) if device == "cpu"
+                     else torch.Generator(device="cuda").manual_seed(0))
+        if runs:
+            st.module.load_state_dict(runs[0][1].module.state_dict())
+        loss, _ = tr.loss_fn(st.module, x.to(device))
+        loss.backward()
+        grads = [p.grad.detach().cpu() for p in st.module.parameters()]
+        runs.append((tr, st, loss.item(), grads))
+    (_, cpu, loss_c, grads_c), (_, card, loss_g, grads_g) = runs
+    loss_rel = abs(loss_g - loss_c) / abs(loss_c)
+    names = [n for n, _ in cpu.module.named_parameters()]
+    errs = [((a - b).abs().max().item(), b.abs().max().item())
+            for a, b in zip(grads_g, grads_c)]
+    bad = [n for n, (e, peak) in zip(names, errs)
+           if not e <= VQ_LEAF_RTOL * peak + 1e-7]
+    # a convolution bias ahead of a GroupNorm gets a gradient that cancels
+    # to rounding noise: the + 1e-7 covers it, the report leaves it out
+    worst = max(e / peak for e, peak in errs if peak > 1e-6)
+    if not (loss_rel <= LOSS_RTOL and not bad):
+        fail(f"tiny VQ-VAE step, CUDA vs CPU: loss rel err {loss_rel:.3e}; "
+             f"gradient leaves off by more than {VQ_LEAF_RTOL} of their "
+             f"peak: {bad[:8]} (largest {worst:.3e})")
+    for st in (cpu, card):
+        for p, gc in zip(st.module.parameters(), grads_c):
+            p.grad = gc.to(p.device)
+        st.optimizer.step()
+    param_err = max((a.detach().cpu() - b.detach()).abs().max().item()
+                    for a, b in zip(card.module.parameters(),
+                                    cpu.module.parameters()))
+    if not param_err <= PARAM_ATOL:
+        fail(f"Adam on the CPU's gradients: parameters differ by "
+             f"{param_err:.3e} between CUDA and CPU (limit {PARAM_ATOL})")
+    return {"loss_rel_err": loss_rel, "grad_err_of_own_peak": worst,
+            "param_abs_err_after_adam": param_err}
+
+
+def fast_profile_yaml(tmp: str) -> str:
+    """A copy of configs/full_mp.yaml at the fast profile (DPM++ 50 layout
+    / 20 shape steps) in `tmp`, its nested configs named by absolute path;
+    configs/ is left as it is."""
+    import yaml
+
+    cfg_dir = os.path.join(ROOT, "configs")
+    with open(os.path.join(cfg_dir, "full_mp.yaml")) as f:
+        root = yaml.safe_load(f)
+    dk = root["layout_branch"]["diffusion_kwargs"]
+    dk["sampler"], dk["sample_steps"] = "dpmpp", 50
+    sb = root["shape_branch"]
+    sb["sampler"], sb["ddim_steps"] = "dpmpp", 20
+    for key in ("df_cfg", "vq_cfg"):
+        sb[key] = os.path.join(cfg_dir, sb[key])
+    path = os.path.join(tmp, "full_mp_fast.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(root, f)
+    return path
+
+
+class RecordingWriter:
+    """A TensorBoard-shaped writer that keeps what it is given."""
+
+    def __init__(self):
+        self.images, self.scalars = [], []
+
+    def add_image(self, tag, img, step):
+        self.images.append((tag, tuple(img.shape), step))
+
+    def add_scalar(self, tag, value, step):
+        self.scalars.append((tag, float(value), step))
+
+
+def pipeline_path(sg, vq_trainer, vq_state, card: str) -> dict:
+    """Phase 9, the pipeline a user runs: the VQ-VAE checkpoint (the VQ
+    CLI's writer) -> precompute_latents over a fake dataset's SDF paths
+    (analytic 64^3 grids by path; K2 f32 = one a batch, counted) -> the
+    cache file -> `train.cli.main` at full_mp.yaml width in bf16 with
+    --vq_ckpt, --latent_cache and one preview (4 steps; counts set to 0
+    just before, read just after: K1 = 10 a step + 5 x 20 for the preview,
+    K2 = 0 a step + one per decode chunk of the preview's rows); then the
+    same step on the phase-4 model from a latent batch, timed as phase 7
+    times its step (K1 10, K2 0 a step)."""
+    import numpy as np
+    import torch
+    from echoscene_torch.benchmarks import (profile_call, synthetic_batch,
+                                            time_train_step)
+    from echoscene_torch.core.graphbatch import ShapeSelection
+    from echoscene_torch.data.clip_text import ClipTextEncoder
+    from echoscene_torch.data.fake import make_fake_dataset
+    from echoscene_torch.data.sgfront import SGFrontDataset
+    from echoscene_torch.kernels import flash_attention as fa
+    from echoscene_torch.train import cli as train_cli
+    from echoscene_torch.train import latents
+    from echoscene_torch.train.checkpoint import save_vqvae_checkpoint
+
+    res = {}
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        vq_path = os.path.join(tmp, "vq", "epoch-best")
+        save_vqvae_checkpoint(vq_path, vq_state)
+        root = make_fake_dataset(os.path.join(tmp, "data"), num_scenes=16,
+                                 min_objs=3, max_objs=5, with_sdf=False,
+                                 seed=1)
+        ds = SGFrontDataset(root, use_sdf=True, with_changes=False,
+                            shuffle_objs=False, clip=ClipTextEncoder("hash"))
+        paths = latents.dataset_sdf_paths(ds)
+        torch.cuda.synchronize()
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        cache = latents.precompute_latents(vq_state.module, paths,
+                                           in_memory_sdf, batch=VQ_BATCH,
+                                           device="cuda")
+        res["precompute_s"] = time.perf_counter() - t0
+        want = {("stream_attention", "float32"):
+                math.ceil((len(paths) + 1) / VQ_BATCH)}
+        if dict(fa.LAUNCHES_BY_DTYPE) != want:
+            fail(f"precompute_latents over {len(paths)} paths launched "
+                 f"{dict(fa.LAUNCHES_BY_DTYPE)}, want {want}")
+        if not (set(cache) == set(paths) | {"__zero__"} and all(
+                z.shape == (16, 16, 16, 3) and z.dtype == np.float32
+                and np.isfinite(z).all() for z in cache.values())):
+            fail("the latent cache is not f32 (16, 16, 16, 3) per path")
+        npz = os.path.join(tmp, "latent_cache.npz")
+        latents.write_latent_cache(npz, cache)
+        res.update(precompute_paths=len(paths),
+                   precompute_launches=want[("stream_attention", "float32")])
+        del vq_trainer, vq_state
+        torch.cuda.empty_cache()
+
+        exp = os.path.join(tmp, "exp")
+        writer = RecordingWriter()
+        steps, nodes = 4, 8 * 16
+        torch.cuda.synchronize()
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        state = train_cli.main([
+            "--dataset", root, "--exp", exp, "--with_SDF", "True",
+            "--diff_yaml", fast_profile_yaml(tmp), "--batchSize", "8",
+            "--diffusion_bs", "8", "--nepoch", "3", "--max_steps",
+            str(steps), "--preview_every", str(steps), "--clip_backend",
+            "hash", "--vq_ckpt", vq_path, "--latent_cache", npz,
+            "--device", "cuda"], writer=writer)
+        torch.cuda.synchronize()
+        res["cli_s"] = time.perf_counter() - t0
+        launches = dict(fa.LAUNCHES_BY_DTYPE)
+        want = {("onepass_attention", "bfloat16"): 10 * steps + 5 * 20,
+                ("stream_attention", "bfloat16"): nodes // 8}
+        if state.step != steps or launches != want:
+            fail(f"train.cli took {state.step} steps and launched "
+                 f"{launches}, want {steps} steps and {want} (K1 10 a step "
+                 "and 5 x 20 for the preview; K2 0 a step and one per "
+                 "decode chunk of the preview)")
+        images = [(tag, shp, step) for tag, shp, step in writer.images]
+        if images != [(f"gen_shape_{i}", (3, 256, 256), steps)
+                      for i in range(2)]:
+            fail(f"the preview logged {images}, want gen_shape_0 and "
+                 f"gen_shape_1 at step {steps}, once")
+        if not all(bool(torch.isfinite(p).all())
+                   for group in state.optimizer.param_groups
+                   for p in group["params"]):
+            fail("train.cli left non-finite parameters")
+        res.update(cli_steps=steps, cli_launches={
+            f"{k[0]}/{k[1]}": c for k, c in launches.items()},
+            preview_images=len(images),
+            checkpoints=sorted(os.listdir(os.path.join(exp, "checkpoint"))))
+        del state
+    torch.cuda.empty_cache()
+
+    # the joint step from latents on the phase-4 model, as phase 7 times
+    # its step from SDFs: phase 7's batch with the frozen encoder's latents
+    # of its SDFs in place of the grids
+    batch = synthetic_batch(8, 48, 112, seed=0, diffusion_bs=8,
+                            sdf_res=64).to("cuda")
+    with torch.no_grad():
+        lat = sg.module.vqvae.encode_no_quant(batch.shapes.sdf).float()
+    batch = dataclasses.replace(batch, shapes=ShapeSelection(
+        sdf=None, latent=lat, num_valid=batch.shapes.num_valid,
+        indices=batch.shapes.indices, mp_valid=batch.shapes.mp_valid))
+    state = sg.init_train_state()
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    k = 8
+    sps, step_s, losses = time_train_step(sg, state, batch, 8, k=k)
+    launches = dict(fa.LAUNCHES)
+    if launches != {"onepass_attention": 10 * (k + 1),
+                    "stream_attention": 0}:
+        fail(f"the joint step from latents launched {launches} in {k + 1} "
+             "steps, want K1 10 and K2 0 a step")
+    if not bool(torch.isfinite(losses).all()):
+        fail("the joint step from latents gave non-finite losses")
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    busy = profile_call(lambda: sg.train_step(state, batch, gen), sg.device,
+                        step_s * 1e3)
+    res.update(cache_step_ms=step_s * 1e3, cache_scenes_per_sec=sps,
+               cache_step_launches={"onepass_attention": 10,
+                                    "stream_attention": 0},
+               cache_step_device_ms=busy["device_ms"],
+               cache_step_busy_share=busy["busy_share"],
+               cache_step_kernel_launches=busy["kernel_launches"])
+    print(f"pipeline: VQ checkpoint -> precompute_latents over "
+          f"{res['precompute_paths']} SDFs in {res['precompute_s']:.2f} s "
+          f"(K2 f32 {res['precompute_launches']}) -> train.cli with "
+          f"--latent_cache, --vq_ckpt and one preview at the fast profile: "
+          f"{steps} steps in {res['cli_s']:.1f} s with model build, saves "
+          f"and preview, launches {json.dumps(res['cli_launches'])}, "
+          f"{len(images)} preview images; the joint step from latents on the "
+          f"phase-4 model {step_s * 1e3:.3f} ms ({sps:.4f} train scenes/sec; "
+          f"K1 10, K2 0 a step; one step under the profiler: device "
+          f"{busy['device_ms']} ms, {busy['kernel_launches']} kernel "
+          f"launches) [{card}]")
+    return res, state
+
+
+def checkpoint_path(sg, state, card: str) -> dict:
+    """Phase 9, checkpoints at full width: a background save (the blocking
+    part, then the whole write) with one parameter changed in place right
+    after it returns, restored into a model with other weights: the change
+    absent, everything else bit-exact; then a synchronous save, timed."""
+    import torch
+    from echoscene_torch.benchmarks import NUM_OBJS, NUM_PREDS
+    from echoscene_torch.models.sgdiff import SGDiff
+    from echoscene_torch.train.checkpoint import (restore_checkpoint,
+                                                  save_checkpoint,
+                                                  wait_for_checkpoints)
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        path = os.path.join(tmp, "checkpoint", "model1")
+        name, param = next(iter(sg.module.layout_denoiser.named_parameters()))
+        before = param.detach().clone()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_checkpoint(path, sg, state, wait=False)
+        blocking_s = time.perf_counter() - t0
+        with torch.no_grad():
+            param.add_(1.0)
+        wait_for_checkpoints()
+        whole_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        torch.manual_seed(1)
+        other = SGDiff(sg.cfg, NUM_OBJS, NUM_PREDS, device="cuda")
+        st2 = restore_checkpoint(path, other, other.init_train_state())
+        restored = dict(other.module.named_parameters())[
+            f"layout_denoiser.{name}"]
+        if not torch.equal(restored, before):
+            fail("the background save holds a change made after it returned")
+        with torch.no_grad():
+            param.copy_(before)
+        a, b = sg.module.state_dict(), other.module.state_dict()
+        same = a.keys() == b.keys() and all(torch.equal(a[x], b[x]) for x in a)
+        oa, ob = state.optimizer.state_dict(), st2.optimizer.state_dict()
+        same = same and oa["state"].keys() == ob["state"].keys() and all(
+            torch.equal(v, ob["state"][i][key])
+            for i, st in oa["state"].items() for key, v in st.items())
+        if not (same and st2.step == state.step):
+            fail("the background save's round trip is not bit-exact")
+        del other, st2, a, b, oa, ob
+        torch.cuda.empty_cache()
+        os.remove(path)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_checkpoint(path, sg, state)
+        sync_s = time.perf_counter() - t0
+    print(f"checkpoint ({size / 1e9:.2f} GB): background save blocks "
+          f"{blocking_s:.3f} s, its write done after {whole_s:.3f} s; "
+          f"restored bit-exact without the change made after it returned; "
+          f"synchronous save {sync_s:.3f} s [{card}]")
+    return {"bytes": size, "background_blocking_s": blocking_s,
+            "background_whole_s": whole_s, "sync_s": sync_s}
+
+
 def main() -> int:
     global T_START
     T_START = time.perf_counter()
@@ -1630,7 +2115,53 @@ def main() -> int:
         e["launches"] = sv["f32_launches"][f"{name}/float32"]
     print(f"serving details: {json.dumps(sv)}; phase 8 took "
           f"{sv['phase_s']:.1f} s")
-    entries[2:2] = f32_entries
+
+    # 9. the training pipeline: VQ-VAE training at vqvae_snet.yaml width,
+    # K2 f32 with a gradient, a tiny VQ-VAE step card vs CPU, VQ checkpoint
+    # -> latent cache -> train.cli with --latent_cache and a preview, and
+    # background checkpoint saves at full width
+    t0 = time.perf_counter()
+    vq, vq_trainer, vq_state = vq_train_path(card)
+    k2_train = check_k2_f32_backward(clock)
+    k2_train["launches"] = 3 * vq["f32_launches_per_step"]
+    k2_train.update(launches_per_vq_step=vq["f32_launches_per_step"],
+                    eval_iou_launches_per_batch=2)
+    print(f"kernel {k2_train['name']} {k2_train['shape']}: forward + "
+          f"backward {k2_train['ms']:.4f} ms, {k2_train['share_of_bound']:.3f}"
+          f" of its bound {k2_train['bound_ms']:.4f} ms (by "
+          f"{k2_train['bound_by']}; the forward's bound "
+          f"{k2_train['forward_bound_ms']:.4f}); sdpa f32 forward + backward"
+          f" (TF32 off) {k2_train['library_ms']:.4f} ms "
+          f"({k2_train['vs_library']:.3f} x its time), plain forward + "
+          f"backward {k2_train['plain_ms']:.4f} ms; dq, dk, dv bit-equal to "
+          f"plain autograd's; forward max / mean err at "
+          f"{k2_train['err_of_limit'][0]:.3f} / "
+          f"{k2_train['err_of_limit'][1]:.3f} of the f32 limits [{card}]")
+    tiny_vq = check_tiny_vq_against_cpu()
+    print(f"tiny VQ-VAE step, CUDA vs CPU: {json.dumps(tiny_vq)}")
+    pipe, state = pipeline_path(sg, vq_trainer, vq_state, card)
+    del vq_trainer, vq_state
+    print(f"joint step (bf16, diffusion_bs 8): from latents "
+          f"{pipe['cache_step_ms']:.3f} ms, device "
+          f"{pipe['cache_step_device_ms']} ms, {pipe['cache_step_kernel_launches']} launches (K1 10, K2 0 a "
+          f"step); from SDFs through the frozen encoder "
+          f"{tr['ms_per_step']:.3f} ms, device {tr['step_device_ms']} ms, "
+          f"{tr['step_kernel_launches']} launches (phase 7; K1 10, K2 1) "
+          f"[{card}]")
+    ck = checkpoint_path(sg, state, card)
+    del state
+    for e in f32_entries[1:]:
+        e.update(vq_train_launches_per_step=vq["f32_launches_per_step"],
+                 eval_iou_launches_per_batch=2,
+                 precompute_launches=pipe["precompute_launches"])
+    for e in entries[:2]:
+        e["cache_train_launches_per_step"] = pipe["cache_step_launches"][
+            e["name"]]
+    details = {"vq": vq, "tiny_vq": tiny_vq, "pipeline": pipe,
+               "checkpoint": ck}
+    print(f"pipeline details: {json.dumps(details)}; phase 9 took "
+          f"{time.perf_counter() - t0:.1f} s")
+    entries[2:2] = f32_entries + [k2_train]
     for e in entries:
         e["status"] = "ported: built, matches its plain version, on the path"
 

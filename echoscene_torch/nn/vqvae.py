@@ -4,7 +4,8 @@ Port of echoscene_tpu/nn/vqvae.py (reference vqvae_networks/{network.py,
 vqvae_modules.py, quantizer.py}): Encoder3D (64^3 -> 16^3 with ch_mult
 (1, 2, 4)), Decoder3D (nearest-2x upsampling), the L2-nearest
 VectorQuantizer with straight-through estimator, and the diffusion-facing
-pre-quantisation API encode_no_quant / decode_no_quant.  Modules are laid out
+pre-quantisation API encode_no_quant / decode_no_quant, and the training
+forward (reconstruction, codebook loss).  Modules are laid out
 as the reference's (down.{l}.block.{i}, mid.attn_1, ...), so the state_dict
 keys are the reference's.
 
@@ -219,20 +220,26 @@ class VectorQuantizer(nn.Module):
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """z (..., embed_dim) channel-last -> (z_q, loss, indices)."""
         book = self.embedding.weight.float()
-        flat = z.reshape(-1, self.embed_dim).float()
+        zf = z.float()
+        flat = zf.reshape(-1, self.embed_dim)
         d = ((flat ** 2).sum(1, keepdim=True) + (book ** 2).sum(1)[None, :]
              - 2.0 * flat @ book.t())
         idx = torch.argmin(d, dim=1)
-        z_q = book[idx].reshape(z.shape).to(z.dtype)
-        loss = (self.beta * torch.mean((z_q.detach() - z) ** 2)
-                + torch.mean((z_q - z.detach()) ** 2))
-        z_q = z + (z_q - z).detach()
+        z_q = book[idx].reshape(z.shape)
+        # the loss in f32 whatever z's dtype, as JAX's (its codebook is f32)
+        loss = (self.beta * torch.mean((z_q.detach() - zf) ** 2)
+                + torch.mean((z_q - zf.detach()) ** 2))
+        z_q = z + (z_q.to(z.dtype) - z).detach()
         return z_q, loss, idx.reshape(z.shape[:-1])
 
 
 class VQVAE(nn.Module):
     """VQ-VAE with the reference's pre-quant diffusion API
-    (network.py:51-141)."""
+    (network.py:51-141) and JAX's training forward (`forward`, `encode`,
+    `decode`; echoscene_tpu/nn/vqvae.py:298-316).  It runs in the dtype of
+    its parameters: a caller that trains in bf16 passes bf16 casts of the
+    convolutions' f32 masters (`train/vqvae_trainer.py`), while the norms
+    keep f32 statistics and the codebook's distances and loss are f32."""
 
     def __init__(self, n_embed: int = 8192, embed_dim: int = 3, ch: int = 64,
                  ch_mult: Sequence[int] = (1, 2, 4), num_res_blocks: int = 1,
@@ -257,5 +264,27 @@ class VQVAE(nn.Module):
         """(B, 16, 16, 16, 3) latent -> (B, 64, 64, 64, 1) SDF grid."""
         if not force_not_quantize:
             h, _, _ = self.quantize(h)
-        dec = self.decoder(self.post_quant_conv(h.permute(0, 4, 1, 2, 3)))
+        return self.decode(h)
+
+    def encode(self, x: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(B, 64, 64, 64, 1) -> (z_q, codebook loss, indices)."""
+        return self.quantize(self.encode_no_quant(x))
+
+    def decode(self, quant: torch.Tensor) -> torch.Tensor:
+        """Quantised latent (B, 16, 16, 16, 3) -> (B, 64, 64, 64, 1)."""
+        dec = self.decoder(self.post_quant_conv(quant.permute(0, 4, 1, 2, 3)))
         return dec.permute(0, 2, 3, 4, 1)
+
+    def forward(self, x: torch.Tensor, forward_no_quant: bool = False,
+                encode_only: bool = False):
+        """JAX's `VQVAE.__call__`: (reconstruction, codebook loss); with
+        forward_no_quant, (decode_no_quant of the latent, the latent), or
+        the latent alone with encode_only."""
+        if forward_no_quant:
+            z = self.encode_no_quant(x)
+            if encode_only:
+                return z
+            return self.decode_no_quant(z), z
+        quant, diff, _ = self.encode(x)
+        return self.decode(quant), diff

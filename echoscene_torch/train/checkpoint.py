@@ -1,4 +1,4 @@
-"""Checkpoint save / restore with torch.save.
+"""Checkpoint save / restore with torch.save, in the background or not.
 
 Port of echoscene_tpu/train/checkpoint.py in the reference's layout
 (SGDiff.save / load_networks, model/SGDiff.py:49-129): one file per epoch at
@@ -7,33 +7,106 @@ under the reference checkpoint's keys (`from_jax.module_to_checkpoint`: the
 GCN and layout keys at the top level, the 'shape_df' and 'vqvae' sub-dicts)
 plus "opt" (the AdamW state and the gradient accumulators), "epoch" and
 "counter" (the train-step count).  The lr schedule is a pure function of
-the step, so it needs no state.  Saves are synchronous: `save_checkpoint`
-returns once the file is written (JAX's Orbax saves may run in the
-background).
+the step, so it needs no state.
+
+Saves run as JAX's Orbax saves do: `save_checkpoint(..., wait=False)`
+returns once every tensor is copied to host memory, and a writer thread
+writes the file (to a temporary name, renamed when complete), so training
+goes on while it writes.  At most one save is in flight: the next save and
+every restore first wait for it (`wait_for_checkpoints`), and an exception
+in the writer is raised again there.  The writer is not a daemon thread, so
+the process exits only once the file is written.  VQ-VAE checkpoints
+(`save_vqvae_checkpoint`, written by train/vqvae_cli.py) hold
+{"vqvae": the VQVAE's state_dict, "opt": Adam's state, "step"}; the joint
+model's frozen VQ-VAE loads from either kind (`load_vqvae_params`).
 """
 from __future__ import annotations
 
 import os
+import threading
+from typing import Any, Optional
 
 import torch
 
 from ..convert.from_jax import checkpoint_to_module, module_to_checkpoint
 from ..models.sgdiff import SGDiff, TrainState
 
+_writer: Optional[threading.Thread] = None
+_error: Optional[Exception] = None
 
-def save_checkpoint(path: str, sg: SGDiff, state: TrainState) -> None:
+
+def _host_copy(obj: Any) -> Any:
+    """`obj` with every tensor copied to host memory (a copy even of a CPU
+    tensor), so that later in-place updates of the live tensors cannot
+    reach what is written."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().to("cpu", copy=True)
+    if isinstance(obj, dict):
+        return {k: _host_copy(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_host_copy(v) for v in obj)
+    return obj
+
+
+def _write(payload: dict, path: str) -> None:
+    global _error
+    tmp = path + ".tmp"
+    try:
+        torch.save(payload, tmp)
+        os.replace(tmp, path)
+    except Exception as e:  # raised again by wait_for_checkpoints
+        _error = e
+
+
+def wait_for_checkpoints() -> None:
+    """Wait for the save in flight, if any; raise its writer's exception."""
+    global _writer, _error
+    if _writer is not None:
+        _writer.join()
+        _writer = None
+    if _error is not None:
+        err, _error = _error, None
+        raise err
+
+
+def _save_payload(path: str, payload: dict, wait: bool = True) -> None:
+    """Write `payload` (its tensors copied to host memory first) to `path`
+    from a writer thread; with wait, return once the file is written."""
+    global _writer
+    wait_for_checkpoints()
+    path = os.path.abspath(path)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    _writer = threading.Thread(target=_write, args=(_host_copy(payload), path),
+                               name="checkpoint-writer")
+    _writer.start()
+    if wait:
+        wait_for_checkpoints()
+
+
+def save_checkpoint(path: str, sg: SGDiff, state: TrainState,
+                    wait: bool = True) -> None:
+    """wait=False returns once the snapshot is in host memory and lets the
+    write proceed in the background; the final / interrupt save waits."""
     payload = module_to_checkpoint(sg.module.state_dict())
     payload.update({"opt": {"adamw": state.optimizer.state_dict(),
                             "accum": state.accum},
                     "epoch": state.epoch, "counter": state.step})
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    torch.save(payload, path)
+    _save_payload(path, payload, wait)
+
+
+def save_vqvae_checkpoint(path: str, state) -> None:
+    """A VQ-VAE training state (train/vqvae_trainer.py `VQTrainState`)."""
+    _save_payload(path, {"vqvae": state.module.state_dict(),
+                         "opt": state.optimizer.state_dict(),
+                         "step": state.step})
 
 
 def _load(path: str) -> dict:
-    """The checkpoint's tensors on the CPU: `load_state_dict` copies them to
-    the module's device, and the optimizer's to its parameters' devices
-    (AdamW keeps its step counts on the CPU)."""
+    """The checkpoint's tensors on the CPU, once any save in flight is
+    written: `load_state_dict` copies them to the module's device, and the
+    optimizer's to its parameters' devices (Adam keeps its step counts on
+    the CPU)."""
+    wait_for_checkpoints()
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
@@ -61,15 +134,17 @@ def restore_for_inference(path: str, module: torch.nn.Module) -> int:
 
 
 def load_vqvae_params(path: str, module: torch.nn.Module) -> None:
-    """Graft the frozen VQ-VAE of a checkpoint whose 'vqvae' entry is a
-    VQVAE state_dict (a port or reference model<epoch> file) into
-    `module.vqvae` (the reference loads its pretrained VQ-VAE frozen at
-    construction, model/model_utils.py:7-32)."""
-    payload = _load(path)
-    module.vqvae.load_state_dict(payload["vqvae"], strict=True)
+    """Graft the VQ-VAE of a checkpoint whose 'vqvae' entry is a VQVAE
+    state_dict (a VQ-VAE checkpoint of train/vqvae_cli.py, or a port or
+    reference model<epoch> file) into `module.vqvae` (the reference loads
+    its pretrained VQ-VAE frozen at construction, model/model_utils.py:
+    7-32), or into `module` itself when it is the VQVAE."""
+    target = getattr(module, "vqvae", module)
+    target.load_state_dict(_load(path)["vqvae"], strict=True)
 
 
 def latest_epoch(exp_dir: str) -> int:
+    wait_for_checkpoints()
     ckdir = os.path.join(exp_dir, "checkpoint")
     best = -1
     if os.path.isdir(ckdir):

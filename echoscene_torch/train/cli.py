@@ -10,13 +10,18 @@ reference's, scripts/train_3dfront.py:21-66, plus the capacity flags), and
 Writes args.json into the experiment directory (the eval CLI rebuilds the
 model from it), trains, and saves <exp>/checkpoint/model<epoch>.
 
+`--latent_cache` takes the latents of `python -m
+echoscene_torch.train.precompute_latents` (or of JAX's
+scripts/precompute_latents.py: the file is the same), so the frozen VQ
+encoder leaves the step; `--vq_ckpt` takes a VQ-VAE checkpoint of `python
+-m echoscene_torch.train.vqvae_cli` or a model<epoch> file.  With a
+TensorBoard writer, `--preview_every N` renders sampled shapes every N
+steps.
+
 Not ported, and refused at start: `--dp_devices > 1` and `--zero1` (the
-multi-GPU slice), `--latent_cache` (it comes with precompute_latents),
-shape previews (`--preview_every > 0` with a TensorBoard writer on an
-echoscene run: they are not wired to eval/render.py yet) and bf16 on the CPU
-(CPU torch's bf16 conv1d weight gradient at stride 2 on a one-token input
-is wrong).  f32 training runs on the CPU and on CUDA, where the attention
-kernels take f32 too.
+multi-GPU slice) and bf16 on the CPU (CPU torch's bf16 conv1d weight
+gradient at stride 2 on a one-token input is wrong).  f32 training runs on
+the CPU and on CUDA, where the attention kernels take f32 too.
 """
 from __future__ import annotations
 
@@ -81,7 +86,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max_steps", type=int, default=0,
                    help="stop after N train steps (0 = unlimited)")
     p.add_argument("--latent_cache", default=None,
-                   help="precomputed VQ latents (not ported)")
+                   help="precomputed VQ latents (.npz of "
+                        "echoscene_torch.train.precompute_latents): the "
+                        "batches carry them instead of SDF grids")
     p.add_argument("--preview_every", type=int, default=10000)
     p.add_argument("--dp_devices", type=int, default=1,
                    help="data-parallel devices (not ported: 1)")
@@ -106,9 +113,6 @@ def _refuse_unported(args, cfg) -> None:
     if args.dp_devices > 1 or args.zero1:
         raise NotImplementedError(
             "--dp_devices > 1 / --zero1 come with the port's multi-GPU slice")
-    if args.latent_cache:
-        raise NotImplementedError(
-            "--latent_cache comes with the port of precompute_latents")
     on_cuda = torch.device(args.device).type == "cuda"
     if not on_cuda and cfg.compute_dtype == "bfloat16":
         raise NotImplementedError(
@@ -127,7 +131,10 @@ def open_writer(log_dir: str):
     return SummaryWriter(log_dir)
 
 
-def main(argv=None):
+def main(argv=None, writer=None):
+    """Train as the flags say; returns the final TrainState.  writer: an
+    object with TensorBoard's add_scalar / add_image to log to, in place of
+    the SummaryWriter opened under <exp>/<logf> (closed by the caller)."""
     args = build_parser().parse_args(argv)
 
     from ..data.clip_text import ClipTextEncoder
@@ -136,6 +143,7 @@ def main(argv=None):
     from ..models.config import load_config
     from ..models.sgdiff import SGDiff
     from .checkpoint import load_vqvae_params
+    from .latents import make_latent_lookup
     from .trainer import Trainer, dump_args
 
     cfg = load_config(args.diff_yaml, network_type=args.network_type,
@@ -173,16 +181,14 @@ def main(argv=None):
                          "103-104)")
 
     os.makedirs(args.exp, exist_ok=True)
-    writer = open_writer(os.path.join(args.exp, args.logf))
-    if (args.preview_every > 0 and writer is not None
-            and args.network_type == "echoscene"):
-        writer.close()
-        raise NotImplementedError(
-            "shape previews (--preview_every > 0 with a TensorBoard writer) "
-            "are not wired to eval/render.py yet; pass --preview_every 0")
+    own_writer = writer is None
+    if own_writer:
+        writer = open_writer(os.path.join(args.exp, args.logf))
+    latent_lookup = (make_latent_lookup(args.latent_cache)
+                     if args.latent_cache else None)
 
     with contextlib.ExitStack() as stack:
-        if writer is not None:
+        if own_writer and writer is not None:
             stack.callback(writer.close)
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(args.seed)
@@ -206,15 +212,18 @@ def main(argv=None):
             max_scenes=args.batchSize, diffusion_bs=cfg.diffusion_bs,
             with_sdf=args.with_SDF and args.network_type == "echoscene",
             sdf_res=dataset.sdf_res,
-            shape_sampling=cfg.shape_branch.sampling)
+            shape_sampling=cfg.shape_branch.sampling,
+            latent_res=cfg.shape_branch.denoiser.image_size,
+            latent_ch=cfg.shape_branch.vqvae.embed_dim)
         trainer = Trainer(sgdiff, dataset, spec, args.exp,
                           batch_scenes=args.batchSize, seed=args.seed,
-                          writer=writer)
+                          writer=writer, latent_lookup=latent_lookup)
         state = sgdiff.init_train_state()
         if args.loadmodel:
             state = trainer.load(state, args.loadepoch)
         return trainer.train(state, args.nepoch,
-                             max_steps=args.max_steps or None)
+                             max_steps=args.max_steps or None,
+                             preview_every=args.preview_every)
 
 
 if __name__ == "__main__":

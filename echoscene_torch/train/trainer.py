@@ -8,8 +8,12 @@ Loss_IoU / Loss_Shape / learning_rate, the console and `loss_log.txt` line
 every `log_every` steps, epoch checkpoints at <exp>/checkpoint/model<epoch>,
 SIGINT -> finish the step, save, stop, and args.json for the eval CLI).
 Batches are collated on the host by a background thread and moved to the
-device per step.  The TensorBoard writer is optional.  Checkpoint saves are
-synchronous.
+device per step; with a latent lookup (train/latents.py) they carry
+precomputed VQ latents instead of SDF grids, so the frozen encoder leaves
+the step.  The TensorBoard writer is optional; with one, every
+`preview_every` steps a few sampled shapes are rendered into it
+(`preview_shapes`).  Periodic epoch saves run in the background
+(train/checkpoint.py); the final save waits for its file.
 """
 from __future__ import annotations
 
@@ -52,9 +56,10 @@ class InterruptHandler:
 
 
 def batch_iterator(dataset, spec: CollateSpec, batch_scenes: int,
-                   rng: np.random.Generator) -> Iterator:
+                   rng: np.random.Generator, latent_lookup=None) -> Iterator:
     """One epoch of collated batches (CPU tensors) in an order drawn from
-    `rng`; the rng also drives non-greedy shape sampling."""
+    `rng`; the rng also drives non-greedy shape sampling.  latent_lookup:
+    callable(sdf path or None) -> latent, shipped instead of SDF grids."""
     order = rng.permutation(len(dataset))
     buf = []
     for i in order:
@@ -63,12 +68,14 @@ def batch_iterator(dataset, spec: CollateSpec, batch_scenes: int,
             continue
         buf.append(ex)
         if len(buf) == batch_scenes:
-            b = collate_scenes(buf, spec, sdf_loader=dataset.load_sdf, rng=rng)
+            b = collate_scenes(buf, spec, sdf_loader=dataset.load_sdf,
+                               latent_lookup=latent_lookup, rng=rng)
             if b is not None:
                 yield b
             buf = []
     if buf:
-        b = collate_scenes(buf, spec, sdf_loader=dataset.load_sdf, rng=rng)
+        b = collate_scenes(buf, spec, sdf_loader=dataset.load_sdf,
+                           latent_lookup=latent_lookup, rng=rng)
         if b is not None:
             yield b
 
@@ -108,7 +115,8 @@ class Prefetcher:
 class Trainer:
     def __init__(self, sgdiff: SGDiff, dataset, spec: CollateSpec,
                  exp_dir: str, batch_scenes: int = 64, log_every: int = 50,
-                 ckpt_every_epochs: int = 100, seed: int = 0, writer=None):
+                 ckpt_every_epochs: int = 100, seed: int = 0, writer=None,
+                 latent_lookup=None):
         self.sgdiff = sgdiff
         self.dataset = dataset
         self.spec = spec
@@ -120,6 +128,7 @@ class Trainer:
         self.generator = torch.Generator(
             device=sgdiff.device).manual_seed(seed)
         self.writer = writer
+        self.latent_lookup = latent_lookup
         os.makedirs(os.path.join(exp_dir, "checkpoint"), exist_ok=True)
         self.loss_log = os.path.join(exp_dir, "loss_log.txt")
         open(self.loss_log, "a").close()
@@ -143,8 +152,34 @@ class Trainer:
         cfg = self.sgdiff.cfg
         return lr_schedule(cfg)(counter // max(1, int(cfg.grad_accum or 1)))
 
+    @torch.no_grad()
+    def preview_shapes(self, batch, counter: int, num_obj: int = 2):
+        """Sample shapes for `batch` and log renders of the first `num_obj`
+        to the writer (the reference's gen_shape_after_foward_2 + Visualizer
+        image logging, train_3dfront.py:286-292).  Training is untouched:
+        the draws come from a generator of their own seeded by `counter`,
+        autograd is off and every submodule's train / eval mode is
+        restored.  Unlike JAX's, nothing is caught: a failing kernel launch
+        must stop the run, not hide in a log line."""
+        if self.writer is None or not self.sgdiff.is_echoscene:
+            return
+        from ..eval.render import render_sdf_grid
+
+        modes = [(m, m.training) for m in self.sgdiff.module.modules()]
+        gen = torch.Generator(device=self.sgdiff.device).manual_seed(counter)
+        try:
+            out = self.sgdiff.sample_fn(batch, gen, gen_shape=True)
+        finally:
+            for m, training in modes:
+                m.training = training
+        sdfs = out["shapes"][:num_obj, ..., 0].float().cpu().numpy()
+        for i, g in enumerate(sdfs):
+            img = render_sdf_grid(g)
+            self.writer.add_image(f"gen_shape_{i}", img.transpose(2, 0, 1),
+                                  counter)
+
     def train(self, state: TrainState, epochs: int,
-              max_steps: Optional[int] = None,
+              max_steps: Optional[int] = None, preview_every: int = 0,
               final_save: bool = True) -> TrainState:
         counter = state.step
         t_start = time.time()
@@ -155,8 +190,9 @@ class Trainer:
             for epoch in range(state.epoch, epochs):
                 for batch in Prefetcher(lambda: batch_iterator(
                         self.dataset, self.spec, self.batch_scenes,
-                        self.rng)):
-                    metrics = self.sgdiff.train_step(state, batch.to(dev),
+                        self.rng, self.latent_lookup)):
+                    batch = batch.to(dev)
+                    metrics = self.sgdiff.train_step(state, batch,
                                                      self.generator)
                     timer.tick()
                     counter += 1
@@ -175,26 +211,33 @@ class Trainer:
                             self.writer.add_scalar("scenes_per_sec_per_chip",
                                                    timer.scenes_per_sec,
                                                    counter)
+                    if preview_every and counter % preview_every == 0:
+                        self.preview_shapes(batch, counter)
                     if h.interrupted or (max_steps and steps_done >= max_steps):
                         break
                 state.epoch += 1
                 if h.interrupted or (max_steps and steps_done >= max_steps):
                     break
                 if epoch % self.ckpt_every_epochs == 0:
-                    self.save(state, epoch)
+                    # in the background: training resumes while the file
+                    # is written; the final save (and any restore) waits
+                    self.save(state, epoch, wait=False)
             dt_steps = time.time() - t_start
             if final_save:
                 t_save = time.time()
                 self.save(state, state.epoch)
-                print(f"[trainer] final save took {time.time() - t_save:.1f}s")
+                print(f"[trainer] final save took {time.time() - t_save:.1f}s"
+                      " (it waits for its file; epoch saves run in the "
+                      "background)")
         if steps_done:
             print(f"[trainer] {steps_done} steps in {dt_steps:.1f}s "
                   f"({steps_done / dt_steps:.3f} steps/s)")
         return state
 
-    def save(self, state: TrainState, epoch: int):
+    def save(self, state: TrainState, epoch: int, wait: bool = True):
         save_checkpoint(os.path.join(self.exp_dir, "checkpoint",
-                                     f"model{epoch}"), self.sgdiff, state)
+                                     f"model{epoch}"), self.sgdiff, state,
+                        wait=wait)
         print(f"saved model_{epoch}")
 
     def load(self, state: TrainState, epoch: int) -> TrainState:

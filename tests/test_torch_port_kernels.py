@@ -500,6 +500,67 @@ def test_cuda_attention_raises_on_a_dtype_mix(entry):
 
 
 @pytest.mark.cuda
+def test_cuda_f32_stream_gradients_at_the_vq_shape():
+    """K2 in f32 with a gradient at the VQ-VAE's training site (8, 4096, 1,
+    256): the output carries the differentiable Function, one f32 launch,
+    and dq, dk, dv equal plain autograd's bit for bit (the backward is the
+    same plain recompute)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from echoscene_torch.models.sgdiff import set_precision
+
+    set_precision()
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    q, k, v, g = (torch.randn((8, 4096, 1, 256), generator=gen,
+                              device="cuda") for _ in range(4))
+    port_fa.reset_launches()
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    out = port_fa.stream_attention(*leaves)
+    assert type(out.grad_fn).__name__ == "KernelAttentionBackward"
+    got = torch.autograd.grad(out, leaves, g)
+    assert port_fa.LAUNCHES_BY_DTYPE == {("stream_attention", "float32"): 1}
+    plain = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    want = torch.autograd.grad(port_fa.attention_plain(*plain), plain, g)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.float32 and torch.equal(a, b)
+    assert max(port_fa.error_ratios(out.detach(), port_fa.attention_plain(
+        q, k, v))) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [None, "bfloat16"])
+def test_cuda_vq_step_launches_k2_twice(dtype):
+    """One VQ-VAE training step at configs/vqvae_snet.yaml's widths (batch
+    2): K2 launches twice, the encoder's and the decoder's mid attention,
+    in the compute dtype; the loss is finite and every parameter moves."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import os
+
+    from echoscene_torch.benchmarks import analytic_sdf
+    from echoscene_torch.train.vqvae_cli import load_vq_config
+    from echoscene_torch.train.vqvae_trainer import VQVAETrainer
+
+    cfg = load_vq_config(os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "configs", "vqvae_snet.yaml"))
+    tr = VQVAETrainer(cfg, compute_dtype=dtype, device="cuda")
+    state = tr.init(torch.Generator(device="cuda").manual_seed(0))
+    r = np.random.default_rng(0)
+    x = torch.from_numpy(np.stack([np.clip(analytic_sdf(i, 64, r), -0.2, 0.2)
+                                   for i in range(2)])[..., None]).float()
+    before = [p.detach().clone() for p in state.module.parameters()]
+    port_fa.reset_launches()
+    logs = tr.train_step(state, x)
+    torch.cuda.synchronize()
+    name = "float32" if dtype is None else dtype
+    assert port_fa.LAUNCHES_BY_DTYPE == {("stream_attention", name): 2}
+    assert port_fa.LAUNCHES == {"onepass_attention": 0, "stream_attention": 2}
+    assert bool(torch.isfinite(logs["loss_total"]))
+    assert all(not torch.equal(a, p) for a, p in
+               zip(before, state.module.parameters()))
+
+
+@pytest.mark.cuda
 def test_cuda_gcn_pooling_is_bit_reproducible():
     """Two calls of a GCN on the card give the same bits: the one-hot
     product adds in a fixed order (an atomic scatter would not)."""

@@ -7,8 +7,9 @@ variables carried over by convert/from_jax.py):
 * the diffusion training math (q_sample, p_losses, the IoU loss in both
   overlaps, vb_terms, calc_bpd, the shape-branch loss) on JAX's own draws,
   within 1e-6;
-* `loss_fn` for echoscene (16^3 SDFs through the chunked `encode_sdf`) and
-  for echolayout with the IoU loss: loss and metrics within 1e-5 relative,
+* `loss_fn` for echoscene (16^3 SDFs through the chunked `encode_sdf`, or
+  latents from a latent cache file) and for echolayout with the IoU loss:
+  loss and metrics within 1e-5 relative,
   each gradient leaf within 1e-4 max|g_jax| + 1e-7, the batch-norm running
   statistics within 1e-6;
 * the optimizer (clip, NaN zeroing, frozen VQ-VAE, AdamW, lr boundaries,
@@ -255,6 +256,50 @@ def test_loss_fn_through_encode_sdf_matches_jax(data):
     rng = jax.random.PRNGKey(12)
     loss, (_, metrics) = jax.jit(jsg.loss_fn)(params, stats, batch, rng)
     psg = _port_sg(cfg, ds, params, stats)
+    with torch.no_grad():
+        got, got_m = psg.loss_fn(_port_batch(batch),
+                                 draws=_draws(rng, batch, jsg, cfg))
+    np.testing.assert_allclose(float(got), float(loss), rtol=1e-5)
+    for k, w in metrics.items():
+        np.testing.assert_allclose(float(got_m[k]), float(w), rtol=1e-5,
+                                   atol=1e-7, err_msg=k)
+
+
+def test_loss_fn_matches_jax_from_latent_cache(data, tmp_path):
+    """The joint echoscene loss on a batch collated from a latent cache
+    (the port's file, read by JAX's lookup), JAX's loss_fn against the
+    port's on the same batch and draws: within 1e-5 relative."""
+    import importlib.util
+
+    from echoscene_tpu.data.collate import CollateSpec, collate_scenes
+    from echoscene_tpu.models.sgdiff import SGDiff as JSGDiff
+    from echoscene_torch.train import latents
+
+    ds = data.ds
+    cfg = _jax_config("echoscene")
+    params, stats = data.variables("echoscene")
+    psg = _port_sg(cfg, ds, params, stats)
+    paths = latents.dataset_sdf_paths(ds)
+    cache = latents.precompute_latents(psg.module.vqvae, paths, ds.load_sdf,
+                                       batch=8, device="cpu")
+    npz = str(tmp_path / "cache.npz")
+    latents.write_latent_cache(npz, cache)
+    spec = CollateSpec(max_nodes=cfg.max_nodes, max_triples=cfg.max_triples,
+                       max_scenes=cfg.batch_scenes, diffusion_bs=DIFFUSION_BS,
+                       with_sdf=True, sdf_res=16, latent_res=4, latent_ch=3)
+    # JAX's reader of the cache, scripts/precompute_latents.py, by path
+    mod_spec = importlib.util.spec_from_file_location(
+        "precompute_latents", os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "scripts", "precompute_latents.py"))
+    script = importlib.util.module_from_spec(mod_spec)
+    mod_spec.loader.exec_module(script)
+    batch = collate_scenes([ds[i] for i in range(3)], spec,
+                           latent_lookup=script.make_latent_lookup(npz))
+    assert batch.shapes.sdf is None and batch.shapes.latent is not None
+    jsg = JSGDiff(cfg, len(ds.classes), len(ds.pred_names),
+                  iou_stats=ds.box_stats)
+    rng = jax.random.PRNGKey(13)
+    loss, (_, metrics) = jax.jit(jsg.loss_fn)(params, stats, batch, rng)
     with torch.no_grad():
         got, got_m = psg.loss_fn(_port_batch(batch),
                                  draws=_draws(rng, batch, jsg, cfg))
@@ -942,12 +987,11 @@ def test_train_cli_then_eval_cli_round_trip(port_data, tmp_path):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--dp_devices", "2"], ["--zero1"], ["--latent_cache", "x"],
-    ["--preview_every", "10"],
+    ["--dp_devices", "2"], ["--zero1"],
     ["--device", "cpu", "--compute_dtype", "bfloat16"]])
 def test_train_cli_refuses_unported_options(extra, port_data, tmp_path):
-    """Refused at start with a clear message, before any step: multi-GPU,
-    the latent cache, shape previews with a writer and bf16 on the CPU."""
+    """Refused at start with a clear message, before any step: multi-GPU
+    and bf16 on the CPU."""
     from echoscene_torch.train import cli as train_cli
 
     _, root, _, _, _ = port_data
@@ -955,8 +999,6 @@ def test_train_cli_refuses_unported_options(extra, port_data, tmp_path):
     argv = _train_argv(root, exp, "--max_steps", "1")
     i = argv.index("--device")
     argv = argv[:i] + argv[i + 2:] + extra
-    if extra[0] == "--preview_every":
-        pytest.importorskip("torch.utils.tensorboard")
     with pytest.raises(NotImplementedError):
         train_cli.main(argv)
     assert not (exp / "checkpoint").exists()
