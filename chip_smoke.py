@@ -76,7 +76,13 @@ result line):
      dumps -> the consistency CLI on the same-category instances -> MMD /
      COV / 1-NN (auction EMD) of 8 generated clouds against 8 clouds of
      analytic SDFs, on the card; checks that the report parses, that every
-     dumped real-row SDF meshes, that every part gives finite values, and
+     dumped real-row SDF meshes, one 256^2 render and one .glb per
+     scene, the render equal to its .glb rasterized again and the .glb's
+     objects spanning the heights of the generated boxes and lying within
+     their footprints, the boxes descaled by the script itself (random
+     weights put them out of view, so the pixels drawn on the floor are
+     counted, not required), the consistency's CLIP
+     block (pixel proxy) finite, that every part gives finite values, and
      the launch counts (K1 / K2 of the generation; K4 = 48 at
      (8, 5000, 5000) for the metrics plus 2 at (pairs, 5000, 5000) per
      scene with an annotated pair for the consistency, by shape as the
@@ -134,21 +140,40 @@ result line):
      0 a step); a background checkpoint save at full width (its blocking
      part and the whole write) with a parameter changed in place right after
      it returns, restored bit-exact and without that change, and a
-     synchronous save, timed.
+     synchronous save, timed;
+ 10. drive the image metrics on the phase-4 model: GT box renders of a
+     fake test split (`eval.gt_renders`); layout-only `SceneEvaluator`
+     runs at DPM++ 50 with the onlybox, retrieval (a cat_jid table of OBJ
+     boxes) and txt2shape (a directory of PLY meshes) render types and a
+     relationship run of onlybox for the `_mani.png` overlay, each checked
+     for its renders (256^2, each equal to its .glb rasterized again, at
+     least one a run drawing something besides the floor), .glb files and
+     object meshes, and for K1 = K2 = K4 = 0; FID-InceptionV3 at
+     full width on the card from seeded weights written as JAX's .npz
+     (the extractor must be the port's module, not TorchScript), its
+     features against the same module on the CPU on 4 renders (max abs
+     error <= 1e-4 of the peak); `eval.fid_cli` over the onlybox renders
+     against the GT renders (finite FID and KID, n_real / n_fake equal to
+     the file counts); the feature throughput at batch 64 of 299^2, its
+     peak memory, and the wall seconds of each part.
 
 Prints the total seconds, the `kernels` JSON line (K1 / K2 in bf16 and in
 f32, each entry with its dtype; K1 / K2 also carry their training launches,
 serving launches and forward + backward times; the f32 entries' launches
 are phase 8's f32 request; the f32 K2 entry also carries its VQ-VAE
 launches; `stream_attention_f32_train` is K2 f32 forward + plain backward
-at the VQ-VAE site, its launches phase 9's 3 f32 steps), the card's name and
-power limit (nvidia-smi), and as its last line
+at the VQ-VAE site, its launches phase 9's 3 f32 steps; every entry's
+`image_metrics_launches` is its wrapper's count over the whole of phase 10,
+the counts set to 0 at the phase's start and read at its end), the card's
+name and power limit
+(nvidia-smi), and as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Needs one card; exits 2 without CUDA or without the repository beside it.
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import math
 import os
@@ -644,8 +669,20 @@ def eval_path(sg, card: str) -> dict:
             fail("the eval scenes do not fit one generation group")
         rows = shape_row_capacity(collate_scenes(examples, spec))
         store = os.path.join(tmp, "eval")
+        render_dir = os.path.join(tmp, "renders")
         ev = SceneEvaluator(sg, spec, ds.box_stats, gen_shape=True,
-                            store_path=store, dump_sdfs=True, eval_batch=8)
+                            store_path=store, dump_sdfs=True, eval_batch=8,
+                            render_dir=render_dir, export_glb=True)
+        # the layout of each scene as the model gave it, in [-1, 1], before
+        # the evaluator descales it
+        raw, score_scene = {}, ev.score_scene
+
+        def keep_raw(ds_, ex, out_slice, *rest):
+            raw[ex.scan_id] = (list(ex.objs), out_slice["sizes"].copy(),
+                               out_slice["translations"].copy())
+            return score_scene(ds_, ex, out_slice, *rest)
+
+        ev.score_scene = keep_raw
 
         # generation, scoring and the SDF dumps
         fa.reset_launches()
@@ -682,10 +719,29 @@ def eval_path(sg, card: str) -> dict:
                          f"no triangles ({tris})")
                 n_rows += 1
                 n_tris += tris
+        # random weights put boxes far off (heights and bottoms of
+        # hundreds of metres), above the camera or under the floor, and
+        # the chain is bit-reproducible, so these renders show only the
+        # floor on every run: each is held to its .glb's geometry, and that
+        # geometry to the generated boxes
+        drawn = check_renders(render_dir, [e.scan_id for e in examples],
+                              "echoscene")
+        box_range = check_placement(render_dir, raw, ds.box_stats,
+                                    ds.vocab["object_idx_to_name"],
+                                    "echoscene")
+        # the model's layout output, to compare runs
+        digest = hashlib.sha256(b"".join(
+            raw[k][1].tobytes() + raw[k][2].tobytes()
+            for k in sorted(raw))).hexdigest()[:16]
         print(f"eval generation: {len(examples)} scenes, {rows} rows, "
-              f"{gen_s:.3f} s wall; accuracy total {total.group(1)}, means "
-              f"of mean {total.group(2)}; {n_rows} dumped SDFs, "
-              f"{n_tris / n_rows:.0f} triangles each on average [{card}]")
+              f"{gen_s:.3f} s wall with the renders; accuracy total "
+              f"{total.group(1)}, means of mean {total.group(2)}; {n_rows} "
+              f"dumped SDFs, {n_tris / n_rows:.0f} triangles each on "
+              f"average; {len(examples)} renders of 256^2 with a .glb each, "
+              f"pixels drawn on the floor per render {drawn}; generated "
+              f"box sizes and positions descaled between "
+              f"{box_range[0]:.2f} and {box_range[1]:.2f} m, layout digest "
+              f"{digest} [{card}]")
 
         # SDF -> 5000-point clouds: 8 generated, 8 of analytic SDFs
         t0 = time.perf_counter()
@@ -724,11 +780,16 @@ def eval_path(sg, card: str) -> dict:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         agg = consistency_cli.main(["--annotations", ann_path,
-                                    "--generated_dir", store])
+                                    "--generated_dir", store,
+                                    "--clip", "pixel"])
         torch.cuda.synchronize()
         cons_s = time.perf_counter() - t0
+        clip = agg.pop("clip", None)
         if not all(math.isfinite(v) for v in agg.values()):
             fail(f"consistency is not finite: {agg}")
+        if not clip or not all(math.isfinite(v) for v in clip.values()):
+            fail(f"the consistency CLIP block is missing or not finite: "
+                 f"{clip}")
         cons_launches = k4.LAUNCHES["nn_distance"]
         cons_shapes = dict(k4.LAUNCH_SHAPES)
         t0 = time.perf_counter()
@@ -762,7 +823,8 @@ def eval_path(sg, card: str) -> dict:
     print(f"eval SDF -> clouds: 16 clouds of 5000 points, {cloud_s:.3f} s "
           f"wall; native library: {native.available()} [{card}]")
     print(f"eval consistency: {pairs} pairs in {len(anns)} scenes, total "
-          f"{agg['total']:.6g}, {cons_s:.3f} s wall [{card}]")
+          f"{agg['total']:.6g}, CLIP (pixel proxy) total "
+          f"{clip['total']:.6g}, {cons_s:.3f} s wall [{card}]")
     print(f"eval MMD / COV / 1-NN: 8 vs 8 clouds, {json.dumps(mmd)}, "
           f"{mmd_s:.3f} s wall, of which chamfers (the step with an EMD of "
           f"zeros) {mmd_cd_s:.3f} s and auction EMD the other "
@@ -770,9 +832,113 @@ def eval_path(sg, card: str) -> dict:
     shapes = {str(list(k)): c for k, c in sorted(shapes.items())}
     print(f"eval nn_distance launches by shape (counted by the wrapper): "
           f"{json.dumps(shapes)}")
-    return {"nn_distance_launches": launches, "generation_s": gen_s,
+    return {"nn_distance_launches": launches, "generation_render_s": gen_s,
+            "drawn_pixels": drawn, "box_range_m": box_range,
+            "layout_digest": digest,
             "clouds_s": cloud_s, "consistency_s": cons_s, "mmd_s": mmd_s,
             "mmd_chamfer_s": mmd_cd_s, "nn_distance_launches_by_shape": shapes}
+
+
+def floor_colours():
+    """The colours of a render with nothing on the floor, the background
+    and the floor plane, as a (k, 3) uint8 array."""
+    import numpy as np
+    from echoscene_torch import native
+    from echoscene_torch.eval.render import assemble_scene
+
+    img = native.rasterize_topdown(*assemble_scene(
+        [], np.zeros((0, 7), np.float32), []), width=256, height=256)
+    return np.unique(img.reshape(-1, 3), axis=0)
+
+
+def check_renders(render_dir, scan_ids, render_type, mani=False,
+                  glb=True) -> list:
+    """Each scene has a 256^2 `<scan_id>.png` (and `_mani.png` when
+    `mani`); with `glb`, a `.glb` that holds objects besides the floor and
+    whose geometry, rasterized again, gives the render bit for bit.
+    Returns the pixels drawn on the floor per render (an object below the
+    floor plane is hidden by it, so a scene may draw none)."""
+    import numpy as np
+    from PIL import Image
+    from echoscene_torch import native
+    from echoscene_torch.eval.render import read_glb
+
+    def read_png(path):
+        return np.asarray(Image.open(path).convert("RGB"))
+
+    empty = floor_colours()
+    drawn = []
+    for sid in scan_ids:
+        names = [f"{sid}.png"] + ([f"{sid}_mani.png"] if mani else [])
+        for name in names:
+            path = os.path.join(render_dir, name)
+            if not os.path.exists(path):
+                fail(f"{render_type}: no render {name}")
+            img = read_png(path)
+            if img.shape != (256, 256, 3):
+                fail(f"{render_type}: {name} has shape {img.shape}")
+            px = img.reshape(-1, 1, 3)
+            drawn.append(int((~(px == empty[None]).all(-1).any(-1)).sum()))
+        if not glb:
+            continue
+        path = os.path.join(render_dir, f"{sid}_{render_type}.glb")
+        if not os.path.exists(path):
+            fail(f"{render_type}: no .glb for {sid}")
+        pos, col = read_glb(path)
+        if len(pos) <= 6:   # the floor plane is 2 triangles
+            fail(f"{render_type}: the .glb of {sid} holds no object")
+        again = native.rasterize_topdown(
+            pos, np.arange(len(pos), dtype=np.int32).reshape(-1, 3),
+            np.ascontiguousarray(col[::3]), width=256, height=256)
+        if not np.array_equal(again, read_png(
+                os.path.join(render_dir, f"{sid}.png"))):
+            fail(f"{render_type}: the render of {sid} is not its .glb's "
+                 "geometry")
+    return drawn
+
+
+def check_placement(render_dir, raw, stats, class_names,
+                    render_type) -> tuple:
+    """Each scene's `.glb` objects span the heights of its generated boxes
+    and lie within their footprints, the boxes descaled here from the
+    model's [-1, 1] output by the min-max formula (helpers/util.py:542-557;
+    stats = min lhw, max lhw, min xyz, max xyz; xyz is the bottom centre):
+    a box placed or descaled wrongly fails.  `raw` maps a scan id to (objs,
+    sizes, translations).  Returns the least and the greatest of the
+    descaled sizes and positions."""
+    import numpy as np
+    from echoscene_torch.eval.render import read_glb
+
+    s = np.asarray(stats, np.float64)
+    lo, hi = math.inf, -math.inf
+    for sid, (objs, sizes, trans) in raw.items():
+        size = (sizes + 1) / 2 * (s[3:6] - s[0:3]) + s[0:3]
+        loc = (trans + 1) / 2 * (s[9:12] - s[6:9]) + s[6:9]
+        shown = [i for i, c in enumerate(objs) if class_names[int(c)]
+                 .rstrip("\n") not in ("_scene_", "lamp")]
+        size, loc = size[shown], loc[shown]
+        lo = min(lo, size.min(), loc.min())
+        hi = max(hi, size.max(), loc.max())
+        pos, _ = read_glb(os.path.join(render_dir,
+                                       f"{sid}_{render_type}.glb"))
+        obj = pos[6:].astype(np.float64)   # after the floor's 2 triangles
+        tol = 1e-5 * max(np.abs(obj).max(), 1.0)
+        bottom, top = loc[:, 1], loc[:, 1] + size[:, 1]
+        want = (np.minimum(bottom, top).min(), np.maximum(bottom, top).max())
+        got = (obj[:, 1].min(), obj[:, 1].max())
+        if not np.allclose(got, want, rtol=0, atol=tol):
+            fail(f"{render_type}: the objects of {sid} span heights {got}, "
+                 f"its generated boxes {want}")
+        # any yaw keeps a box within half its diagonal of its centre: each
+        # vertex lies within that disc of one box
+        reach = np.hypot(size[:, 0], size[:, 2]) / 2 + tol
+        inside = np.zeros(len(obj), bool)
+        for (x, z), r in zip(loc[:, [0, 2]], reach):
+            inside |= np.hypot(obj[:, 0] - x, obj[:, 2] - z) <= r
+        if not inside.all():
+            fail(f"{render_type}: {int((~inside).sum())} object vertices of "
+                 f"{sid} lie outside the footprints of its generated boxes")
+    return float(lo), float(hi)
 
 
 def check_tiny_against_cpu() -> float:
@@ -1879,6 +2045,235 @@ def checkpoint_path(sg, state, card: str) -> dict:
             "background_whole_s": whole_s, "sync_s": sync_s}
 
 
+INCEPTION_BATCH = 64          # phase 10's feature throughput batch
+FEAT_RTOL = 1e-4              # Inception features, card vs CPU, of the peak
+
+
+def image_path(sg, card: str) -> dict:
+    """Phase 10, the image metrics on the phase-4 model: GT box renders of
+    the fake test split (`eval.gt_renders`); layout-only `SceneEvaluator`
+    runs at DPM++ 50 with the onlybox, retrieval (a cat_jid table of OBJ
+    boxes) and txt2shape (a directory of PLY meshes) render types, and a
+    relationship run of onlybox for the overlay, each with K1 = K2 = K4 = 0
+    (counts set to 0 just before each run, read just after, and banked
+    into the phase's counts, which are returned);
+    FID-InceptionV3 at full width on the card from seeded weights written
+    as JAX's .npz under build/, against the same module on the CPU on 4
+    renders; `fid_cli` over the onlybox renders against the GT renders;
+    the feature throughput at batch 64 of 299^2 and its peak memory."""
+    import numpy as np
+    import torch
+    from echoscene_torch import native
+    from echoscene_torch.benchmarks import NUM_OBJS, NUM_PREDS, analytic_sdf
+    from echoscene_torch.data.clip_text import ClipTextEncoder
+    from echoscene_torch.data.collate import CollateSpec
+    from echoscene_torch.data.fake import make_fake_dataset
+    from echoscene_torch.data.sgfront import SGFrontDataset
+    from echoscene_torch.eval import fid_cli, gt_renders
+    from echoscene_torch.eval.evaluator import SceneEvaluator
+    from echoscene_torch.eval.fid import get_extractor, load_image_dir
+    from echoscene_torch.eval.inception_fid import (InceptionExtractor,
+                                                    conv_flops, conv_specs)
+    from echoscene_torch.eval.render import box_mesh, export_obj, export_ply
+    from echoscene_torch.eval.retrieval import MeshResultsDir, SizeDatabase
+    from echoscene_torch.kernels import chamfer as k4
+    from echoscene_torch.kernels import flash_attention as fa
+
+    # every launch of the phase, banked before each run's own reset
+    launches = {f"{name}/{dtype}": 0 for name in fa.LAUNCHES
+                for dtype in ("bfloat16", "float32")}
+    launches["nn_distance"] = 0
+
+    def bank():
+        for (name, dtype), n in fa.LAUNCHES_BY_DTYPE.items():
+            launches[f"{name}/{dtype}"] = launches.get(f"{name}/{dtype}",
+                                                       0) + n
+        launches["nn_distance"] += k4.LAUNCHES["nn_distance"]
+        fa.reset_launches()
+        k4.reset_launches()
+
+    fa.reset_launches()
+    k4.reset_launches()
+    secs = {}
+    cfg = sg.cfg
+    cfg.layout_diffusion.sampler, cfg.layout_diffusion.sample_steps = (
+        "dpmpp", 50)
+    sg.layout_fast_tables["dpmpp"] = sg.layout_diff.make_dpmpp_tables(50)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        # (a) GT renders of the fake test split (boxes: no h5py here)
+        t0 = time.perf_counter()
+        root = make_fake_dataset(os.path.join(tmp, "data"), num_scenes=8,
+                                 min_objs=3, max_objs=6, with_sdf=False,
+                                 seed=0)
+        gt_dir = os.path.join(tmp, "gt")
+        n_gt = gt_renders.main(["--dataset", root, "--out", gt_dir])
+        secs["gt_renders"] = time.perf_counter() - t0
+        ds_kw = dict(split="test", shuffle_objs=False, use_sdf=False,
+                     clip=ClipTextEncoder("hash"), seed=47)
+        ds = SGFrontDataset(root, with_changes=False, **ds_kw)
+        if (len(ds.classes), len(ds.pred_names)) != (NUM_OBJS, NUM_PREDS):
+            fail("the fake vocabulary does not match the flagship model's")
+        scan_ids = [ds[i].scan_id for i in range(len(ds))]
+        if n_gt != len(scan_ids):
+            fail(f"gt_renders wrote {n_gt} renders for {len(scan_ids)} "
+                 "test scenes")
+        # GT boxes lie inside the box stats: every GT render shows objects
+        drawn = {"gt": check_renders(gt_dir, scan_ids, "gt", glb=False)}
+        if not all(drawn["gt"]):
+            fail(f"a GT render shows nothing besides the floor: "
+                 f"{drawn['gt']}")
+
+        # (b) the mesh sources: a size table of OBJ boxes, PLY results
+        names = sorted({n.strip() for n in ds.vocab["object_idx_to_name"]})
+        table, rng = {}, np.random.default_rng(10)
+        for n in names:
+            table[n] = {}
+            for k in range(2):
+                size = rng.uniform(0.4, 1.6, 3).round(3)
+                jid = f"{n}-{k}"
+                table[n][jid] = size.tolist()
+                d = os.path.join(tmp, "future", "3D-FUTURE-model", jid)
+                os.makedirs(d)
+                v, f = box_mesh([*size, 0, 0, 0, 0])
+                export_obj(os.path.join(d, "raw_model.obj"), v, f)
+        table_path = os.path.join(tmp, "future", "cat_jid_trainval.json")
+        with open(table_path, "w") as f:
+            json.dump(table, f)
+        for k, n in enumerate(names):
+            d = os.path.join(tmp, "txt2shape", n)
+            os.makedirs(d)
+            v, f = native.marching_cubes(analytic_sdf(k % 3, 32, rng))
+            export_ply(os.path.join(d, "res0.ply"), v, f)
+        spec = CollateSpec(max_nodes=48, max_triples=160, max_scenes=8,
+                           diffusion_bs=48, with_sdf=False)
+        runs = (("onlybox", "none", {}),
+                ("retrieval", "none",
+                 {"mesh_db": SizeDatabase(table_path)}),
+                ("txt2shape", "none",
+                 {"txt2shape_db": MeshResultsDir(
+                     os.path.join(tmp, "txt2shape"))}),
+                ("onlybox", "relationship", {}))
+        dirs = {}
+        for render_type, etype, dbs in runs:
+            key = f"{render_type}/{etype}"
+            dirs[key] = os.path.join(tmp, "gen", render_type + "_" + etype)
+            ev = SceneEvaluator(sg, spec, ds.box_stats, gen_shape=False,
+                                store_path=os.path.join(tmp, "store", key),
+                                eval_batch=8, render_dir=dirs[key],
+                                render_type=render_type, export_glb=True,
+                                **dbs)
+            ds_e = (ds if etype == "none" else SGFrontDataset(
+                root, with_changes=True, eval_mode=True, eval_type=etype,
+                **ds_kw))
+            bank()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ev.run(ds_e, etype, 0,
+                   torch.Generator(device="cuda").manual_seed(47))
+            torch.cuda.synchronize()
+            secs[key] = time.perf_counter() - t0
+            got = {**dict(fa.LAUNCHES), **dict(k4.LAUNCHES)}
+            if any(got.values()):
+                fail(f"layout-only {key} launched {got}, want no K1 / K2 / "
+                     "K4")
+            # a manipulated reader may drop a scene it cannot change, and
+            # its draws advance with every read: take the scenes rendered
+            ids = sorted(f[:-4] for f in os.listdir(dirs[key])
+                         if f.endswith(".png") and not f.endswith("_mani.png"))
+            if (ids != sorted(scan_ids) if etype == "none" else not ids):
+                fail(f"{key} rendered {ids} of the test scenes {scan_ids}")
+            drawn[key] = check_renders(dirs[key], ids, render_type,
+                                       mani=etype != "none")
+            # the short DPM++ chain keeps boxes near the room: a generated
+            # scene in view
+            if not any(drawn[key]):
+                fail(f"{key}: no render draws anything besides the floor: "
+                     f"{drawn[key]}")
+            if render_type in ("retrieval", "txt2shape"):
+                meshes = os.path.join(dirs[key], "object_meshes")
+                if not (os.path.isdir(meshes) and os.listdir(meshes)):
+                    fail(f"{key} exported no object meshes")
+
+        # (c) FID-InceptionV3 at full width, seeded weights as JAX's .npz
+        t0 = time.perf_counter()
+        wrng = np.random.default_rng(0)
+        params = {}
+        for sp in conv_specs():
+            kh, kw = sp["k"]
+            fan = sp["cin"] * kh * kw
+            n = sp["name"]
+            params[f"{n}.kernel"] = wrng.normal(
+                0, np.sqrt(2.0 / fan),
+                (kh, kw, sp["cin"], sp["cout"])).astype(np.float32)
+            params[f"{n}.scale"] = wrng.uniform(
+                0.5, 1.5, sp["cout"]).astype(np.float32)
+            params[f"{n}.bias"] = wrng.normal(
+                0, 0.1, sp["cout"]).astype(np.float32)
+        npz = os.path.join(tmp, "inception.npz")
+        np.savez(npz, **params)
+        ext = get_extractor(f"inception:{npz}", device="cuda")
+        if not (isinstance(ext, InceptionExtractor)
+                and ext.device.type == "cuda"):
+            fail(f"inception:{npz} gave {type(ext).__name__}, not the port's "
+                 "Inception module on the card")
+        n_params = sum(p.numel() for p in ext.net.parameters())
+        torch.cuda.synchronize()
+        secs["inception_build"] = time.perf_counter() - t0
+
+        # (d) card against CPU features of the same module on 4 renders
+        t0 = time.perf_counter()
+        imgs = load_image_dir(dirs["onlybox/none"])[:4]
+        got = ext(imgs)
+        want = InceptionExtractor(params, "cpu")(imgs)
+        feat_err = float(np.abs(got - want).max() / np.abs(want).max())
+        if not (np.isfinite(got).all() and got.shape == (len(imgs), 2048)
+                and feat_err <= FEAT_RTOL):
+            fail(f"Inception features on the card {got.shape}: max err "
+                 f"{feat_err:.3e} of the peak against the CPU (limit "
+                 f"{FEAT_RTOL})")
+        secs["card_vs_cpu"] = time.perf_counter() - t0
+
+        # (e) FID / KID of the onlybox renders against the GT renders
+        t0 = time.perf_counter()
+        res = fid_cli.main([
+            "--path_to_real_renderings", gt_dir,
+            "--path_to_synthesized_renderings", dirs["onlybox/none"],
+            "--extractor", f"inception:{npz}", "--device", "cuda"])
+        secs["fid_cli"] = time.perf_counter() - t0
+        n_files = [len([f for f in os.listdir(d) if f.endswith(".png")])
+                   for d in (gt_dir, dirs["onlybox/none"])]
+        if not (math.isfinite(res["fid"]) and math.isfinite(res["kid"])
+                and [res["n_real"], res["n_fake"]] == n_files):
+            fail(f"fid_cli gave {res}, with {n_files} render files")
+
+    # (f) feature throughput at batch 64 of 299^2, with its peak memory
+    t0 = time.perf_counter()
+    batch = torch.randint(0, 256, (INCEPTION_BATCH, 299, 299, 3),
+                          dtype=torch.uint8, device="cuda",
+                          generator=torch.Generator(device="cuda"
+                                                    ).manual_seed(0))
+    ext.features(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ms = cuda_ms(lambda: ext.features(batch), iters=5)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    secs["throughput"] = time.perf_counter() - t0
+    bank()
+    flops = conv_flops(299) * INCEPTION_BATCH
+    out = {"n_gt": n_gt, "drawn_pixels": drawn, "launches": launches,
+           "inception_params": n_params, "feat_err_of_peak": feat_err,
+           "fid": res, "batch_ms": ms,
+           "images_per_s": INCEPTION_BATCH / (ms / 1e3),
+           "conv_tflops": flops / (ms / 1e3) / 1e12,
+           "f32_bound_ms": flops / 67e12 * 1e3,
+           "peak_gib_above_weights": peak, "seconds": secs}
+    del ext, batch
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     global T_START
     T_START = time.perf_counter()
@@ -2160,6 +2555,39 @@ def main() -> int:
     details = {"vq": vq, "tiny_vq": tiny_vq, "pipeline": pipe,
                "checkpoint": ck}
     print(f"pipeline details: {json.dumps(details)}; phase 9 took "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # 10. the image metrics: GT renders, the layout-only render types with
+    # the overlay, FID-InceptionV3 on the card against the CPU, fid_cli,
+    # the feature throughput
+    t0 = time.perf_counter()
+    im = image_path(sg, card)
+    by_wrapper = {"onepass_attention": "onepass_attention/bfloat16",
+                  "stream_attention": "stream_attention/bfloat16",
+                  "onepass_attention_f32": "onepass_attention/float32",
+                  "stream_attention_f32": "stream_attention/float32",
+                  "stream_attention_f32_train": "stream_attention/float32",
+                  "nn_distance": "nn_distance"}
+    for e in entries + f32_entries + [k2_train]:
+        e["image_metrics_launches"] = im["launches"][by_wrapper[e["name"]]]
+    print(f"image metrics: {im['n_gt']} GT renders and the onlybox, "
+          f"retrieval, txt2shape and onlybox-relationship renders of the "
+          f"test split, layout-only at DPM++ 50 (K1 = K2 = K4 = 0 in each), "
+          f"wall seconds {json.dumps(im['seconds'])}; kernel launches in "
+          f"the whole phase {json.dumps(im['launches'])} [{card}]")
+    print(f"FID-InceptionV3 ({im['inception_params']} parameters, seeded "
+          f"weights): batch {INCEPTION_BATCH} of 299^2 in "
+          f"{im['batch_ms']:.3f} ms, {im['images_per_s']:.1f} images/sec, "
+          f"{im['conv_tflops']:.2f} TFLOP/s of convolutions (f32 bound at "
+          f"67 TFLOP/s {im['f32_bound_ms']:.3f} ms), peak memory "
+          f"{im['peak_gib_above_weights']:.3f} GiB above the weights; card "
+          f"vs CPU features max err {im['feat_err_of_peak']:.3e} of the "
+          f"peak [{card}]")
+    print(f"fid_cli (seeded weights, no FID of the paper): FID "
+          f"{im['fid']['fid']:.6g}, KID {im['fid']['kid']:.6g} over "
+          f"{im['fid']['n_real']} GT / {im['fid']['n_fake']} generated "
+          f"renders")
+    print(f"image details: {json.dumps(im)}; phase 10 took "
           f"{time.perf_counter() - t0:.1f} s")
     entries[2:2] = f32_entries + [k2_train]
     for e in entries:

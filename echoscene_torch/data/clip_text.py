@@ -10,31 +10,23 @@ and relation phrases once with ViT-B/32 and caches them per scan
                      same vectors as the JAX package's hash backend;
   * 'transformers' - local HuggingFace CLIP weights; raises when they are
                      not on disk (`local_files_only`);
-  * 'auto'         - 'transformers' when `$ECHOSCENE_WEIGHTS_DIR` holds a
-                     `clip-vit-base-patch32` snapshot, else 'hash'.
+  * 'auto'         - 'transformers' when the weights registry
+                     (`echoscene_torch.weights`, shared with the JAX
+                     package) holds a `clip-vit-base-patch32` snapshot,
+                     else 'hash'.
 
 All backends return float32 (512,) vectors per phrase and memoise them.
 """
 from __future__ import annotations
 
 import hashlib
-import os
 from typing import Dict, Optional
 
 import numpy as np
 
+from ..weights import clip_text_dir
+
 CLIP_DIM = 512
-CLIP_DIRNAME = "clip-vit-base-patch32"
-
-
-def clip_text_dir() -> Optional[str]:
-    """An installed HuggingFace CLIP snapshot under $ECHOSCENE_WEIGHTS_DIR
-    (the JAX package's weights layout), or None."""
-    root = os.environ.get("ECHOSCENE_WEIGHTS_DIR")
-    if not root:
-        return None
-    d = os.path.join(root, CLIP_DIRNAME)
-    return d if os.path.isfile(os.path.join(d, "config.json")) else None
 
 
 class ClipTextEncoder:

@@ -18,8 +18,13 @@ JAX initialises from PRNGKey(0); `--epoch E` restores the parameters and
 batch-norm statistics of <exp>/checkpoint/model<E> (`restore_for_inference`,
 the training CLI's checkpoints).  The layout and shape samplers of JAX's
 CLI all run (`--layout_sampler ddpm|ddim|dpmpp`, `--shape_sampler
-ddim|dpmpp`).  Not ported yet, and raising NotImplementedError: renders and
-the retrieval / txt2shape render types (the render / retrieval slice),
+ddim|dpmpp`).  `--render_dir R` writes each scene's 256^2 top-down render
+(`R/<scan_id>.png`, the FID generated set) in one of the four render types
+(`--render_type echoscene|onlybox|retrieval|txt2shape`; retrieval reads
+`--mesh_db` cat_jid_trainval.json and the 3D-FUTURE meshes beside it or in
+`--model_dir`, txt2shape reads `--txt2shape_dir <dir>/<label>/*.ply`),
+`--export_glb` a .glb beside each, and manipulated eval an overlay
+`<scan_id>_mani.png`.  Not ported yet, and raising NotImplementedError:
 `--dp_devices > 1` (the multi-GPU slice) and `--sample_dtype int8` (raised
 in SGDiff).
 """
@@ -32,6 +37,7 @@ import os
 import torch
 
 from .evaluator import SceneEvaluator
+from .retrieval import MeshResultsDir, SizeDatabase
 
 
 def evaluate(args):
@@ -40,11 +46,6 @@ def evaluate(args):
     from ..data.sgfront import SGFrontDataset
     from ..models.config import load_config
     from ..models.sgdiff import SGDiff
-
-    if args.render_dir or args.render_type in ("retrieval", "txt2shape"):
-        raise NotImplementedError(
-            "renders and the retrieval / txt2shape render types come with "
-            "the port's render / retrieval slice")
 
     with open(os.path.join(args.exp, "args.json")) as f:
         margs = json.load(f)
@@ -93,13 +94,28 @@ def evaluate(args):
         restore_for_inference(os.path.join(
             args.exp, "checkpoint", f"model{args.epoch}"), sg.module)
 
+    mesh_db = txt2shape_db = None
+    if args.render_type == "retrieval":
+        if not args.mesh_db:
+            raise ValueError("--render_type retrieval requires --mesh_db "
+                             "(cat_jid_trainval[_small].json)")
+        mesh_db = SizeDatabase(args.mesh_db, model_dir=args.model_dir)
+    elif args.render_type == "txt2shape":
+        if not args.txt2shape_dir:
+            raise ValueError("--render_type txt2shape requires "
+                             "--txt2shape_dir (per-category results: "
+                             "<dir>/<label>/*.ply)")
+        txt2shape_db = MeshResultsDir(args.txt2shape_dir)
+
     bin_angle = margs.get("bin_angle", False)
     evaluator = SceneEvaluator(
         sg, spec, ds0.box_stats_msd if bin_angle else ds0.box_stats,
         gen_shape=args.gen_shape, store_path=args.store_path,
         render_dir=args.render_dir, dump_sdfs=args.dump_sdfs,
         eval_batch=args.eval_batch, dp_devices=args.dp_devices,
-        bin_angle=bin_angle, export_3d=args.export_3d)
+        render_type=args.render_type, mesh_db=mesh_db,
+        txt2shape_db=txt2shape_db, bin_angle=bin_angle,
+        export_3d=args.export_3d, export_glb=args.export_glb)
 
     generator = torch.Generator(device=sg.device).manual_seed(47)
     results = {}
@@ -129,12 +145,24 @@ def build_parser():
                    help="save generated SDF grids per scene "
                         "(consistency CLI input)")
     p.add_argument("--render_dir", default=None,
-                   help="save top-down renders (not ported yet)")
+                   help="save top-down renders (FID generated set)")
     p.add_argument("--render_type", default="echoscene",
-                   choices=["echoscene", "retrieval", "onlybox", "txt2shape"])
-    p.add_argument("--mesh_db", default=None)
-    p.add_argument("--model_dir", default=None)
-    p.add_argument("--txt2shape_dir", default=None)
+                   choices=["echoscene", "retrieval", "onlybox", "txt2shape"],
+                   help="echoscene = generated SDF meshes; retrieval = "
+                        "3D-FUTURE meshes by predicted size (helpers/util.py:"
+                        "86-138); onlybox = solid box layout render; "
+                        "txt2shape = pre-generated per-category result "
+                        "meshes fitted to predicted boxes (helpers/util.py:"
+                        "334-374)")
+    p.add_argument("--mesh_db", default=None,
+                   help="cat_jid_trainval[_small].json for --render_type "
+                        "retrieval")
+    p.add_argument("--model_dir", default=None,
+                   help="3D-FUTURE-model directory (default: next to "
+                        "--mesh_db)")
+    p.add_argument("--txt2shape_dir", default=None,
+                   help="results root for --render_type txt2shape "
+                        "(<dir>/<label>/*.ply)")
     p.add_argument("--layout_sampler", default=None,
                    choices=["ddpm", "ddim", "dpmpp"],
                    help="override layout sampler (default: full DDPM chain)")
@@ -157,7 +185,7 @@ def build_parser():
                    help="per-scene JSON dump of generated boxes + shape refs")
     p.add_argument("--export_glb", action="store_true",
                    help="export a .glb scene next to each render "
-                        "(renders are not ported yet)")
+                        "(render_full :313 / render_box :228)")
     p.add_argument("--device", default="cuda",
                    help="device the model samples on (cuda, cuda:N or cpu)")
     return p

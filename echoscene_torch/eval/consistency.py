@@ -10,7 +10,10 @@ more consistent (the shared-initial-noise echo sampling is what it checks).
 
 JAX computes each pair on the host (`native.chamfer_batch`); here every pair
 of a scene goes to the device in one `chamfer_distance` call (kernel K4 on
-CUDA), which is the same function over a batch of pairs.
+CUDA), which is the same function over a batch of pairs.  The CLIP option
+(`clip_encoder`, eval/clip_image.py) also scores the L2 distance between
+the image features of each pair's two rendered shapes
+(consistency_check.py:63-75).
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ import numpy as np
 
 from .. import native
 from .pointcloud_metrics import chamfer_distance
+from .render import render_sdf_grid
 
 
 def pair_chamfer(points_a: np.ndarray, points_b: np.ndarray,
@@ -43,31 +47,41 @@ def consistency_from_sdfs(sdf_by_instance: Dict[int, np.ndarray],
 
     sdf_by_instance: instance id -> (R,R,R[,1]) generated SDF grid.
     groups: lists of instance ids annotated as the same object.
-    clip_encoder: the CLIP image-distance option needs eval/clip_image.py
-    and eval/render.py, which are not ported yet."""
-    if clip_encoder is not None or clip_results is not None:
-        raise NotImplementedError(
-            "the CLIP image distance of the consistency metric needs "
-            "eval/clip_image.py and eval/render.py, not ported yet")
+    clip_encoder: an eval.clip_image.ClipImageEncoder; with it, each pair's
+    (category, CLIP image-feature distance) of the two shapes rendered at
+    224^2 is appended to `clip_results`."""
     clouds: Dict[int, np.ndarray] = {}
+    feats: Dict[int, np.ndarray] = {}
+
+    def grid_of(iid):
+        grid = np.asarray(sdf_by_instance[iid], np.float32)
+        return grid[..., 0] if grid.ndim == 4 else grid
 
     def cloud(iid):
         if iid not in clouds:
-            grid = np.asarray(sdf_by_instance[iid], np.float32)
-            if grid.ndim == 4:
-                grid = grid[..., 0]
             # canonical grid scale: consistency compares raw generated
             # geometry, unit normalisation would hide size differences
-            clouds[iid] = native.sdf_to_point_cloud(grid, n_points, seed=seed,
+            clouds[iid] = native.sdf_to_point_cloud(grid_of(iid), n_points,
+                                                    seed=seed,
                                                     normalize=False)
         return clouds[iid]
+
+    def feat(iid):
+        if iid not in feats:
+            feats[iid] = clip_encoder.encode(
+                render_sdf_grid(grid_of(iid), image_size=224))
+        return feats[iid]
 
     pairs, cats = [], []
     for group in groups:
         members = [g for g in group if g in sdf_by_instance]
         for a, b in itertools.combinations(members, 2):
             pairs.append((cloud(a), cloud(b)))
-            cats.append((category_by_instance or {}).get(a, "all"))
+            cat = (category_by_instance or {}).get(a, "all")
+            cats.append(cat)
+            if clip_encoder is not None and clip_results is not None:
+                clip_results.append(
+                    (cat, float(np.linalg.norm(feat(a) - feat(b)))))
     if not pairs:
         return []
     cds = chamfer_distance(np.stack([p[0] for p in pairs]),

@@ -5,10 +5,15 @@ group-wise with the port's `SGDiff.sample_fn` on its device, scores the
 scene-graph constraint accuracy per scene, dumps each scene's SDFs in the
 JAX `.npz` format (`--dump_sdfs`, the consistency CLI's input) and writes the
 reference report; `write_accuracy_report` keeps the reference line format.
+With `render_dir` it renders each scene top-down at 256^2 (`<scan_id>.png`,
+host code: eval/render.py, eval/retrieval.py, the native rasterizer) in one
+of JAX's four render types (`echoscene` generated SDF meshes, `onlybox`,
+`retrieval` database meshes by size, `txt2shape` result meshes fitted to the
+boxes), optionally a `.glb` beside it, and for manipulated eval an overlay
+`<scan_id>_mani.png` with the changed nodes tinted.
 
 Not ported yet, and raising NotImplementedError: data-parallel generation
-over several cards (`dp_devices > 1`, the multi-GPU slice) and the renders
-(`render_dir`, the render / retrieval slice).
+over several cards (`dp_devices > 1`, the multi-GPU slice).
 """
 from __future__ import annotations
 
@@ -20,12 +25,15 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from .. import native
 from ..core.boxes import (bin_angles_to_degrees, descale_box_params,
                           destandardize_box_params)
 from ..data.collate import collate_scenes
 from ..models.sgdiff import shape_row_capacity
 from .metrics import (new_accuracy_dict, validate_constrains,
                       validate_constrains_changes)
+from .render import assemble_scene, export_glb, save_png
+from .retrieval import assemble_scene_retrieval, assemble_scene_txt2shape
 
 
 def write_accuracy_report(path: str, named_accs) -> str:
@@ -63,21 +71,24 @@ class SceneEvaluator:
                  store_path: str = "./eval_out",
                  render_dir: Optional[str] = None,
                  dump_sdfs: bool = False, eval_batch: int = 1,
-                 dp_devices: int = 1, bin_angle: bool = False,
-                 export_3d: bool = False):
+                 dp_devices: int = 1, render_type: str = "echoscene",
+                 mesh_db=None, txt2shape_db=None, bin_angle: bool = False,
+                 export_3d: bool = False, export_glb: bool = False):
         if dp_devices > 1:
             raise NotImplementedError(
                 "data-parallel generation (dp_devices > 1) comes with the "
                 "port's multi-GPU slice")
-        if render_dir:
-            raise NotImplementedError(
-                "renders (render_dir) come with the port's render / "
-                "retrieval slice (eval/render.py, eval/retrieval.py)")
         self.sg = sg
         self.spec = spec
         self.stats = stats
         self.gen_shape = gen_shape
         self.store_path = store_path
+        self.render_dir = render_dir
+        self.render_type = render_type    # echoscene|retrieval|onlybox|txt2shape
+        self.mesh_db = mesh_db            # SizeDatabase for 'retrieval'
+        self.txt2shape_db = txt2shape_db  # MeshResultsDir for 'txt2shape'
+        # a .glb scene beside each render (render_full :313 / render_box :228)
+        self.export_glb = export_glb
         self.dump_sdfs = dump_sdfs
         self.eval_batch = eval_batch
         self.bin_angle = bin_angle
@@ -86,6 +97,8 @@ class SceneEvaluator:
         self.export_3d = export_3d
         self.skipped_scenes: List[str] = []
         os.makedirs(store_path, exist_ok=True)
+        if render_dir:
+            os.makedirs(render_dir, exist_ok=True)
 
     # ------------------------------------------------------------------
     def score_scene(self, ds, ex, out_slice: Dict[str, np.ndarray],
@@ -117,6 +130,8 @@ class SceneEvaluator:
                 categories=np.asarray(
                     [ds.vocab["object_idx_to_name"][c].rstrip("\n")
                      for c in ex.objs]))
+        if self.render_dir:
+            self.render(ds, ex, out_slice, boxes6, angles, keep, etype)
         gen_boxes6 = boxes6
         if etype != "none":
             # untouched nodes keep their GT boxes (eval_3dfront.py:191-202)
@@ -155,6 +170,49 @@ class SceneEvaluator:
             with open(os.path.join(d, f"{etype}_{ex.scan_id}.json"),
                       "w") as f:
                 json.dump(rec, f, indent=1)
+
+    def render(self, ds, ex, out_slice, boxes6, angles, keep, etype) -> None:
+        """The scene's top-down render (+ .glb, + manipulation overlay), as
+        JAX's `score_scene` renders (echoscene_tpu/eval/evaluator.py:
+        138-193)."""
+        boxes7 = np.concatenate([boxes6, angles], -1)
+        names = ds.vocab["object_idx_to_name"]
+        shapes = (out_slice["shapes"][..., 0]
+                  if self.gen_shape and out_slice.get("shapes") is not None
+                  else None)
+        mesh_dir = os.path.join(self.render_dir, "object_meshes", ex.scan_id)
+        if self.render_type == "retrieval":
+            # database meshes by predicted size (eval_3dfront.py
+            # --render_type retrieval, the layout-only visualisation)
+            verts, tris, colors = assemble_scene_retrieval(
+                ex.objs, boxes7, names, self.mesh_db, mesh_dir=mesh_dir)
+        elif self.render_type == "txt2shape":
+            # pre-generated per-category result meshes fitted to the boxes
+            # (get_sdfusion_models, helpers/util.py:334-374)
+            verts, tris, colors = assemble_scene_txt2shape(
+                ex.objs, boxes7, names, self.txt2shape_db, mesh_dir=mesh_dir)
+        else:
+            verts, tris, colors = assemble_scene(
+                ex.objs, boxes7, names,
+                shapes if self.render_type != "onlybox" else None)
+        img = native.rasterize_topdown(verts, tris, colors, width=256,
+                                       height=256)
+        save_png(img, os.path.join(self.render_dir, f"{ex.scan_id}.png"))
+        if self.export_glb:
+            export_glb(os.path.join(self.render_dir,
+                                    f"{ex.scan_id}_{self.render_type}.glb"),
+                       verts, tris, colors)
+        if etype != "none":
+            # manipulation overlay: changed nodes (keep == 0) tinted red
+            # (render_box / render_full mani modes,
+            # helpers/visualize_scene.py:156-239); the mesh-source types
+            # overlay boxes
+            sdfs = (shapes if self.render_type == "echoscene" else None)
+            ov, ot, oc = assemble_scene(ex.objs, boxes7, names, sdfs,
+                                        highlight=(keep == 0))
+            save_png(native.rasterize_topdown(ov, ot, oc, width=256,
+                                              height=256),
+                     os.path.join(self.render_dir, f"{ex.scan_id}_mani.png"))
 
     # ------------------------------------------------------------------
     def sample(self, batch, generator: Optional[torch.Generator],

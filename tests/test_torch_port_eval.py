@@ -180,8 +180,19 @@ def test_consistency_from_sdfs_matches_jax():
     for k in agg:
         assert agg[k] == pytest.approx(jagg[k], rel=RTOL, abs=ATOL)
     assert C.consistency_from_sdfs(sdfs, [[1]], device="cpu") == []
-    with pytest.raises(NotImplementedError):
-        C.consistency_from_sdfs(sdfs, groups, clip_encoder=object())
+    # the CLIP option (pixel proxy): the same pair distances as JAX's
+    from echoscene_tpu.eval.clip_image import ClipImageEncoder as JClip
+    from echoscene_torch.eval.clip_image import ClipImageEncoder as PClip
+    jclip, pclip = [], []
+    J.consistency_from_sdfs(sdfs, groups, cats, n_points=2000,
+                            clip_encoder=JClip("pixel"), clip_results=jclip)
+    C.consistency_from_sdfs(sdfs, groups, cats, n_points=2000,
+                            clip_encoder=PClip("pixel"), clip_results=pclip,
+                            device="cpu")
+    assert [c for c, _ in pclip] == [c for c, _ in jclip] == [
+        c for c, _ in got]
+    np.testing.assert_allclose([v for _, v in pclip], [v for _, v in jclip],
+                               atol=1e-6, rtol=0)
 
 
 # --- native library --------------------------------------------------------
@@ -405,11 +416,20 @@ def test_evaluator_run_groups_and_skips_like_jax(tmp_path, etype):
 
 
 def test_evaluator_raises_on_unported_options(tmp_path):
+    """dp_devices > 1 still raises (the multi-GPU slice); render_dir is
+    ported: the evaluator makes the directory, and the four render types
+    are held to JAX's in tests/test_torch_port_images.py."""
     from echoscene_torch.eval.evaluator import SceneEvaluator
 
-    for kw in (dict(dp_devices=2), dict(render_dir=str(tmp_path / "r"))):
-        with pytest.raises(NotImplementedError):
-            SceneEvaluator(None, None, None, store_path=str(tmp_path), **kw)
+    with pytest.raises(NotImplementedError):
+        SceneEvaluator(None, None, None, store_path=str(tmp_path),
+                       dp_devices=2)
+    ev = SceneEvaluator(None, None, None, store_path=str(tmp_path),
+                        render_dir=str(tmp_path / "r"), render_type="onlybox",
+                        export_glb=True)
+    assert (tmp_path / "r").is_dir()
+    assert (ev.render_dir, ev.render_type, ev.export_glb) == (
+        str(tmp_path / "r"), "onlybox", True)
 
 
 # --- the eval CLI end to end, then the metric CLIs -------------------------
@@ -520,15 +540,47 @@ def test_eval_cli_end_to_end_cpu(eval_run):
         assert (store / "export_3d" / f"none_{ex.scan_id}.json").exists()
 
 
-def test_eval_cli_raises_on_unported_options(eval_run):
+def test_eval_cli_raises_on_unported_options(eval_run, tmp_path):
+    """--dp_devices 2 and --sample_dtype int8 still raise; --render_dir
+    and the render types run: a 256^2 render and a .glb per scene, with
+    retrieval reading a size table and its OBJ meshes."""
+    from PIL import Image
     from echoscene_torch.eval import cli
+    from echoscene_torch.eval.render import box_mesh, export_obj
 
-    _, _, _, argv, _ = eval_run
-    for extra in (["--dp_devices", "2"],
-                  ["--render_dir", "x"], ["--render_type", "retrieval"],
-                  ["--sample_dtype", "int8"]):
+    base, _, _, argv, _ = eval_run
+    for extra in (["--dp_devices", "2"], ["--sample_dtype", "int8"]):
         with pytest.raises(NotImplementedError):
             cli.main(argv + extra)
+    with pytest.raises(ValueError, match="--mesh_db"):
+        cli.main(argv + ["--render_type", "retrieval"])
+    names = {n.strip() for n in open(os.path.join(
+        str(base / "data"), "classes_bedroom.txt"))}
+    table = {n: {f"{n}-0": [0.5, 0.6, 0.5]} for n in names}
+    for n in names:
+        os.makedirs(tmp_path / "3D-FUTURE-model" / f"{n}-0")
+        export_obj(str(tmp_path / "3D-FUTURE-model" / f"{n}-0" /
+                       "raw_model.obj"),
+                   *box_mesh([0.5, 0.6, 0.5, 0, 0, 0, 0]))
+    (tmp_path / "cat.json").write_text(json.dumps(table))
+    i = argv.index("--store_path")
+    fast = (argv[:i + 1] + [str(tmp_path / "s")] + argv[i + 2:]
+            + ["--layout_sampler", "dpmpp", "--layout_steps", "3",
+               "--shape_sampler", "dpmpp", "--shape_steps", "2",
+               "--export_glb"])
+    for rt, extra in (("echoscene", []),
+                      ("retrieval", ["--mesh_db", str(tmp_path / "cat.json")])):
+        out = tmp_path / rt
+        cli.main(fast + ["--render_dir", str(out), "--render_type", rt]
+                 + extra)
+        pngs = sorted(f for f in os.listdir(out) if f.endswith(".png"))
+        glbs = [f for f in os.listdir(out) if f.endswith(f"_{rt}.glb")]
+        assert len(pngs) == len(glbs) == 2
+        for f in pngs:
+            img = np.asarray(Image.open(out / f).convert("RGB"))
+            assert img.shape == (256, 256, 3)
+            assert len(np.unique(img.reshape(-1, 3), axis=0)) > 2
+    assert os.listdir(tmp_path / "retrieval" / "object_meshes")
 
 
 def test_eval_cli_fast_samplers_cpu(eval_run, tmp_path):
