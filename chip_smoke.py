@@ -155,7 +155,23 @@ result line):
      error <= 1e-4 of the peak); `eval.fid_cli` over the onlybox renders
      against the GT renders (finite FID and KID, n_real / n_fake equal to
      the file counts); the feature throughput at batch 64 of 299^2, its
-     peak memory, and the wall seconds of each part.
+     peak memory, and the wall seconds of each part;
+ 11. drive data parallelism on the one card: (a) the dp step and the
+     ZeRO-1 step at full width over one rank of an NCCL group on phase 7's
+     batch and draws, each from the same state as a single-device step
+     under deterministic algorithms (dp parameters bit-equal, ZeRO-1
+     within 1e-6; K1 = 10, K2 = 1 a step; ms per step, peak memory, the
+     flat ZeRO-1 update against the per-tensor AdamW on the card's clock,
+     the flat buffers' bytes); (b) the tiny config over 2 gloo ranks
+     sharing cuda:0 (collectives through host memory): a dp step and
+     ZeRO-1 at grad_accum 2 against the same ranks on the CPU (phase 3's
+     limits on the loss and the first moments) and a ZeRO-1 resume
+     between micro-steps bit-equal to the uninterrupted run; (c) the
+     service over ["cuda:0", "cuda:0"] at DPM++ 50 / 20: 16 requests in
+     one call bit-equal to a single-device service's, K1 = 100 and K2 = 6
+     a shard a call, 8 concurrent clients' p50 / p95 and requests/sec
+     beside phase 8's; (d) `python -m echoscene_torch.parallel.dryrun
+     --n 1` on NCCL.
 
 Prints the total seconds, the `kernels` JSON line (K1 / K2 in bf16 and in
 f32, each entry with its dtype; K1 / K2 also carry their training launches,
@@ -164,8 +180,11 @@ are phase 8's f32 request; the f32 K2 entry also carries its VQ-VAE
 launches; `stream_attention_f32_train` is K2 f32 forward + plain backward
 at the VQ-VAE site, its launches phase 9's 3 f32 steps; every entry's
 `image_metrics_launches` is its wrapper's count over the whole of phase 10,
-the counts set to 0 at the phase's start and read at its end), the card's
-name and power limit
+the counts set to 0 at the phase's start and read at its end; K1 / K2
+bf16 also carry phase 11's launches per rank and train step, dp and
+ZeRO-1, and per shard and serving call; K4's `dp_launches` is its count
+over the whole of phase 11, set to 0 at the phase's start and read at its
+end), the card's name and power limit
 (nvidia-smi), and as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Needs one card; exits 2 without CUDA or without the repository beside it.
@@ -189,6 +208,10 @@ GRAD_RTOL = 1e-6             # kernel Function's dq, dk, dv vs plain autograd
 LOSS_RTOL = 1e-5             # tiny training step, card vs CPU
 GRAD_LEAF_RTOL = 1e-3        # ... each gradient leaf, of its part's peak
 PARAM_ATOL = 1e-6            # ... parameters after AdamW on the same grads
+# a ReLU input whose sign differs between the card and the CPU, as a share
+# of its call's peak |input|: f32 rounding accumulated over the layers
+# before it (phase 11 b)
+RELU_MARGIN = 1e-4
 # K1 / K2 in phase 7's training step: the shape UNet's self-attention at
 # diffusion_bs 8 rows, the frozen VQ encoder's mid attention on 8 SDFs
 TRAIN_K1_SHAPE = (8, 1024, 8, 56)
@@ -2274,6 +2297,422 @@ def image_path(sg, card: str) -> dict:
     return out
 
 
+def dp_train_path(sg, card: str) -> dict:
+    """Phase 11 (a): the dp step and the ZeRO-1 step at full width on the
+    phase-4 model over one rank of an NCCL group, phase 7's batch and
+    draws, each from the same state as a single-device `train_step` (under
+    deterministic cuDNN / torch algorithms): the dp step's parameters and
+    batch-norm statistics bit-equal to the single step's, ZeRO-1's within
+    PARAM_ATOL; K1 = 10 and K2 = 1 a step, counted; ms per step (one warm
+    and 3 timed each), peak memory; the flat ZeRO-1 update alone against
+    the per-tensor AdamW, on the card's clock."""
+    import torch
+    from echoscene_torch.benchmarks import synthetic_batch
+    from echoscene_torch.kernels import flash_attention as fa
+    from echoscene_torch.models.sgdiff import trainable_parameters
+    from echoscene_torch.parallel import mesh
+    from echoscene_torch.parallel.dp import dp_train_step
+    from echoscene_torch.parallel.zero import (flat_length, init_zero1_state,
+                                               zero1_train_step,
+                                               zero1_update_shard)
+
+    batch = synthetic_batch(8, 48, 112, seed=0, diffusion_bs=8,
+                            sdf_res=64).to("cuda")
+    start = {n: t.detach().cpu().clone()
+             for n, t in sg.module.state_dict().items()}
+    named = trainable_parameters(sg.module)
+    n, n_pad = flat_length(sg.module, 1)
+    gen = lambda: torch.Generator(device="cuda").manual_seed(41)
+    steps = {
+        "single": (sg.init_train_state,
+                   lambda st: sg.train_step(st, batch, gen())),
+        "dp": (sg.init_train_state,
+               lambda st: dp_train_step(sg, st, batch, gen())),
+        "zero1": (lambda: init_zero1_state(sg, sg.init_train_state()),
+                  lambda st: zero1_train_step(sg, st, batch, gen()))}
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark,
+             torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled())
+    runs, after = {}, {}
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        mesh.init_process_group(0, 1, "nccl", os.path.join(tmp, "rendezvous"))
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            for name, (make, step) in steps.items():
+                sg.module.load_state_dict(start)
+                state = make()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                fa.reset_launches()
+                metrics = step(state)
+                torch.cuda.synchronize()
+                launches = dict(fa.LAUNCHES)
+                peak = torch.cuda.max_memory_allocated()
+                after[name] = {k: v.detach().cpu().clone() for k, v in
+                               sg.module.state_dict().items()}
+                if launches != {"onepass_attention": 10,
+                                "stream_attention": 1}:
+                    fail(f"the {name} step launched {launches}, want K1 10 "
+                         "and K2 1")
+                if not math.isfinite(float(metrics["loss"])):
+                    fail(f"the {name} step's loss is not finite")
+                walls = []
+                for _ in range(3):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    step(state)
+                    torch.cuda.synchronize()
+                    walls.append((time.perf_counter() - t0) * 1e3)
+                runs[name] = {"loss": float(metrics["loss"]),
+                              "launches": launches, "peak_gib": peak / 2**30,
+                              "ms": sorted(walls)[1], "ms_all": walls}
+                if name == "zero1":
+                    z = state.optimizer
+                    p_shard = torch.cat([p.detach().reshape(-1)
+                                         for _, p in named])
+                    g = torch.randn_like(p_shard) * 1e-3
+                    update_ms = cuda_ms(lambda: zero1_update_shard(
+                        g, p_shard, z.mu, z.nu, z.count, z.train_mask,
+                        z.clip_mask, lambda c: 1e-4), 3, 1)
+                    del p_shard, g
+                if name == "single":
+                    grads = [torch.full_like(p, 1e-3) for _, p in named]
+                    adamw_ms = cuda_ms(lambda: sg.apply_gradients(
+                        state, grads), 3, 1)
+                    del grads
+                del state
+        finally:
+            mesh.destroy_process_group()
+            torch.backends.cudnn.deterministic = flags[0]
+            torch.backends.cudnn.benchmark = flags[1]
+            torch.use_deterministic_algorithms(flags[2], warn_only=flags[3])
+            sg.module.load_state_dict(start)
+    del start
+    keys = [k for k in after["single"]
+            if not k.startswith("vqvae.")]
+    dp_equal = [k for k in keys
+                if not torch.equal(after["dp"][k], after["single"][k])]
+    dp_diff = max((after["dp"][k].float() - after["single"][k].float()
+                   ).abs().max().item() for k in keys)
+    z_diff = max((after["zero1"][k].float() - after["single"][k].float()
+                  ).abs().max().item() for k in keys)
+    del after
+    if dp_equal:
+        fail(f"the dp step over one rank differs from the single-device "
+             f"step in {len(dp_equal)} tensors (max {dp_diff:.3e}), e.g. "
+             f"{dp_equal[:4]}")
+    if not z_diff <= PARAM_ATOL:
+        fail(f"the ZeRO-1 step differs from the AdamW step by {z_diff:.3e} "
+             f"(limit {PARAM_ATOL})")
+    bytes_ = {"dp_bucket_gb": 4 * n / 1e9,
+              "zero1_flat_grad_and_shard_gb": 8 * n_pad / 1e9,
+              "zero1_param_slice_and_gather_gb": 8 * n_pad / 1e9,
+              "zero1_masks_gb": 2 * n_pad / 1e9,
+              "moments_gb": 8 * n / 1e9}
+    print(f"dp over one NCCL rank, full width (phase 7's batch, bf16, "
+          f"remat, {n} trainable parameters): single step "
+          f"{runs['single']['ms']:.3f} ms, dp {runs['dp']['ms']:.3f} ms, "
+          f"ZeRO-1 {runs['zero1']['ms']:.3f} ms (medians of 3); peak memory "
+          f"{runs['single']['peak_gib']:.2f} / {runs['dp']['peak_gib']:.2f} "
+          f"/ {runs['zero1']['peak_gib']:.2f} GiB; dp parameters bit-equal "
+          f"to the single step's, ZeRO-1 within {z_diff:.3e}; flat ZeRO-1 "
+          f"update {update_ms:.3f} ms against the per-tensor AdamW "
+          f"{adamw_ms:.3f} ms (card clock); buffers {json.dumps(bytes_)}; "
+          f"launches a step {json.dumps(runs['dp']['launches'])} [{card}]")
+    return {"runs": runs, "zero1_param_max_diff": z_diff,
+            "dp_param_max_diff": dp_diff, "zero1_update_ms": update_ms,
+            "adamw_ms": adamw_ms, "trainable": n, "buffers": bytes_}
+
+
+def dp_tiny_gloo(card: str) -> dict:
+    """Phase 11 (b): the tiny config (layout width 512, as phase 3) over 2
+    gloo ranks sharing cuda:0, every collective through host memory, with
+    draws made on the CPU: a dp step and ZeRO-1 at grad_accum 2 (two calls,
+    a checkpoint saved between them) on SDF batches, which the frozen
+    VQ-VAE encodes on each rank's device (the default training input), and
+    a dp step on batches carrying latents encoded on the CPU (the latent
+    cache's path).  The same ranks on the CPU take the same runs with every
+    ReLU forced down the branch it took on the card
+    (`dryrun.ReluBranches`): on these batches a few ReLU inputs lie within
+    rounding of 0, and a sign that differs by rounding passes that
+    element's gradient on one system and not on the other, which moves the
+    GCN leaves above it past GRAD_LEAF_RTOL.  So: each element whose own
+    sign on the CPU disagrees with the card's branch must lie within
+    RELU_MARGIN of its call's peak, and given the card's branches the
+    losses agree within LOSS_RTOL and the first moments within
+    GRAD_LEAF_RTOL of their part's peak.  The CPU's runs on their own
+    branches are compared too and printed, not held.  A model with other
+    weights resumed from the ZeRO-1 checkpoint ends bit-equal to the
+    uninterrupted run on the card (deterministic algorithms in the
+    ranks)."""
+    import concurrent.futures
+
+    import torch
+    from echoscene_torch.models.config import tiny_config
+    from echoscene_torch.parallel.dryrun import run_job, tiny_job
+
+    cfg = tiny_config()
+    cfg.layout_denoiser.model_channels = 512
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    names = ("dp", "zero1_accum2", "dp_latents")
+    # the jobs are made one after the other (their models' default
+    # initialisation draws from the process's RNG)
+    lat = tiny_job(["cpu", "cpu"], steps=1, cfg=cfg, draws=True,
+                   latents=True)["shards"]
+    jobs = []
+    for where in ("cuda:0", "cpu", "cpu"):
+        job = tiny_job([where, where], steps=2, cfg=cfg, draws=True)
+        sdf = job.pop("shards")
+        job["deterministic"] = True
+        job["runs"] = [
+            {"name": names[0], "mode": "dp", "shards": [r[:1] for r in sdf]},
+            {"name": names[1], "mode": "zero1", "grad_accum": 2,
+             "shards": sdf, "resume_at": 1},
+            {"name": names[2], "mode": "dp", "shards": lat}]
+        jobs.append(job)
+
+    def run(job):
+        with tempfile.TemporaryDirectory(
+                dir=os.path.join(ROOT, "build")) as tmp:
+            job["runs"][1]["ckpt_dir"] = tmp
+            return run_job(job, "gloo")
+
+    # the card's ranks (recording their branches) and the CPU's on their
+    # own branches run at once; then the CPU's on the card's branches
+    t0 = time.perf_counter()
+    jobs[0]["relu"] = "record"
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        card_res, own_res = pool.map(run, (jobs[0], jobs[2]))
+    jobs[1]["relu"] = {n: card_res[n]["relu_masks"] for n in names}
+    cpu_res = run(jobs[1])
+    seconds = time.perf_counter() - t0
+    part = lambda name: name.split(".")[0]
+
+    def against(a, b):
+        """(loss rel err, the largest first-moment error as a share of its
+        part's peak, the leaves off by more than GRAD_LEAF_RTOL of it)."""
+        rel = max(abs(x["loss"] - y["loss"]) / abs(y["loss"])
+                  for x, y in zip(a["metrics"], b["metrics"]))
+        peak = {}
+        for name, (mu, _) in b["moments"].items():
+            peak[part(name)] = max(peak.get(part(name), 0.0),
+                                   mu.abs().max().item())
+        errs = {name: (a["moments"][name][0] - mu).abs().max().item()
+                for name, (mu, _) in b["moments"].items()}
+        bad = [name for name, e in errs.items()
+               if not e <= GRAD_LEAF_RTOL * peak[part(name)] + 1e-8]
+        of_part = max(e / peak[part(name)] for name, e in errs.items()
+                      if peak[part(name)] > 0)
+        return rel, of_part, bad
+
+    worst, own = {}, {}
+    for run_name in names:
+        rel, of_part, bad = against(card_res[run_name], cpu_res[run_name])
+        flips = cpu_res[run_name]["relu_flips"]
+        margin = cpu_res[run_name]["relu_margin"]
+        if not (rel <= LOSS_RTOL and not bad and margin <= RELU_MARGIN):
+            fail(f"dp run {run_name}, 2 gloo ranks on cuda:0 vs the CPU on "
+                 f"the card's ReLU branches: loss rel err {rel:.3e} (limit "
+                 f"{LOSS_RTOL}); first moments off by more than "
+                 f"{GRAD_LEAF_RTOL} of their part's peak: {bad[:6]}; "
+                 f"{flips} ReLU inputs on the other side of 0, the largest "
+                 f"{margin:.3e} of its call's peak (limit {RELU_MARGIN})")
+        worst[run_name] = {"loss_rel_err": rel,
+                           "moment_err_of_part_peak": of_part,
+                           "relu_flips": flips, "relu_margin": margin}
+        rel, of_part, bad = against(card_res[run_name], own_res[run_name])
+        own[run_name] = {"loss_rel_err": rel,
+                         "moment_err_of_part_peak": of_part,
+                         "leaves_past_limit": len(bad)}
+    r = card_res["zero1_accum2"]
+    same = all(torch.equal(r["resumed"]["params"][k], v)
+               for k, v in r["params"].items())
+    if not same:
+        diff = max((r["resumed"]["params"][k] - v).abs().max().item()
+                   for k, v in r["params"].items())
+        fail(f"the ZeRO-1 resume on the card differs from the "
+             f"uninterrupted run by {diff:.3e}")
+    hops = card_res["host_hops"]
+    if not hops:
+        fail("gloo on cuda:0 ran no collective through host memory")
+    print(f"dp over 2 gloo ranks sharing cuda:0 (tiny config): dp and "
+          f"ZeRO-1 at grad_accum 2 on SDF batches, dp on CPU latents, "
+          f"against the CPU ranks on the card's ReLU branches "
+          f"{json.dumps(worst)}; against the CPU ranks on their own "
+          f"branches (not held) {json.dumps(own)}; the ZeRO-1 resume "
+          f"between micro-steps bit-equal; collectives through host memory "
+          f"on rank 0 {json.dumps(hops)}; {seconds:.1f} s for the three "
+          f"runs (spawn included) [{card}]")
+    return {"against_cpu": worst, "against_cpu_own_branches": own,
+            "resume_bit_equal": same, "host_hops_rank0": hops,
+            "seconds": seconds}
+
+
+def dp_serve_path(sg, card: str, phase8: dict) -> dict:
+    """Phase 11 (c): the service on ["cuda:0", "cuda:0"] at DPM++ 50 / 20
+    (phase 8's vocabulary, bucket and request stream, rows pinned at 48):
+    warmup of both devices' replica, 16 requests in one call bit-equal to
+    a single-device seed-0 service's (each group draws the seed of its
+    single-device dispatch), K1 = 100 and K2 = 6 a shard (the counts
+    under the wrappers' lock), then 8 concurrent clients through the
+    MicroBatcher, which takes up to one bucket a device in a call (a call
+    runs one shard a group, none padded): p50 / p95 and requests/sec
+    beside phase 8's."""
+    import numpy as np
+    import torch
+    from echoscene_torch.benchmarks import concurrent_latency
+    from echoscene_torch.data.clip_text import ClipTextEncoder
+    from echoscene_torch.data.collate import CollateSpec
+    from echoscene_torch.data.fake import make_fake_dataset
+    from echoscene_torch.data.sgfront import SGFrontDataset
+    from echoscene_torch.kernels import flash_attention as fa
+    from echoscene_torch.serve.service import GenerationService
+
+    clip = ClipTextEncoder("hash")
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        root = make_fake_dataset(os.path.join(tmp, "data"), num_scenes=8,
+                                 min_objs=3, max_objs=6, with_sdf=False,
+                                 seed=0)
+        ds = SGFrontDataset(root, split="test", shuffle_objs=False,
+                            use_sdf=False, with_changes=False, clip=clip,
+                            seed=47)
+    spec = CollateSpec(max_nodes=48, max_triples=160, max_scenes=8,
+                       diffusion_bs=48, with_sdf=False)
+    cfg = sg.cfg
+    cfg.layout_diffusion.sampler, cfg.layout_diffusion.sample_steps = (
+        "dpmpp", 50)
+    cfg.shape_branch.sampler, cfg.shape_branch.ddim_steps = "dpmpp", 20
+    cfg.sample_dtype = "bfloat16"
+    sg.layout_fast_tables["dpmpp"] = sg.layout_diff.make_dpmpp_tables(50)
+    sg.ddim_tables = sg.shape_diff.make_dpmpp_tables(20)
+    names = [n for n in ds.classes if n != "_scene_"]
+    preds = list(ds.rel_dict)
+    rng = np.random.default_rng(8)
+
+    def request(rid):
+        k = int(rng.integers(3, 7))
+        pairs = [(s, o) for s in range(k) for o in range(k) if s != o]
+        pick = rng.choice(len(pairs), int(rng.integers(2, 5)), replace=False)
+        return {"id": rid,
+                "objects": [names[int(i)] for i in rng.integers(0, len(names),
+                                                                k)],
+                "triples": [[pairs[i][0], preds[int(rng.integers(len(preds)))],
+                             pairs[i][1]] for i in pick]}
+    reqs = [request(f"s{i}") for i in range(16)]
+
+    def service(**kw):
+        return GenerationService(sg, spec, ds.box_stats, ds.classes,
+                                 ds.rel_dict, clip=clip, gen_shape=True,
+                                 seed=0, result_format="arrays",
+                                 row_buckets=(48,), **kw)
+    t0 = time.perf_counter()
+    dp = service(devices=["cuda:0", "cuda:0"])
+    n_warm = dp.warmup(verbose=False)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    calls = []
+    sample_dp = dp._sample_dp
+
+    def counted_sample_dp(batches, manip):
+        calls.append(len(batches))
+        return sample_dp(batches, manip)
+    dp._sample_dp = counted_sample_dp
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    got = dp.generate(reqs)
+    torch.cuda.synchronize()
+    one_call_s = time.perf_counter() - t0
+    launches = dict(fa.LAUNCHES)
+    one_call_groups = list(calls)
+    shards = sum(calls)
+    want = {"onepass_attention": 5 * 20 * shards,
+            "stream_attention": 6 * shards}
+    if launches != want:
+        fail(f"the dp service's {len(calls)} calls ({calls} groups) "
+             f"launched {launches}, want {want} (K1 = 100, K2 = 6 a shard)")
+    t0 = time.perf_counter()
+    ref = service().generate(reqs)
+    single_s = time.perf_counter() - t0
+    for a, b in zip(got, ref):
+        if a["id"] != b["id"] or not all(
+                np.array_equal(np.asarray(a[f]), np.asarray(b[f]))
+                for f in ("sizes", "translations", "angles", "sdfs")):
+            fail(f"the dp service's result {a['id']} differs from the "
+                 "single-device service's")
+    calls.clear()
+    fa.reset_launches()
+    stream = concurrent_latency(dp, reqs, 10.0, 8)
+    torch.cuda.synchronize()
+    if sorted(stream["results"]) != list(range(len(reqs))):
+        fail("the dp service's concurrent stream lost requests")
+    stream_launches = dict(fa.LAUNCHES)
+    if stream_launches["onepass_attention"] != 100 * sum(calls):
+        fail(f"the dp stream launched {stream_launches} over {len(calls)} "
+             f"calls of {sum(calls)} shards, want K1 = 100 a shard")
+    lat = np.asarray(stream["latencies_s"])
+    res = {"warmup_s": warm_s, "variants": n_warm,
+           "one_call_s": one_call_s, "one_call_groups": one_call_groups,
+           "single_device_s": single_s, "launches": launches,
+           "shards": shards,
+           "latency_p50_s": float(np.percentile(lat, 50)),
+           "latency_p95_s": float(np.percentile(lat, 95)),
+           "req_per_sec": stream["req_per_sec"],
+           "stream_calls": len(calls), "stream_shards": sum(calls),
+           "stream_launches": stream_launches}
+    print(f"dp service on [cuda:0, cuda:0] (DPM++ 50 / 20, rows 48): "
+          f"warmup {warm_s:.3f} s; 16 requests in one call {one_call_s:.3f} "
+          f"s over {shards} shards, bit-equal to a single-device service "
+          f"({single_s:.3f} s); launches {json.dumps(launches)}; 8 clients: "
+          f"p50 {res['latency_p50_s']:.3f} s, p95 {res['latency_p95_s']:.3f}"
+          f" s, {res['req_per_sec']:.4f} requests/sec over "
+          f"{len(calls)} calls of {sum(calls)} shards (phase 8, one device: "
+          f"p50 "
+          f"{phase8['latency_p50_s']:.3f} s, p95 "
+          f"{phase8['latency_p95_s']:.3f} s, {phase8['req_per_sec']:.4f} "
+          f"requests/sec) [{card}]")
+    return res
+
+
+def dp_dryrun(card: str) -> dict:
+    """Phase 11 (d): `python -m echoscene_torch.parallel.dryrun --n 1` on
+    the card (NCCL), as a user runs it."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m",
+                           "echoscene_torch.parallel.dryrun", "--n", "1"],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=600)
+    seconds = time.perf_counter() - t0
+    lines = [ln for ln in proc.stdout.splitlines()
+             if ln.startswith("[dryrun]")]
+    if proc.returncode != 0:
+        fail(f"parallel.dryrun --n 1 exited {proc.returncode}: "
+             f"{proc.stderr[-2000:]}")
+    for ln in lines:
+        print(f"  {ln}")
+    print(f"parallel.dryrun --n 1 on NCCL: {seconds:.1f} s [{card}]")
+    return {"seconds": seconds, "lines": lines}
+
+
+def dp_path(sg, card: str, phase8: dict) -> dict:
+    """Phase 11: data parallelism on the one card, (a) to (d); K4's count
+    over the whole phase (set to 0 before it, read after it)."""
+    from echoscene_torch.kernels import chamfer as k4
+
+    t0 = time.perf_counter()
+    k4.reset_launches()
+    out = {"train": dp_train_path(sg, card)}
+    out["gloo"] = dp_tiny_gloo(card)
+    out["serve"] = dp_serve_path(sg, card, phase8)
+    out["dryrun"] = dp_dryrun(card)
+    out["k4_launches"] = k4.LAUNCHES["nn_distance"]
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     global T_START
     T_START = time.perf_counter()
@@ -2589,6 +3028,20 @@ def main() -> int:
           f"renders")
     print(f"image details: {json.dumps(im)}; phase 10 took "
           f"{time.perf_counter() - t0:.1f} s")
+    # 11. data parallelism on the one card: the dp and ZeRO-1 steps at full
+    # width over one NCCL rank, tiny ranks on gloo sharing the card, the
+    # service over two shards of the card, the dry run
+    dp = dp_path(sg, card, sv)
+    for e in entries[:2]:
+        e["dp_train_launches_per_rank_step"] = dp["train"]["runs"]["dp"][
+            "launches"][e["name"]]
+        e["zero1_train_launches_per_rank_step"] = dp["train"]["runs"][
+            "zero1"]["launches"][e["name"]]
+        e["dp_serve_launches_per_shard_call"] = dp["serve"]["launches"][
+            e["name"]] // dp["serve"]["shards"]
+    entries[2]["dp_launches"] = dp["k4_launches"]
+    print(f"dp details: {json.dumps(dp)}; phase 11 took "
+          f"{dp['phase_s']:.1f} s")
     entries[2:2] = f32_entries + [k2_train]
     for e in entries:
         e["status"] = "ported: built, matches its plain version, on the path"

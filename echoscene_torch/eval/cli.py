@@ -24,9 +24,10 @@ ddim|dpmpp`).  `--render_dir R` writes each scene's 256^2 top-down render
 `--mesh_db` cat_jid_trainval.json and the 3D-FUTURE meshes beside it or in
 `--model_dir`, txt2shape reads `--txt2shape_dir <dir>/<label>/*.ply`),
 `--export_glb` a .glb beside each, and manipulated eval an overlay
-`<scan_id>_mani.png`.  Not ported yet, and raising NotImplementedError:
-`--dp_devices > 1` (the multi-GPU slice) and `--sample_dtype int8` (raised
-in SGDiff).
+`<scan_id>_mani.png`.  `--dp_devices N` generates N groups at a time on
+`cuda:0 .. cuda:N-1` (parallel/dp.py `DPSampler`, one thread and stream a
+card) and raises when fewer cards are visible.  Not ported yet, and raising
+NotImplementedError: `--sample_dtype int8` (raised in SGDiff).
 """
 from __future__ import annotations
 
@@ -174,7 +175,8 @@ def build_parser():
     p.add_argument("--shape_steps", type=int, default=0,
                    help="override shape sampler step count")
     p.add_argument("--dp_devices", type=int, default=1,
-                   help="shard generation over this many cards (not ported)")
+                   help="generate this many groups at a time, one a card "
+                        "(cuda:0 .. N-1)")
     p.add_argument("--sample_dtype", default=None,
                    choices=["float32", "bfloat16", "int8"],
                    help="override sampling precision")

@@ -12,8 +12,12 @@ of JAX's four render types (`echoscene` generated SDF meshes, `onlybox`,
 boxes), optionally a `.glb` beside it, and for manipulated eval an overlay
 `<scan_id>_mani.png` with the changed nodes tinted.
 
-Not ported yet, and raising NotImplementedError: data-parallel generation
-over several cards (`dp_devices > 1`, the multi-GPU slice).
+With `dp_devices` N > 1 (or an explicit `devices` list, which may repeat a
+device) groups are generated N at a time by `parallel.dp.DPSampler`, one
+group a device, concurrently (JAX's dp groups, evaluator.py:259-340); the
+last call runs only the groups left (JAX pads it with repeats, which its
+shard_map needs), and each call's generators, one a group, are drawn from
+the run's generator in group order.
 """
 from __future__ import annotations
 
@@ -73,12 +77,15 @@ class SceneEvaluator:
                  dump_sdfs: bool = False, eval_batch: int = 1,
                  dp_devices: int = 1, render_type: str = "echoscene",
                  mesh_db=None, txt2shape_db=None, bin_angle: bool = False,
-                 export_3d: bool = False, export_glb: bool = False):
-        if dp_devices > 1:
-            raise NotImplementedError(
-                "data-parallel generation (dp_devices > 1) comes with the "
-                "port's multi-GPU slice")
+                 export_3d: bool = False, export_glb: bool = False,
+                 devices=None):
         self.sg = sg
+        self.dp_sampler = None
+        if dp_devices > 1 or devices is not None:
+            from ..parallel.dp import DPSampler
+            from ..parallel.mesh import resolve_devices
+            self.dp_sampler = DPSampler(sg, resolve_devices(
+                None if devices is not None else dp_devices, devices))
         self.spec = spec
         self.stats = stats
         self.gen_shape = gen_shape
@@ -236,6 +243,29 @@ class SceneEvaluator:
         n_eval = min(limit or len(ds), len(ds))
         manip = etype != "none"
 
+        def score_group(group, out_np):
+            off = 0
+            for ex_i in group:
+                sl = {k: v[off:off + ex_i.num_nodes] for k, v in out_np.items()}
+                self.score_scene(ds, ex_i, sl, etype, acc, acc_unchanged)
+                off += ex_i.num_nodes
+
+        pending: List = []   # (group, batch) awaiting a dp call
+
+        def flush_dp():
+            if not pending:
+                return
+            batches = [b for _, b in pending]
+            rows = max(shape_row_capacity(b) for b in batches)
+            out = self.dp_sampler(batches,
+                                  self.dp_sampler.generators(generator,
+                                                             len(batches)),
+                                  gen_shape=self.gen_shape,
+                                  with_manipulation=manip, shape_rows=rows)
+            for d, (group, _) in enumerate(pending):
+                score_group(group, {k: v[d] for k, v in out.items()})
+            pending.clear()
+
         # Scenes that don't fit the current group are requeued for the next
         # one (never dropped); scenes over capacity even alone are counted
         # and reported, since the reference scores every scene.
@@ -276,12 +306,13 @@ class SceneEvaluator:
             if batch is None:
                 continue
             scored += len(group)
-            out_np = self.sample(batch, generator, manip)
-            off = 0
-            for ex_i in group:
-                sl = {k: v[off:off + ex_i.num_nodes] for k, v in out_np.items()}
-                self.score_scene(ds, ex_i, sl, etype, acc, acc_unchanged)
-                off += ex_i.num_nodes
+            if self.dp_sampler is None:
+                score_group(group, self.sample(batch, generator, manip))
+                continue
+            pending.append((group, batch))
+            if len(pending) == len(self.dp_sampler.devices):
+                flush_dp()
+        flush_dp()
         report = os.path.join(self.store_path,
                               f"{etype}_accuracy_analysis.txt")
         if etype != "none":

@@ -6,7 +6,9 @@ A source under `echoscene_torch/csrc/` is compiled by `nvcc` for Hopper
 (listed in `.gitignore`), named by a hash of its source, so an edited source
 rebuilds and an unchanged one is reused.  Nothing is built at import time:
 the first wrapper call on a CUDA tensor builds, or `build(source)` does;
-`build_all(sources)` runs one nvcc per source, all at once.
+`build_all(sources)` runs one nvcc per source, all at once.  `load` holds
+a lock, so that threads of one process (the data-parallel sampler's, one a
+device) build and load each library once.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from typing import Dict, Sequence, Tuple
 
@@ -25,6 +28,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _libs: Dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -66,7 +70,7 @@ def build_all(sources: Sequence[str]) -> Dict[str, Tuple[float, str]]:
             if os.path.exists(target):
                 out[source] = (0.0, "")
                 continue
-            tmp = f"{target}.{os.getpid()}.tmp"
+            tmp = f"{target}.{os.getpid()}.{threading.get_ident()}.tmp"
             # nvcc's report is a few KB, well inside the pipe buffer, so it
             # is read after the process ends
             procs[source] = (tmp, target, subprocess.Popen(
@@ -99,8 +103,9 @@ def build_all(sources: Sequence[str]) -> Dict[str, Tuple[float, str]]:
 
 def load(source: str) -> ctypes.CDLL:
     """The loaded library of `source`, built first if needed."""
-    lib = _libs.get(source)
-    if lib is None:
-        build(source)
-        lib = _libs[source] = ctypes.CDLL(_target(source))
-    return lib
+    with _lock:
+        lib = _libs.get(source)
+        if lib is None:
+            build(source)
+            lib = _libs[source] = ctypes.CDLL(_target(source))
+        return lib

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import Dict, NamedTuple, Tuple
 
 import torch
@@ -57,9 +58,10 @@ PEAK_BYTES = 3.35e12            # HBM3
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
-    LAUNCH_SHAPES.clear()
+    with _lock:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+        LAUNCH_SHAPES.clear()
 
 
 def nn_distance_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -193,26 +195,30 @@ def _check(a: torch.Tensor, b: torch.Tensor) -> None:
 
 
 _lib = {}
+# guards _lib and the launch counts against launches from several threads
+_lock = threading.Lock()
 
 
 def _kernel():
     """The library's C function, its ctypes signature bound once, and the
     CTAs of the kernel that fit on one SM."""
-    if not _lib:
-        lib = build.load(SOURCE)
-        if (lib.echoscene_nn_distance_block_n() != BLOCK_N
-                or lib.echoscene_nn_distance_chunk_unit() != CHUNK_UNIT):
-            raise RuntimeError("csrc/chamfer.cu's tile sizes differ from "
-                               "BLOCK_N / CHUNK_UNIT")
-        fn = lib.echoscene_nn_distance
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _lib["fn"] = fn
-        _lib["ctas_per_sm"] = lib.echoscene_nn_distance_ctas_per_sm()
-        if _lib["ctas_per_sm"] < 1:
-            raise RuntimeError("the nn_distance kernel fits no CTA on an SM")
-    return _lib["fn"], _lib["ctas_per_sm"]
+    with _lock:
+        if not _lib:
+            lib = build.load(SOURCE)
+            if (lib.echoscene_nn_distance_block_n() != BLOCK_N
+                    or lib.echoscene_nn_distance_chunk_unit() != CHUNK_UNIT):
+                raise RuntimeError("csrc/chamfer.cu's tile sizes differ from "
+                                   "BLOCK_N / CHUNK_UNIT")
+            fn = lib.echoscene_nn_distance
+            fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [
+                ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            _lib["fn"] = fn
+            _lib["ctas_per_sm"] = lib.echoscene_nn_distance_ctas_per_sm()
+            if _lib["ctas_per_sm"] < 1:
+                raise RuntimeError(
+                    "the nn_distance kernel fits no CTA on an SM")
+        return _lib["fn"], _lib["ctas_per_sm"]
 
 
 @functools.lru_cache(maxsize=None)
@@ -241,9 +247,15 @@ def nn_distance_oneway(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"nn_distance kernel launch failed: CUDA error "
                            f"{err}")
-    LAUNCHES["nn_distance"] += 1
-    LAUNCH_SHAPES[(B, N, M)] = LAUNCH_SHAPES.get((B, N, M), 0) + 1
+    _count(B, N, M)
     return out
+
+
+def _count(B: int, N: int, M: int) -> None:
+    """One launch at (B, N, M), counted under the lock."""
+    with _lock:
+        LAUNCHES["nn_distance"] += 1
+        LAUNCH_SHAPES[(B, N, M)] = LAUNCH_SHAPES.get((B, N, M), 0) + 1
 
 
 def chamfer(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -39,6 +39,7 @@ kernels its main path went through.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -57,6 +58,9 @@ MAX_HEAD_DIM = 256
 TOLERANCES = {torch.bfloat16: (2.0 ** -6, 1e-2),
               torch.float32: (2.0 ** -14, 1e-5)}
 _entries: Dict[Tuple[str, torch.dtype], ctypes._CFuncPtr] = {}
+# guards _entries and the launch counts: the data-parallel sampler launches
+# from one thread a device
+_lock = threading.Lock()
 
 
 # H100 SXM peaks (NVIDIA's data sheet) behind `attention_bound`
@@ -110,9 +114,10 @@ def attention_bound(b: int, l: int, h: int, d: int, s: Optional[int] = None,
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
-    LAUNCHES_BY_DTYPE.clear()
+    with _lock:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+        LAUNCHES_BY_DTYPE.clear()
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -181,19 +186,20 @@ def _entry(entry: str, dtype: torch.dtype):
     """The C function of `entry` for `dtype`, its ctypes signature bound
     once when its library loads: (q, k, v, o, B, H, L, S, D, scale,
     stream), and for f32 a last pointer, the scratch."""
-    fn = _entries.get((entry, dtype))
-    if fn is None:
-        source, suffix = KERNELS[dtype]
-        lib = build.load(source)
-        extra = [ctypes.c_void_p] if dtype == torch.float32 else []
-        for name in LAUNCHES:
-            f = getattr(lib, f"echoscene_{name}{suffix}")
-            f.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
-                ctypes.c_float, ctypes.c_void_p] + extra
-            f.restype = ctypes.c_int
-            _entries[(name, dtype)] = f
-        fn = _entries[(entry, dtype)]
-    return fn
+    with _lock:
+        fn = _entries.get((entry, dtype))
+        if fn is None:
+            source, suffix = KERNELS[dtype]
+            lib = build.load(source)
+            extra = [ctypes.c_void_p] if dtype == torch.float32 else []
+            for name in LAUNCHES:
+                f = getattr(lib, f"echoscene_{name}{suffix}")
+                f.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+                    ctypes.c_float, ctypes.c_void_p] + extra
+                f.restype = ctypes.c_int
+                _entries[(name, dtype)] = f
+            fn = _entries[(entry, dtype)]
+        return fn
 
 
 def _launch(entry: str, q: torch.Tensor, k: torch.Tensor,
@@ -213,10 +219,16 @@ def _launch(entry: str, q: torch.Tensor, k: torch.Tensor,
                  b, h, l, k.shape[1], d, d ** -0.5, stream, *extra)
     if err != 0:
         raise RuntimeError(f"{entry} kernel launch failed: CUDA error {err}")
-    LAUNCHES[entry] += 1
-    key = (entry, str(q.dtype).removeprefix("torch."))
-    LAUNCHES_BY_DTYPE[key] = LAUNCHES_BY_DTYPE.get(key, 0) + 1
+    _count(entry, q.dtype)
     return o
+
+
+def _count(entry: str, dtype: torch.dtype) -> None:
+    """One launch of `entry` in `dtype`, counted under the lock."""
+    key = (entry, str(dtype).removeprefix("torch."))
+    with _lock:
+        LAUNCHES[entry] += 1
+        LAUNCHES_BY_DTYPE[key] = LAUNCHES_BY_DTYPE.get(key, 0) + 1
 
 
 class KernelAttention(torch.autograd.Function):

@@ -139,8 +139,9 @@ def clip_and_sanitize_grads(names: Sequence[str],
 class TrainState:
     """What JAX's TrainState holds beside params and batch stats (which
     live in the module): the step count (train_step calls), the epoch, the
-    AdamW optimizer (its per-parameter step is optax's count), and the
-    running mean of the micro-batch gradients under accumulation
+    AdamW optimizer (its per-parameter step is optax's count; under ZeRO-1
+    a `parallel.zero.Zero1State` in its place, as JAX swaps opt_state), and
+    the running mean of the micro-batch gradients under accumulation
     (optax.MultiSteps' acc_grads; None between optimizer steps)."""
     optimizer: torch.optim.AdamW
     step: int = 0
@@ -296,14 +297,15 @@ class SGDiff:
         metrics.update({"layout_loss": layout_loss, "shape_loss": shape_loss})
         return layout_loss + shape_loss, metrics
 
-    def train_step(self, state: TrainState, batch: SceneBatch,
-                   generator: Optional[torch.Generator] = None,
-                   draws: Optional[Dict[str, torch.Tensor]] = None
-                   ) -> Dict[str, torch.Tensor]:
-        """One call of JAX's train_step: loss and gradients on `batch`, then
-        the optimizer (every `grad_accum` calls, on the running mean of the
-        micro-batch gradients).  Returns the metrics (device tensors),
-        with the loss and the global pre-clip gradient norm."""
+    def loss_and_grads(self, batch: SceneBatch,
+                       generator: Optional[torch.Generator] = None,
+                       draws: Optional[Dict[str, torch.Tensor]] = None
+                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
+                                  List[torch.Tensor]]:
+        """The gradient half of `train_step`: (loss, metrics, gradients
+        aligned with `trainable_parameters`), the parameters' .grad left
+        None.  The data-parallel steps (parallel/dp.py, parallel/zero.py)
+        reduce these gradients across ranks before their optimizer."""
         params = trainable_parameters(self.module)
         for _, p in params:
             p.grad = None
@@ -316,7 +318,18 @@ class SGDiff:
                  for _, p in params]
         for _, p in params:
             p.grad = None
-        metrics["loss"] = loss.detach()
+        return loss.detach(), metrics, grads
+
+    def train_step(self, state: TrainState, batch: SceneBatch,
+                   generator: Optional[torch.Generator] = None,
+                   draws: Optional[Dict[str, torch.Tensor]] = None
+                   ) -> Dict[str, torch.Tensor]:
+        """One call of JAX's train_step: loss and gradients on `batch`, then
+        the optimizer (every `grad_accum` calls, on the running mean of the
+        micro-batch gradients).  Returns the metrics (device tensors),
+        with the loss and the global pre-clip gradient norm."""
+        loss, metrics, grads = self.loss_and_grads(batch, generator, draws)
+        metrics["loss"] = loss
         metrics["grad_norm"] = global_norm(grads)
         self.apply_gradients(state, grads)
         return {k: v.detach() for k, v in metrics.items()}
@@ -356,8 +369,9 @@ class SGDiff:
                   generator: Optional[torch.Generator] = None,
                   gen_shape: bool = True, with_manipulation: bool = False,
                   decode_chunk: int = 8, shape_rows: Optional[int] = None,
-                  noise: Optional[Dict[str, torch.Tensor]] = None
-                  ) -> Dict[str, torch.Tensor]:
+                  noise: Optional[Dict[str, torch.Tensor]] = None,
+                  model: Optional[EchoSceneModule] = None,
+                  device=None) -> Dict[str, torch.Tensor]:
         """Generate layouts (the configured layout chain) and shapes (DDIM
         or DPM-Solver++, then the VQ decode).
 
@@ -372,13 +386,17 @@ class SGDiff:
           "box_steps"  (T, N, 8) per-step layout noise of the DDPM chain,
                        chain order,
           "shape_x_T"  one latent grid broadcast over the rows.
+        model / device: the inference module to run and its device, in
+        place of a fresh `inference_module()` on `self.device` (the
+        data-parallel sampler keeps one such module per device).
         Returns sizes / translations / angles / keep and, with gen_shape,
         shapes (N, 64, 64, 64, 1), the JAX output dict.
         """
         cfg = self.cfg
-        dev = self.device
+        dev = self.device if device is None else torch.device(device)
         noise = noise or {}
-        model = self.inference_module()
+        if model is None:
+            model = self.inference_module()
         n = batch.num_nodes
         if with_manipulation:
             change = noise.get("change")

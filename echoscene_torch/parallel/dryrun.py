@@ -1,0 +1,411 @@
+"""Dry run of the port's data parallelism, and the rank job it runs.
+
+Port of `__graft_entry__.py`'s dryrun_multichip without its tensor-parallel
+part:
+
+    python -m echoscene_torch.parallel.dryrun --n N [--device cpu]
+
+spawns N ranks (gloo on the CPU, NCCL on `cuda:0 .. cuda:N-1`) and, on the
+tiny configuration with seeded weights and synthetic batches, runs one dp
+step, one ZeRO-1 step, a ZeRO-1 checkpoint round trip into a model with
+other weights and one more step on both (the resumed parameters must equal
+the uninterrupted ones bit for bit: on CUDA the ranks run torch's
+deterministic algorithms); then, in this process, one
+`DPSampler` generation over N devices.  Each stage prints its wall time.
+
+`train_job(rank, world, job_path, out_path)` is the function each rank
+runs (spawned children import it from here): it reads a job written with
+torch.save — the config, the starting weights, each rank's device and a
+list of runs, each a mode (dp or zero1), a grad_accum, every rank's
+(batch, draws) per step and optionally a step to save a checkpoint at and
+resume from; with "deterministic", torch's deterministic algorithms; with
+"relu" = "record", the branches every ReLU of each run's model took, or
+with "relu" = {run name: those of every rank}, those branches forced
+(`ReluBranches`) — and rank 0 writes the parameters, batch-norm
+statistics, moments and metrics of every run (with the ReLU masks of
+every rank, and under forcing the flipped elements' count and margin),
+and the collectives gloo ran through host memory, to `out_path`.
+`update_job` drives `zero1_update_shard` alone on a flat vector, as JAX's
+toy-tree harness does.
+"""
+from __future__ import annotations
+
+import argparse
+import copy
+import dataclasses
+import math
+import os
+import tempfile
+import time
+from typing import Dict, List
+
+import torch
+
+from ..models.sgdiff import SGDiff
+from .dp import DPSampler, dp_train_step
+from .mesh import rank_and_world, resolve_devices, spawn
+from .zero import init_zero1_state, zero1_train_step
+
+
+def _model(job: dict, device, seed=None) -> SGDiff:
+    """The job's model on `device`: its weights, or fresh seeded ones."""
+    from ..benchmarks import seeded_weights_
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        sg = SGDiff(copy.deepcopy(job["cfg"]), job["num_objs"],
+                    job["num_preds"], device=device)
+    if seed is None:
+        sg.module.load_state_dict(job["state_dict"], strict=True)
+    else:
+        seeded_weights_(sg.module, seed)
+    return sg
+
+
+def _state(sg: SGDiff, mode: str):
+    state = sg.init_train_state()
+    if mode == "zero1":
+        state = init_zero1_state(sg, state, grad_accum=sg.cfg.grad_accum)
+    return state
+
+
+class ReluBranches:
+    """Records, or forces, the branch every ReLU of `module` takes: without
+    `force`, each call's mask x > 0 is kept in call order (`masks`); with
+    `force` (a list of such masks, in call order), each call takes the
+    given branches (out = x * mask), and `flips` / `margin` count the
+    elements whose own sign disagrees and their largest |x| as a share of
+    the call's peak |x|.  Two systems whose arithmetic differs by rounding
+    send an input within rounding of 0 down different branches, and that
+    element's gradient is then passed by one and not the other; forcing
+    one system's branches on the other compares the rest of the step."""
+
+    def __init__(self, module: torch.nn.Module, force=None):
+        self.masks: List[torch.Tensor] = []
+        self.flips, self.margin = 0, 0.0
+        self._force = None if force is None else list(force)
+        self._hooks = [m.register_forward_hook(self._hook)
+                       for m in module.modules()
+                       if isinstance(m, torch.nn.ReLU)]
+
+    def _hook(self, mod, inp, out):
+        x = inp[0]
+        if self._force is None:
+            self.masks.append((x > 0).cpu())
+            return None
+        if not self._force:
+            raise RuntimeError("more ReLU calls than forced masks")
+        mask = self._force.pop(0).to(x.device)
+        flip = (x > 0) != mask
+        if bool(flip.any()):
+            self.flips += int(flip.sum())
+            peak = x.detach().abs().max().clamp_min(1e-30)
+            self.margin = max(self.margin, float(
+                (x.detach().abs() * flip).max() / peak))
+        self.masks.append(mask.cpu())
+        return x * mask.to(x.dtype)
+
+    def remove(self) -> None:
+        for h in self._hooks:
+            h.remove()
+        if self._force:
+            raise RuntimeError(f"{len(self._force)} forced ReLU masks left "
+                               "unused")
+
+
+def _steps(sg, state, mode, shards, device, first: int = 0
+           ) -> List[Dict[str, float]]:
+    """Steps `first`, `first` + 1, ... of this rank's shards; a step without
+    draws takes them from a generator seeded by the rank and the step."""
+    step = zero1_train_step if mode == "zero1" else dp_train_step
+    rank = rank_and_world()[0]
+    out = []
+    for i, (batch, draws) in enumerate(shards, first):
+        gen = torch.Generator(device).manual_seed(1000 * rank + i)
+        draws = None if draws is None else {k: v.to(device)
+                                            for k, v in draws.items()}
+        t0 = time.perf_counter()
+        m = step(sg, state, batch.to(device), gen, draws)
+        m = {k: float(v) for k, v in m.items()}
+        m["wall_s"] = time.perf_counter() - t0
+        out.append(m)
+    return out
+
+
+def _snapshot(sg: SGDiff, state) -> dict:
+    """Host copies of the parameters, buffers and AdamW moments by
+    parameter name (a ZeRO-1 state's gathered to rank 0, and None on the
+    other ranks: every rank calls this)."""
+    from ..models.sgdiff import trainable_parameters
+    from .zero import Zero1State, gather_state
+
+    out = {"params": {n: p.detach().cpu().clone()
+                      for n, p in sg.module.named_parameters()},
+           "buffers": {n: b.detach().cpu().clone()
+                       for n, b in sg.module.named_buffers()}}
+    named = trainable_parameters(sg.module)
+    if isinstance(state.optimizer, Zero1State):
+        full = gather_state(state.optimizer)
+        if full["mu"] is None:
+            out["moments"] = None
+            return out
+        out["moments"], off = {}, 0
+        for n, p in named:
+            k = p.numel()
+            out["moments"][n] = tuple(full[m][off:off + k].view(p.shape)
+                                      for m in ("mu", "nu"))
+            off += k
+    else:
+        opt = state.optimizer.state
+        out["moments"] = {n: (opt[p]["exp_avg"].cpu(),
+                              opt[p]["exp_avg_sq"].cpu())
+                          for n, p in named if p in opt}
+    return out
+
+
+def train_job(rank: int, world: int, job_path: str, out_path: str) -> None:
+    """Run a job's training runs on this rank (see the module docstring)."""
+    from ..train.checkpoint import restore_checkpoint, save_checkpoint
+
+    from . import mesh
+
+    job = torch.load(job_path, weights_only=False)
+    device = torch.device(job["devices"][rank])
+    if job.get("deterministic"):
+        # before the first cuBLAS call of this process
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        torch.use_deterministic_algorithms(True, warn_only=True)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    relu = job.get("relu")
+    results = {}
+    for run in job["runs"]:
+        job["cfg"].grad_accum = int(run.get("grad_accum", 1))
+        mode, shards = run["mode"], run["shards"][rank]
+        sg = _model(job, device)
+        state = _state(sg, mode)
+        branches = None
+        if relu is not None:
+            forced = relu.get(run["name"]) if isinstance(relu, dict) else None
+            branches = ReluBranches(sg.module,
+                                    None if forced is None else forced[rank])
+        at = run.get("resume_at")
+        t0 = time.perf_counter()
+        metrics = _steps(sg, state, mode, shards[:at], device)
+        res = {"first_s": time.perf_counter() - t0}
+        if at is not None:
+            ckpt = os.path.join(run["ckpt_dir"], "model")
+            t0 = time.perf_counter()
+            save_checkpoint(ckpt, sg, state)
+            res["save_s"] = time.perf_counter() - t0
+            res["saved"] = _snapshot(sg, state)
+            metrics += _steps(sg, state, mode, shards[at:], device, at)
+            if branches is not None:   # the main model's steps are done
+                branches.remove()
+                _gather_branches(branches, res)
+                branches = None
+            # a model with other weights, restored, takes the same steps
+            other = _model(job, device, seed=job.get("other_seed", 1))
+            t0 = time.perf_counter()
+            other_state = restore_checkpoint(ckpt, other,
+                                             _state(other, mode))
+            res["restore_s"] = time.perf_counter() - t0
+            res["resumed_metrics"] = _steps(other, other_state, mode,
+                                            shards[at:], device, at)
+            res["resumed"] = _snapshot(other, other_state)
+            res["resumed_step"] = other_state.step
+        if branches is not None:
+            branches.remove()
+            _gather_branches(branches, res)
+        res.update(_snapshot(sg, state), metrics=metrics, step=state.step)
+        results[run["name"]] = res
+    results["host_hops"] = dict(mesh.HOST_HOPS)
+    if rank_and_world()[0] == 0:
+        torch.save(results, out_path)
+
+
+def _gather_branches(branches: ReluBranches, res: dict) -> None:
+    """Every rank's ReLU masks, flips and margin into rank 0's `res`
+    ("relu_masks" by rank, "relu_flips" summed, "relu_margin" the
+    largest)."""
+    import torch.distributed as dist
+
+    rank, world = rank_and_world()
+    mine = (branches.masks, branches.flips, branches.margin)
+    got = [None] * world if rank == 0 else None
+    dist.gather_object(mine, got, dst=0)
+    if rank == 0:
+        res["relu_masks"] = [g[0] for g in got]
+        res["relu_flips"] = sum(g[1] for g in got)
+        res["relu_margin"] = max(g[2] for g in got)
+
+
+def update_job(rank: int, world: int, job_path: str, out_path: str) -> None:
+    """`zero1_update_shard` on a flat vector: each step every rank holds
+    the same full gradient, which is reduce-scattered and divided by the
+    world size; the updated slices are all-gathered.  The job holds "params"
+    and "grads" (a list, one a step) as flat f32 tensors, the boolean
+    "train_mask" / "clip_mask" over them and "lr" = (lr_init, lr_step,
+    lr_evo); rank 0 writes the flat parameters after every step."""
+    from types import SimpleNamespace
+
+    from ..models.sgdiff import lr_schedule
+    from .mesh import all_gather, reduce_scatter
+    from .zero import zero1_update_shard
+
+    job = torch.load(job_path, weights_only=False)
+    lr_init, lr_step, lr_evo = job["lr"]
+    lr_fn = lr_schedule(SimpleNamespace(lr_init=lr_init, lr_step=lr_step,
+                                        lr_evo=lr_evo))
+    n = job["params"].numel()
+    chunk = -(-n // world)
+    pad = lambda t: torch.cat([t, t.new_zeros(chunk * world - n)])
+    mine = slice(rank * chunk, (rank + 1) * chunk)
+    flat_p = pad(job["params"].float())
+    tmask, cmask = pad(job["train_mask"])[mine], pad(job["clip_mask"])[mine]
+    mu, nu, count = torch.zeros(chunk), torch.zeros(chunk), 0
+    history = []
+    for g in job["grads"]:
+        g_shard = reduce_scatter(torch.empty(chunk), pad(g.float())) / world
+        new_p, mu, nu, count = zero1_update_shard(
+            g_shard, flat_p[mine], mu, nu, count, tmask, cmask, lr_fn)
+        flat_p = all_gather(torch.empty(chunk * world), new_p)
+        history.append(flat_p[:n].clone())
+    if rank == 0:
+        torch.save(history, out_path)
+
+
+def run_job(job: dict, backend: str, fn=train_job) -> object:
+    """Write `job`, run `fn` (train_job or update_job) on
+    len(job["devices"]) spawned ranks joined over `backend`, and return
+    rank 0's results."""
+    with tempfile.TemporaryDirectory(prefix="echoscene_job_") as tmp:
+        job_path = os.path.join(tmp, "job.pt")
+        out_path = os.path.join(tmp, "out.pt")
+        torch.save(job, job_path)
+        spawn(fn, len(job["devices"]), args=(job_path, out_path),
+              backend=backend)
+        return torch.load(out_path, weights_only=False)
+
+
+def cpu_draws(cfg, batch, seed: int) -> Dict[str, torch.Tensor]:
+    """The five draws of `SGDiff.loss_fn` from a CPU generator, so that
+    runs on different devices take the same ones."""
+    sd, n, m = cfg.shape_branch.denoiser, batch.num_nodes, cfg.diffusion_bs
+    g = torch.Generator().manual_seed(seed)
+    return {"change": torch.randn((n, cfg.embedding_dim), generator=g),
+            "t_scene": torch.randint(0, cfg.layout_diffusion.time_num,
+                                     (batch.num_scenes + 1,), generator=g),
+            "noise_box": torch.randn((n, 8), generator=g),
+            "t_shape": torch.randint(0, sd.timesteps, (m,), generator=g),
+            "noise_shape": torch.randn(
+                (m,) + (sd.image_size,) * 3
+                + (cfg.shape_branch.vqvae.embed_dim,), generator=g)}
+
+
+def tiny_job(devices, steps: int = 1, seed: int = 0, cfg=None,
+             draws: bool = False, latents: bool = False) -> dict:
+    """The tiny configuration (or `cfg`) with seeded weights, and a
+    synthetic batch per rank and step (seeded by both); with `draws`, each
+    step's draws made on the CPU (`cpu_draws`), else the rank's generator
+    draws them on its device; with `latents`, the batches carry the frozen
+    encoder's latents of their SDFs, encoded here on the CPU (the latent
+    cache's path), so that runs on different devices see the same
+    inputs."""
+    from ..benchmarks import NUM_OBJS, NUM_PREDS, seeded_weights_, \
+        synthetic_batch
+    from ..models.config import tiny_config
+
+    cfg = cfg or tiny_config()
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        sg = SGDiff(cfg, NUM_OBJS, NUM_PREDS, device="cpu")
+    seeded_weights_(sg.module, seed)
+    world = len(devices)
+    shards = []
+    for r in range(world):
+        shards.append([])
+        for i in range(steps):
+            b = synthetic_batch(3, cfg.max_nodes, cfg.max_triples,
+                                seed=100 * r + i,
+                                diffusion_bs=cfg.diffusion_bs,
+                                sdf_res=cfg.shape_branch.vqvae.resolution)
+            if latents:
+                with torch.no_grad():
+                    lat = sg.module.encode_sdf(b.shapes.sdf)
+                b.shapes = dataclasses.replace(b.shapes, sdf=None,
+                                               latent=lat)
+            shards[r].append((b, cpu_draws(cfg, b, 100 * r + i)
+                              if draws else None))
+    return {"cfg": cfg, "num_objs": NUM_OBJS, "num_preds": NUM_PREDS,
+            "state_dict": sg.module.state_dict(),
+            "devices": [str(d) for d in devices], "runs": [],
+            "shards": shards}
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--n", type=int, default=2, help="ranks (devices)")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    args = p.parse_args(argv)
+    t_all = time.perf_counter()
+    if args.device == "cuda":
+        devices, backend = resolve_devices(args.n), "nccl"
+    else:
+        devices, backend = [torch.device("cpu")] * args.n, "gloo"
+    job = tiny_job(devices, steps=2)
+    shards = job.pop("shards")
+    # cuDNN's weight gradients are not bit-reproducible by default
+    job["deterministic"] = args.device == "cuda"
+    with tempfile.TemporaryDirectory(prefix="echoscene_dryrun_") as tmp:
+        job["runs"] = [
+            {"name": "dp", "mode": "dp", "shards": [s[:1] for s in shards]},
+            {"name": "zero1", "mode": "zero1", "shards": shards,
+             "resume_at": 1, "ckpt_dir": tmp}]
+        t0 = time.perf_counter()
+        res = run_job(job, backend)
+        spawn_s = time.perf_counter() - t0
+    dp, z = res["dp"], res["zero1"]
+    print(f"[dryrun] {args.n} ranks ({backend}, {[str(d) for d in devices]})"
+          f": spawn + both runs {spawn_s:.2f} s")
+    print(f"[dryrun] dp step: loss {dp['metrics'][0]['loss']:.6g}, "
+          f"{dp['metrics'][0]['wall_s']:.3f} s")
+    print(f"[dryrun] zero1 step: loss {z['metrics'][0]['loss']:.6g}, "
+          f"{z['metrics'][0]['wall_s']:.3f} s")
+    print(f"[dryrun] zero1 checkpoint: save {z['save_s']:.3f} s, restore "
+          f"into other weights {z['restore_s']:.3f} s")
+    same = all(torch.equal(z["params"][n], z["resumed"]["params"][n])
+               for n in z["params"])
+    print(f"[dryrun] one more step: loss {z['metrics'][1]['loss']:.6g} "
+          f"uninterrupted, {z['resumed_metrics'][0]['loss']:.6g} resumed; "
+          f"parameters bit-equal {same}")
+    losses = [m["loss"] for r in (dp, z) for m in r["metrics"]]
+    if not (same and all(math.isfinite(x) for x in losses)):
+        raise RuntimeError("the dry run's steps are not finite or the "
+                           "resumed run differs from the uninterrupted one")
+
+    # generation: one DPSampler call, a batch a device
+    from ..benchmarks import synthetic_batch
+    t0 = time.perf_counter()
+    sg = _model(job, devices[0])
+    sampler = DPSampler(sg, devices)
+    cfg = sg.cfg
+    batches = [synthetic_batch(3, cfg.max_nodes, cfg.max_triples, seed=7 + i)
+               for i in range(args.n)]
+    gen = torch.Generator().manual_seed(0)
+    out = sampler(batches, sampler.generators(gen), gen_shape=True)
+    finite = all(bool(torch.isfinite(torch.from_numpy(v)).all())
+                 for v in out.values())
+    print(f"[dryrun] DPSampler generation over {args.n} devices: "
+          f"{time.perf_counter() - t0:.2f} s, shapes "
+          f"{tuple(out['shapes'].shape)}, finite {finite}")
+    if not finite:
+        raise RuntimeError("the dry run's generation is not finite")
+    print(f"[dryrun] all stages {time.perf_counter() - t_all:.2f} s")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

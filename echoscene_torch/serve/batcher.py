@@ -6,9 +6,10 @@ a full padded bucket, so N concurrent clients served one by one waste most
 of the card.  `MicroBatcher` puts a queue in front of a `GenerationService`:
 a worker thread takes the first waiting request, waits up to `max_wait_ms`
 for companions, and dispatches ONE padded generate call for up to
-`max_batch` requests.  A batch that fails is retried request by request, so
-a malformed request fails alone; `close` fails every queued future instead
-of stranding it.
+`max_batch` requests (by default one bucket, `spec.max_scenes`, for each
+device of a data-parallel service).  A batch that fails is retried request
+by request, so a malformed request fails alone; `close` fails every queued
+future instead of stranding it.
 """
 from __future__ import annotations
 
@@ -24,8 +25,12 @@ class MicroBatcher:
         self.service = service
         self.max_wait = max_wait_ms / 1000.0
         # spec.max_scenes is the bucket; a larger batch would split into
-        # several dispatches inside generate() anyway
-        self.max_batch = max_batch or service.spec.max_scenes
+        # several dispatches inside generate() anyway.  A data-parallel
+        # service runs one bucket a device in one call, so a batch may fill
+        # every device
+        dp = getattr(service, "dp_sampler", None)
+        self.max_batch = max_batch or service.spec.max_scenes * (
+            len(dp.devices) if dp is not None else 1)
         self._q: "queue.Queue" = queue.Queue()
         self._closed = False
         self._stats = {"requests": 0, "batches": 0, "batched_requests": 0,

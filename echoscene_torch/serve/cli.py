@@ -22,7 +22,10 @@ boxes / shapes (keep mask):
    "manipulation": {"type": "relationship", "index": 0,
                     "predicate": "right"}}
 
-`--dp_devices > 1` and `--sample_dtype int8` are not ported and raise
+`--dp_devices N` spreads the request groups of a call over `cuda:0 ..
+cuda:N-1`, one group a card at a time (parallel/dp.py `DPSampler`; the
+micro-batcher then takes up to N buckets a call), and raises when fewer
+cards are visible.  `--sample_dtype int8` is not ported and raises
 NotImplementedError.
 """
 from __future__ import annotations
@@ -131,8 +134,8 @@ def build_parser():
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=0, help="HTTP mode when > 0")
     p.add_argument("--dp_devices", type=int, default=1,
-                   help="spread micro-batches over this many cards (not "
-                        "ported: 1)")
+                   help="spread a call's request groups over this many "
+                        "cards (cuda:0 .. N-1), one group a card at a time")
     p.add_argument("--batch_window_ms", type=float, default=10.0,
                    help="coalesce concurrent requests into shared generation "
                         "calls, waiting up to this long for companions "

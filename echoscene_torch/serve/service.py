@@ -18,6 +18,17 @@ is a shape the card has run: `warmup` runs one layout-denoiser call, one
 shape-denoiser call and one decode chunk at each (rows, manip) of the
 ladder, so that the kernel modules are loaded, cuDNN has picked its
 algorithms and the caching allocator has grown before the first request.
+
+With `dp_devices` N > 1 (or an explicit `devices` list, which may repeat a
+device) the request groups of one `generate` call go to
+`parallel.dp.DPSampler` N at a time, one group a device, concurrently (JAX
+spreads them over a ('data',) mesh, service.py:202-215, 472-535): a call
+that changes the manipulation flag flushes the groups before it, and each
+call draws one generator a group from the service's generator, in group
+order, so that every group takes the seed the single-device service's
+dispatch of that group takes.  A call of fewer groups than devices runs
+only those (JAX pads it with repeats, which its shard_map needs).  Warmup
+runs the ladder on every device's replica.
 """
 from __future__ import annotations
 
@@ -175,14 +186,17 @@ class GenerationService:
                  gen_shape: bool = True, return_meshes: bool = False,
                  use_scene_rels: bool = True, seed: int = 0,
                  result_format: str = "json", dp_devices: int = 1,
-                 row_buckets: Optional[Sequence[int]] = None):
+                 row_buckets: Optional[Sequence[int]] = None,
+                 devices: Optional[Sequence] = None):
         if result_format not in ("json", "arrays"):
             raise ValueError(f"result_format must be json|arrays, got "
                              f"{result_format!r}")
-        if int(dp_devices) > 1:
-            raise NotImplementedError(
-                "serving over several cards (dp_devices > 1) comes with the "
-                "port's multi-GPU slice")
+        self.dp_sampler = None
+        if int(dp_devices) > 1 or devices is not None:
+            from ..parallel.dp import DPSampler
+            from ..parallel.mesh import resolve_devices
+            self.dp_sampler = DPSampler(sg, resolve_devices(
+                None if devices is not None else dp_devices, devices))
         self.sg = sg
         self.spec = spec
         self.stats = stats
@@ -238,10 +252,10 @@ class GenerationService:
         return sorted(self._variants)
 
     @torch.no_grad()
-    def _warm(self, model, batch, rows: int, manip: bool) -> None:
+    def _warm(self, model, batch, rows: int, manip: bool, dev) -> None:
         """One layout-denoiser call, one shape-denoiser call and one decode
-        chunk at `rows` rows, on zeros."""
-        sg, dev = self.sg, self.sg.device
+        chunk at `rows` rows, on zeros, on `dev`."""
+        sg = self.sg
         cfg = sg.cfg
         change = torch.zeros((batch.num_nodes, cfg.embedding_dim), device=dev)
         ctx = model.encode_context(batch, change,
@@ -261,22 +275,27 @@ class GenerationService:
             model.decode_latent(chunk)
 
     def warmup(self, manips=(False, True), verbose: bool = True) -> int:
-        """Run every (rows, manip) variant of the ladder once (`_warm`) so
-        that no request is the first to run its shapes.  The ladder is the
-        bucket list with row_buckets set, otherwise every multiple of 4 up
-        to max_nodes.  Returns the number of variants warmed."""
+        """Run every (rows, manip) variant of the ladder once (`_warm`), on
+        every device's replica under data parallelism, so that no request
+        is the first to run its shapes.  The ladder is the bucket list with
+        row_buckets set, otherwise every multiple of 4 up to max_nodes.
+        Returns the number of variants warmed."""
         ladder = list(self.row_buckets) if self.row_buckets else \
             list(range(4, self.spec.max_nodes + 1, 4))
         if self.spec.max_nodes not in ladder:
             ladder.append(self.spec.max_nodes)
-        model = self.sg.inference_module()
-        batch = self._dummy_batch().to(self.sg.device)
+        if self.dp_sampler is None:
+            replicas = {self.sg.device: self.sg.inference_module()}
+        else:
+            replicas = self.dp_sampler.models
+        batch = self._dummy_batch()
         done = 0
         for manip in manips:
             for rows in ladder:
                 t0 = time.perf_counter()
                 fresh = (rows, manip) not in self._variants
-                self._warm(model, batch, rows, manip)
+                for dev, model in replicas.items():
+                    self._warm(model, batch.to(dev), rows, manip, dev)
                 self._variants.add((rows, manip))
                 done += 1
                 if verbose and fresh:
@@ -294,6 +313,17 @@ class GenerationService:
                                 gen_shape=self.gen_shape,
                                 with_manipulation=manip, shape_rows=rows)
         return {k: v.float().cpu().numpy() for k, v in out.items()}
+
+    def _sample_dp(self, batches, manip: bool) -> Dict[str, np.ndarray]:
+        """One data-parallel call on up to one collated group a device ->
+        host f32 arrays with a leading group axis."""
+        rows = max(self._rows(b) for b in batches)
+        self._variants.add((rows, manip))
+        return self.dp_sampler(batches,
+                               self.dp_sampler.generators(self._generator,
+                                                          len(batches)),
+                               gen_shape=self.gen_shape,
+                               with_manipulation=manip, shape_rows=rows)
 
     # ------------------------------------------------------------------
     def _scene_result(self, ex: SceneExample, out_slice) -> Dict[str, Any]:
@@ -451,9 +481,7 @@ class GenerationService:
                 idx += 1
             groups.append((group, gidx, manip_flag))
 
-        for group, gidx, manip_flag in groups:
-            batch = collate_scenes(group, self.spec)
-            out = self._sample(batch, self._rows(batch), manip_flag)
+        def finish(group, gidx, out):
             off = 0
             for e, i in zip(group, gidx):
                 n = e.num_nodes
@@ -469,6 +497,31 @@ class GenerationService:
                         self._splice_previous(res, prevs[i], keep)
                 results[i] = res
                 self._remember(req_effective[i], res)
+
+        pending: List[Any] = []   # (group, gidx, batch) awaiting a dp call
+        pending_manip = False       # one dp call runs one manipulation flag
+
+        def flush_dp():
+            if pending:
+                out = self._sample_dp([b for _, _, b in pending],
+                                      pending_manip)
+                for d, (group, gidx, _) in enumerate(pending):
+                    finish(group, gidx, {k: v[d] for k, v in out.items()})
+                pending.clear()
+
+        for group, gidx, manip_flag in groups:
+            batch = collate_scenes(group, self.spec)
+            if self.dp_sampler is None:
+                finish(group, gidx,
+                       self._sample(batch, self._rows(batch), manip_flag))
+                continue
+            if manip_flag != pending_manip:
+                flush_dp()
+                pending_manip = manip_flag
+            pending.append((group, gidx, batch))
+            if len(pending) == len(self.dp_sampler.devices):
+                flush_dp()
+        flush_dp()
         # every request slot is filled exactly once: a grouping fault fails
         # loudly instead of dropping a scene
         missing = [i for i, r in enumerate(results) if r is None]

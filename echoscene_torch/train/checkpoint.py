@@ -19,6 +19,17 @@ the process exits only once the file is written.  VQ-VAE checkpoints
 (`save_vqvae_checkpoint`, written by train/vqvae_cli.py) hold
 {"vqvae": the VQVAE's state_dict, "opt": Adam's state, "step"}; the joint
 model's frozen VQ-VAE loads from either kind (`load_vqvae_params`).
+
+Under data parallelism (parallel/) every rank calls save and restore: only
+rank 0 writes (its background save included), and the other ranks wait at a
+barrier until rank 0 holds its snapshot (or, with wait, its file); a
+restore waits for rank 0's write, then every rank reads the file.  A ZeRO-1
+state (parallel/zero.py) is saved as its moments gathered in rank 0's host
+memory (no rank holds them at full length on its device), in their padded
+layout, with the rank count that sharded them ("opt":
+{"zero1": ...}); it restores only over as many ranks and raises a clear
+error otherwise, as JAX's template restore fails.  `restore_for_inference`
+reads the parameters of any of these checkpoints.
 """
 from __future__ import annotations
 
@@ -30,6 +41,7 @@ import torch
 
 from ..convert.from_jax import checkpoint_to_module, module_to_checkpoint
 from ..models.sgdiff import SGDiff, TrainState
+from ..parallel.mesh import barrier, rank_and_world
 
 _writer: Optional[threading.Thread] = None
 _error: Optional[Exception] = None
@@ -86,12 +98,20 @@ def _save_payload(path: str, payload: dict, wait: bool = True) -> None:
 def save_checkpoint(path: str, sg: SGDiff, state: TrainState,
                     wait: bool = True) -> None:
     """wait=False returns once the snapshot is in host memory and lets the
-    write proceed in the background; the final / interrupt save waits."""
-    payload = module_to_checkpoint(sg.module.state_dict())
-    payload.update({"opt": {"adamw": state.optimizer.state_dict(),
-                            "accum": state.accum},
-                    "epoch": state.epoch, "counter": state.step})
-    _save_payload(path, payload, wait)
+    write proceed in the background; the final / interrupt save waits.
+    Every rank of a data-parallel run calls it; rank 0 writes."""
+    from ..parallel.zero import Zero1State, gather_state
+
+    if isinstance(state.optimizer, Zero1State):
+        opt = {"zero1": gather_state(state.optimizer)}
+    else:
+        opt = {"adamw": state.optimizer.state_dict(), "accum": state.accum}
+    if rank_and_world()[0] == 0:
+        payload = module_to_checkpoint(sg.module.state_dict())
+        payload.update({"opt": opt, "epoch": state.epoch,
+                        "counter": state.step})
+        _save_payload(path, payload, wait)
+    barrier()
 
 
 def save_vqvae_checkpoint(path: str, state) -> None:
@@ -103,23 +123,39 @@ def save_vqvae_checkpoint(path: str, state) -> None:
 
 def _load(path: str) -> dict:
     """The checkpoint's tensors on the CPU, once any save in flight is
-    written: `load_state_dict` copies them to the module's device, and the
+    written (on every rank: rank 0 waits for its writer, the others for
+    rank 0): `load_state_dict` copies them to the module's device, and the
     optimizer's to its parameters' devices (Adam keeps its step counts on
     the CPU)."""
     wait_for_checkpoints()
+    barrier()
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
 def restore_checkpoint(path: str, sg: SGDiff, state: TrainState
                        ) -> TrainState:
     """Load the module's parameters and buffers, and return `state` with
-    the optimizer, accumulators, step and epoch of the checkpoint."""
+    the optimizer, accumulators, step and epoch of the checkpoint.  A
+    ZeRO-1 state restores from a ZeRO-1 checkpoint of as many ranks only."""
+    from ..parallel.zero import Zero1State, scatter_state
+
     payload = _load(path)
+    opt = payload["opt"]
+    zero1 = isinstance(state.optimizer, Zero1State)
+    if zero1 != ("zero1" in opt):
+        raise ValueError(
+            f"{path} holds {'a ZeRO-1' if 'zero1' in opt else 'an AdamW'} "
+            f"optimizer state; this run uses "
+            f"{'ZeRO-1' if zero1 else 'AdamW'} (--zero1 must match the run "
+            "that saved it)")
     sg.module.load_state_dict(checkpoint_to_module(payload), strict=True)
-    state.optimizer.load_state_dict(payload["opt"]["adamw"])
-    accum = payload["opt"]["accum"]
-    state.accum = (None if accum is None
-                   else [a.to(sg.device) for a in accum])
+    if zero1:
+        scatter_state(state.optimizer, opt["zero1"])
+    else:
+        state.optimizer.load_state_dict(opt["adamw"])
+        accum = opt["accum"]
+        state.accum = (None if accum is None
+                       else [a.to(sg.device) for a in accum])
     state.step = int(payload["counter"])
     state.epoch = int(payload["epoch"])
     return state

@@ -18,16 +18,24 @@ encoder leaves the step; `--vq_ckpt` takes a VQ-VAE checkpoint of `python
 TensorBoard writer, `--preview_every N` renders sampled shapes every N
 steps.
 
-Not ported, and refused at start: `--dp_devices > 1` and `--zero1` (the
-multi-GPU slice) and bf16 on the CPU (CPU torch's bf16 conv1d weight
-gradient at stride 2 on a one-token input is wrong).  f32 training runs on
-the CPU and on CUDA, where the attention kernels take f32 too.
+`--dp_devices N` (N > 1) trains data-parallel: this command starts N
+processes (torch.multiprocessing, spawn), rank r on `cuda:r` (or on the CPU
+under `--device cpu`), joined by torch.distributed over NCCL on CUDA and
+gloo on the CPU, and raises when fewer cards are visible than asked for.
+`--zero1` shards the AdamW moments over the ranks (parallel/zero.py); it
+needs `--dp_devices > 1` and composes with `--grad_accum`.  Rank 0 writes
+the log, args.json and the checkpoints.
+
+Refused at start: bf16 on the CPU (CPU torch's bf16 conv1d weight gradient
+at stride 2 on a one-token input is wrong).  f32 training runs on the CPU
+and on CUDA, where the attention kernels take f32 too.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
 import os
+import sys
 
 import numpy as np
 import torch
@@ -91,9 +99,14 @@ def build_parser() -> argparse.ArgumentParser:
                         "batches carry them instead of SDF grids")
     p.add_argument("--preview_every", type=int, default=10000)
     p.add_argument("--dp_devices", type=int, default=1,
-                   help="data-parallel devices (not ported: 1)")
+                   help="data-parallel devices: one process each, rank r on "
+                        "cuda:r (or the CPU under --device cpu)")
     p.add_argument("--zero1", action="store_true",
-                   help="shard the AdamW moments (not ported)")
+                   help="shard the AdamW moments over the ranks (ZeRO-1: "
+                        "reduce-scatter grads, all-gather params; the bytes "
+                        "of the replicated step's all-reduce, 2*P/N instead "
+                        "of 2*P optimizer floats a device).  Requires "
+                        "--dp_devices > 1; composes with --grad_accum.")
     p.add_argument("--sdf_res", type=int, default=64)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--vq_ckpt", default=None,
@@ -110,9 +123,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _refuse_unported(args, cfg) -> None:
-    if args.dp_devices > 1 or args.zero1:
-        raise NotImplementedError(
-            "--dp_devices > 1 / --zero1 come with the port's multi-GPU slice")
     on_cuda = torch.device(args.device).type == "cuda"
     if not on_cuda and cfg.compute_dtype == "bfloat16":
         raise NotImplementedError(
@@ -132,11 +142,44 @@ def open_writer(log_dir: str):
 
 
 def main(argv=None, writer=None):
-    """Train as the flags say; returns the final TrainState.  writer: an
+    """Train as the flags say; returns the final TrainState (None after a
+    --dp_devices run, whose ranks run in their own processes).  writer: an
     object with TensorBoard's add_scalar / add_image to log to, in place of
-    the SummaryWriter opened under <exp>/<logf> (closed by the caller)."""
+    the SummaryWriter opened under <exp>/<logf> (closed by the caller; a
+    single-process run only)."""
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = build_parser().parse_args(argv)
+    if args.zero1 and args.dp_devices <= 1:
+        raise ValueError(
+            "--zero1 requires dp_devices > 1 (optimizer-state sharding over "
+            "the 'data' axis has nothing to shard on one device); drop "
+            "--zero1 or raise --dp_devices")
+    if args.dp_devices <= 1:
+        return _train(args, writer)
+    from ..parallel.mesh import resolve_devices, spawn
 
+    if writer is not None:
+        raise ValueError("a writer object does not cross into the spawned "
+                         "ranks; rank 0 of a --dp_devices run opens its own")
+    on_cuda = torch.device(args.device).type == "cuda"
+    if on_cuda:
+        resolve_devices(args.dp_devices)   # raises on too few cards
+    spawn(_rank_main, args.dp_devices, args=(argv,),
+          backend="nccl" if on_cuda else "gloo")
+    return None
+
+
+def _rank_main(rank: int, world: int, argv) -> None:
+    """One rank of a --dp_devices run: cuda:rank, or the CPU."""
+    args = build_parser().parse_args(argv)
+    if torch.device(args.device).type == "cuda":
+        torch.cuda.set_device(rank)
+        args.device = f"cuda:{rank}"
+    _train(args, None)
+
+
+def _train(args, writer):
+    from ..parallel.mesh import rank_and_world
     from ..data.clip_text import ClipTextEncoder
     from ..data.collate import CollateSpec
     from ..data.sgfront import SGFrontDataset
@@ -180,8 +223,9 @@ def main(argv=None, writer=None):
                          "message_passing false (reference EchoScene.py:"
                          "103-104)")
 
+    lead = rank_and_world()[0] == 0
     os.makedirs(args.exp, exist_ok=True)
-    own_writer = writer is None
+    own_writer = writer is None and lead
     if own_writer:
         writer = open_writer(os.path.join(args.exp, args.logf))
     latent_lookup = (make_latent_lookup(args.latent_cache)
@@ -206,7 +250,8 @@ def main(argv=None, writer=None):
             else:
                 print(f"[train] WARNING: vq_ckpt {vq_ckpt!r} not found; "
                       "the frozen VQ-VAE keeps its random init")
-        dump_args(args.exp, vars(args))
+        if lead:
+            dump_args(args.exp, vars(args))
         spec = CollateSpec(
             max_nodes=max_nodes, max_triples=max_triples,
             max_scenes=args.batchSize, diffusion_bs=cfg.diffusion_bs,
@@ -217,7 +262,8 @@ def main(argv=None, writer=None):
             latent_ch=cfg.shape_branch.vqvae.embed_dim)
         trainer = Trainer(sgdiff, dataset, spec, args.exp,
                           batch_scenes=args.batchSize, seed=args.seed,
-                          writer=writer, latent_lookup=latent_lookup)
+                          writer=writer, latent_lookup=latent_lookup,
+                          dp_devices=args.dp_devices, zero1=args.zero1)
         state = sgdiff.init_train_state()
         if args.loadmodel:
             state = trainer.load(state, args.loadepoch)

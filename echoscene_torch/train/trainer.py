@@ -14,6 +14,18 @@ the step.  The TensorBoard writer is optional; with one, every
 `preview_every` steps a few sampled shapes are rendered into it
 (`preview_shapes`).  Periodic epoch saves run in the background
 (train/checkpoint.py); the final save waits for its file.
+
+Data parallelism (JAX's trainer.py:105-125, 175-297): with dp_devices N the
+trainer runs on each of N ranks of a `torch.distributed` group (one process
+per device; train/cli.py starts them) and takes `parallel.dp.dp_train_step`,
+or with zero1 `parallel.zero.zero1_train_step` (zero1 needs N > 1, JAX's
+rule).  Every rank iterates the same seeded global batch stream, and rank d
+takes the batches whose index mod N is d: JAX's groups of N consecutive
+batches, one a device, with a partial group carried across epochs and the
+trailing partial group dropped, loudly, at the end of training.  Each rank
+draws its noise from a generator seeded from the seed and its rank; the
+step timer counts batch_scenes x N scenes a step; the log, the writer,
+previews and the checkpoint files are rank 0's.
 """
 from __future__ import annotations
 
@@ -30,6 +42,7 @@ import torch
 
 from ..data.collate import CollateSpec, collate_scenes
 from ..models.sgdiff import SGDiff, TrainState, lr_schedule
+from ..parallel.mesh import any_rank, rank_and_world
 from .checkpoint import restore_checkpoint, save_checkpoint
 from .profiling import StepTimer
 
@@ -112,11 +125,30 @@ class Prefetcher:
             yield b
 
 
+def rank_seed(seed: int, rank: int) -> int:
+    """The seed of rank `rank`'s noise generator (rank 0 keeps `seed`, so a
+    one-rank run draws as the single-device trainer)."""
+    return int(seed) + 1_000_003 * int(rank)
+
+
 class Trainer:
     def __init__(self, sgdiff: SGDiff, dataset, spec: CollateSpec,
                  exp_dir: str, batch_scenes: int = 64, log_every: int = 50,
                  ckpt_every_epochs: int = 100, seed: int = 0, writer=None,
-                 latent_lookup=None):
+                 latent_lookup=None, dp_devices: int = 1,
+                 zero1: bool = False):
+        if zero1 and dp_devices <= 1:
+            raise ValueError(
+                "--zero1 requires dp_devices > 1 (optimizer-state sharding "
+                "over the 'data' axis has nothing to shard on one device); "
+                "drop --zero1 or raise --dp_devices")
+        self.rank, world = rank_and_world()
+        if int(dp_devices) != world:
+            raise ValueError(f"dp_devices={dp_devices} but this process is "
+                             f"one of {world} ranks (train.cli starts one "
+                             "process per device)")
+        self.dp_devices = int(dp_devices)
+        self.zero1 = zero1
         self.sgdiff = sgdiff
         self.dataset = dataset
         self.spec = spec
@@ -126,12 +158,35 @@ class Trainer:
         self.ckpt_every_epochs = ckpt_every_epochs
         self.rng = np.random.default_rng(seed)
         self.generator = torch.Generator(
-            device=sgdiff.device).manual_seed(seed)
-        self.writer = writer
+            device=sgdiff.device).manual_seed(rank_seed(seed, self.rank))
+        self.writer = writer if self.rank == 0 else None
         self.latent_lookup = latent_lookup
-        os.makedirs(os.path.join(exp_dir, "checkpoint"), exist_ok=True)
+        self.dropped_batches = 0
         self.loss_log = os.path.join(exp_dir, "loss_log.txt")
-        open(self.loss_log, "a").close()
+        if self.rank == 0:
+            os.makedirs(os.path.join(exp_dir, "checkpoint"), exist_ok=True)
+            open(self.loss_log, "a").close()
+
+    def _step(self, state: TrainState, batch):
+        if self.dp_devices == 1:
+            return self.sgdiff.train_step(state, batch, self.generator)
+        if self.zero1:
+            from ..parallel.zero import zero1_train_step
+            return zero1_train_step(self.sgdiff, state, batch,
+                                    self.generator)
+        from ..parallel.dp import dp_train_step
+        return dp_train_step(self.sgdiff, state, batch, self.generator)
+
+    def prepare(self, state: TrainState) -> TrainState:
+        """`state` with its optimizer swapped for a ZeRO-1 state when the
+        zero1 path is selected (before a restore too, so that a ZeRO-1
+        checkpoint restores into its own layout)."""
+        from ..parallel.zero import Zero1State, init_zero1_state
+        if self.zero1 and not isinstance(state.optimizer, Zero1State):
+            state = init_zero1_state(
+                self.sgdiff, state,
+                grad_accum=max(1, int(self.sgdiff.cfg.grad_accum or 1)))
+        return state
 
     def _log_scalars(self, metrics, counter: int, lr: float):
         w = self.writer
@@ -181,23 +236,35 @@ class Trainer:
     def train(self, state: TrainState, epochs: int,
               max_steps: Optional[int] = None, preview_every: int = 0,
               final_save: bool = True) -> TrainState:
+        state = self.prepare(state)
         counter = state.step
         t_start = time.time()
         steps_done = 0
-        timer = StepTimer(self.batch_scenes)
+        n = self.dp_devices
+        timer = StepTimer(self.batch_scenes * n, devices=n)
         dev = self.sgdiff.device
+        lead = self.rank == 0
+        # the global batch index runs on across epochs: a group of n
+        # batches may span two epochs (JAX carries its partial group over)
+        index = 0
+        mine = None
         with InterruptHandler() as h:
+            stop = False
             for epoch in range(state.epoch, epochs):
                 for batch in Prefetcher(lambda: batch_iterator(
                         self.dataset, self.spec, self.batch_scenes,
                         self.rng, self.latent_lookup)):
-                    batch = batch.to(dev)
-                    metrics = self.sgdiff.train_step(state, batch,
-                                                     self.generator)
+                    if index % n == self.rank:
+                        mine = batch
+                    index += 1
+                    if index % n:
+                        continue            # the group is not complete
+                    batch, mine = mine.to(dev), None
+                    metrics = self._step(state, batch)
                     timer.tick()
                     counter += 1
                     steps_done += 1
-                    if counter % self.log_every == 0:
+                    if lead and counter % self.log_every == 0:
                         lr = self.current_lr(counter)
                         msg = ("loss at {}: box {:.4f}, shape {:.4f}. "
                                "Lr:{:.6f}".format(
@@ -211,25 +278,37 @@ class Trainer:
                             self.writer.add_scalar("scenes_per_sec_per_chip",
                                                    timer.scenes_per_sec,
                                                    counter)
-                    if preview_every and counter % preview_every == 0:
+                    if lead and preview_every and counter % preview_every == 0:
                         self.preview_shapes(batch, counter)
-                    if h.interrupted or (max_steps and steps_done >= max_steps):
+                    interrupted = (any_rank(h.interrupted, dev) if n > 1
+                                   else h.interrupted)
+                    stop = interrupted or bool(
+                        max_steps and steps_done >= max_steps)
+                    if stop:
                         break
                 state.epoch += 1
-                if h.interrupted or (max_steps and steps_done >= max_steps):
+                if stop:
                     break
                 if epoch % self.ckpt_every_epochs == 0:
                     # in the background: training resumes while the file
                     # is written; the final save (and any restore) waits
                     self.save(state, epoch, wait=False)
+            if index % n:
+                # only the final partial group is dropped, and loudly
+                self.dropped_batches += index % n
+                if lead:
+                    print(f"[trainer] dropping {index % n} trailing "
+                          f"batch(es) smaller than one dp group "
+                          f"(dp_devices={n}) at end of training")
             dt_steps = time.time() - t_start
             if final_save:
                 t_save = time.time()
                 self.save(state, state.epoch)
-                print(f"[trainer] final save took {time.time() - t_save:.1f}s"
-                      " (it waits for its file; epoch saves run in the "
-                      "background)")
-        if steps_done:
+                if lead:
+                    print(f"[trainer] final save took "
+                          f"{time.time() - t_save:.1f}s (it waits for its "
+                          "file; epoch saves run in the background)")
+        if steps_done and lead:
             print(f"[trainer] {steps_done} steps in {dt_steps:.1f}s "
                   f"({steps_done / dt_steps:.3f} steps/s)")
         return state
@@ -238,11 +317,13 @@ class Trainer:
         save_checkpoint(os.path.join(self.exp_dir, "checkpoint",
                                      f"model{epoch}"), self.sgdiff, state,
                         wait=wait)
-        print(f"saved model_{epoch}")
+        if self.rank == 0:
+            print(f"saved model_{epoch}")
 
     def load(self, state: TrainState, epoch: int) -> TrainState:
         return restore_checkpoint(os.path.join(
-            self.exp_dir, "checkpoint", f"model{epoch}"), self.sgdiff, state)
+            self.exp_dir, "checkpoint", f"model{epoch}"), self.sgdiff,
+            self.prepare(state))
 
 
 def dump_args(exp_dir: str, args: dict):

@@ -416,12 +416,13 @@ def test_evaluator_run_groups_and_skips_like_jax(tmp_path, etype):
 
 
 def test_evaluator_raises_on_unported_options(tmp_path):
-    """dp_devices > 1 still raises (the multi-GPU slice); render_dir is
-    ported: the evaluator makes the directory, and the four render types
-    are held to JAX's in tests/test_torch_port_images.py."""
+    """dp_devices > 1 runs on cuda:0 .. N-1 and raises where fewer cards
+    are visible (here: none); render_dir is ported: the evaluator makes the
+    directory, and the four render types are held to JAX's in
+    tests/test_torch_port_images.py."""
     from echoscene_torch.eval.evaluator import SceneEvaluator
 
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="CUDA devices visible"):
         SceneEvaluator(None, None, None, store_path=str(tmp_path),
                        dp_devices=2)
     ev = SceneEvaluator(None, None, None, store_path=str(tmp_path),
@@ -541,16 +542,18 @@ def test_eval_cli_end_to_end_cpu(eval_run):
 
 
 def test_eval_cli_raises_on_unported_options(eval_run, tmp_path):
-    """--dp_devices 2 and --sample_dtype int8 still raise; --render_dir
-    and the render types run: a 256^2 render and a .glb per scene, with
-    retrieval reading a size table and its OBJ meshes."""
+    """--dp_devices 2 raises where fewer than 2 cards are visible (here:
+    none), --sample_dtype int8 still raises; --render_dir and the render
+    types run: a 256^2 render and a .glb per scene, with retrieval reading
+    a size table and its OBJ meshes."""
     from PIL import Image
     from echoscene_torch.eval import cli
     from echoscene_torch.eval.render import box_mesh, export_obj
 
     base, _, _, argv, _ = eval_run
-    for extra in (["--dp_devices", "2"], ["--sample_dtype", "int8"]):
-        with pytest.raises(NotImplementedError):
+    for extra, error in ((["--dp_devices", "2"], ValueError),
+                         (["--sample_dtype", "int8"], NotImplementedError)):
+        with pytest.raises(error):
             cli.main(argv + extra)
     with pytest.raises(ValueError, match="--mesh_db"):
         cli.main(argv + ["--render_type", "retrieval"])

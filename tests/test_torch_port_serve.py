@@ -309,7 +309,9 @@ def test_result_formats_and_meshes(port_service, vocab):
     with pytest.raises(ValueError):
         GenerationService(svc.sg, svc.spec, svc.stats, svc.classes,
                           svc.rel_dict, result_format="msgpack")
-    with pytest.raises(NotImplementedError):
+    # dp over cuda:0 .. N-1 raises where fewer cards are visible (here:
+    # none)
+    with pytest.raises(ValueError, match="CUDA devices visible"):
         GenerationService(svc.sg, svc.spec, svc.stats, svc.classes,
                           svc.rel_dict, dp_devices=2)
 

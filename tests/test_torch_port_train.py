@@ -990,8 +990,9 @@ def test_train_cli_then_eval_cli_round_trip(port_data, tmp_path):
     ["--dp_devices", "2"], ["--zero1"],
     ["--device", "cpu", "--compute_dtype", "bfloat16"]])
 def test_train_cli_refuses_unported_options(extra, port_data, tmp_path):
-    """Refused at start with a clear message, before any step: multi-GPU
-    and bf16 on the CPU."""
+    """Refused at start with a clear message, before any step: dp over
+    more cards than are visible (here: none; the ranks run on cuda:0 ..
+    N-1), --zero1 without dp, and bf16 on the CPU."""
     from echoscene_torch.train import cli as train_cli
 
     _, root, _, _, _ = port_data
@@ -999,7 +1000,9 @@ def test_train_cli_refuses_unported_options(extra, port_data, tmp_path):
     argv = _train_argv(root, exp, "--max_steps", "1")
     i = argv.index("--device")
     argv = argv[:i] + argv[i + 2:] + extra
-    with pytest.raises(NotImplementedError):
+    error = {"--dp_devices": ValueError, "--zero1": ValueError}.get(
+        extra[0], NotImplementedError)
+    with pytest.raises(error):
         train_cli.main(argv)
     assert not (exp / "checkpoint").exists()
 
