@@ -57,9 +57,11 @@ result line):
   3. check the port on the card against the port on the CPU: the tiny
      test configuration in f32 (same weights, same injected noise; max abs
      error <= 1e-4 on boxes and SDFs), one tiny-config f32 training step
-     (same weights and draws; loss within 1e-5 relative, each gradient leaf
-     within 1e-3 of its part's gradient peak + 1e-7, then two AdamW steps
-     on each from the CPU's gradients, parameters within 1e-6), and MMD /
+     (same weights and draws, the CPU forced down the ReLU branches the
+     card took, each flipped input within 1e-4 of its call's peak; loss
+     within 1e-5 relative, each gradient leaf within 1e-3 of its part's
+     gradient peak + 1e-7, then two AdamW steps on each from the CPU's
+     gradients, parameters within 1e-6), and MMD /
      COV / 1-NN over 6 clouds of 256 points (CD values within 1e-5
      relative, auction-EMD values within 1e-4);
   4. drive the main path once: full-width flagship generation (1000-step
@@ -70,7 +72,16 @@ result line):
      decode chunk);
   5. time each part of that path alone (graph context, one layout step, one
      shape step, one decode chunk): wall clock per call, and the device busy
-     share and kernel launches of one call under torch.profiler;
+     share and kernel launches of one call under torch.profiler; the shape
+     step and the decode chunk of the flagship's twin (the factored
+     upsamples), of a twin built with interpolate + conv upsamples on the
+     same weights and inputs, and of the flagship's twin again, each with
+     its 8 kernels of the most device time, and the bf16 difference of the
+     two twins' outputs; each upsample site of the flagship (the UNet's at
+     16x4x4 x 672 and 16x8x8 x 448 channels, the decoder's 16^3 x 256 and
+     32^3 x 128) factored against interpolate + conv, in bf16, timed in
+     turns (factored, direct, direct, factored), after the two agree in
+     f32 within 1e-5 of the peak;
   6. drive the evaluation path: a fake SG-FRONT dataset (test split) ->
      `SceneEvaluator` generating every scene at flagship width with SDF
      dumps -> the consistency CLI on the same-category instances -> MMD /
@@ -171,7 +182,20 @@ result line):
      one call bit-equal to a single-device service's, K1 = 100 and K2 = 6
      a shard a call, 8 concurrent clients' p50 / p95 and requests/sec
      beside phase 8's; (d) `python -m echoscene_torch.parallel.dryrun
-     --n 1` on NCCL.
+     --n 1` on NCCL;
+ 12. drive tensor parallelism on the one card: (a) one shape-denoiser
+     forward at full width on the flagship's step inputs, sampling twin
+     and f32 module, sharded over 2 gloo ranks sharing cuda:0, against the
+     single-device forward of a freshly seeded flagship (bf16 within 2^-4
+     of the peak and 2^-5 of the mean magnitude, f32 within 1e-4 of the
+     peak), 4 heads and K1 = 5 launches a forward per rank, ms per forward
+     per rank beside one device's (one card through host memory: not a
+     scaling number); (b) `python -m echoscene_torch.parallel.dryrun --n 4
+     --devices cuda:0,cuda:0,cuda:0,cuda:0` (a (2, 2) mesh), in its own
+     process beside (c); (c) the tiny
+     dp x tp step over 4 gloo ranks on cuda:0 against the same ranks on the
+     CPU forced down the card's ReLU branches (phase 3's limits on the loss
+     and the first moments).
 
 Prints the total seconds, the `kernels` JSON line (K1 / K2 in bf16 and in
 f32, each entry with its dtype; K1 / K2 also carry their training launches,
@@ -184,8 +208,9 @@ the counts set to 0 at the phase's start and read at its end; K1 / K2
 bf16 also carry phase 11's launches per rank and train step, dp and
 ZeRO-1, and per shard and serving call; K4's `dp_launches` is its count
 over the whole of phase 11, set to 0 at the phase's start and read at its
-end), the card's name and power limit
-(nvidia-smi), and as its last line
+end; `onepass_attention_tp_shard` is K1 at a tensor-parallel rank's 4
+heads, its launches phase 12 (a)'s per rank and forward), the card's name
+and power limit (nvidia-smi), and as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Needs one card; exits 2 without CUDA or without the repository beside it.
 """
@@ -210,7 +235,7 @@ GRAD_LEAF_RTOL = 1e-3        # ... each gradient leaf, of its part's peak
 PARAM_ATOL = 1e-6            # ... parameters after AdamW on the same grads
 # a ReLU input whose sign differs between the card and the CPU, as a share
 # of its call's peak |input|: f32 rounding accumulated over the layers
-# before it (phase 11 b)
+# before it (phases 3, 11 b and 12 c)
 RELU_MARGIN = 1e-4
 # K1 / K2 in phase 7's training step: the shape UNet's self-attention at
 # diffusion_bs 8 rows, the frozen VQ encoder's mid attention on 8 SDFs
@@ -1003,15 +1028,21 @@ def check_tiny_against_cpu() -> float:
 
 def check_tiny_train_against_cpu() -> dict:
     """Phase 3, training: one tiny-config f32 training step on the card and
-    on the CPU from the same weights and draws (loss within LOSS_RTOL, each
-    gradient leaf within GRAD_LEAF_RTOL of its part's peak + 1e-7); then
-    AdamW on each
-    from the CPU's own gradients (parameters within PARAM_ATOL).  The tiny
-    config reaches no kernel, so f32 runs on the card here."""
+    on the CPU from the same weights and draws, the CPU forced down the
+    branches every ReLU took on the card (`dryrun.ReluBranches`, as phase
+    11 (b)): a few GCN ReLU inputs of this batch lie within f32 rounding of
+    0, and a branch taken the other way moves the leaves above it past the
+    limit.  Each input whose CPU sign disagrees with the card's branch must
+    lie within RELU_MARGIN of its call's peak; then the loss within
+    LOSS_RTOL, each gradient leaf within GRAD_LEAF_RTOL of its part's peak
+    + 1e-7; then AdamW on each from the CPU's own gradients (parameters
+    within PARAM_ATOL).  The tiny config reaches no kernel, so f32 runs on
+    the card here."""
     import torch
     from echoscene_torch.benchmarks import seeded_weights_, synthetic_batch
     from echoscene_torch.models.config import tiny_config
     from echoscene_torch.models.sgdiff import SGDiff, trainable_parameters
+    from echoscene_torch.parallel.dryrun import ReluBranches
 
     cfg = tiny_config()
     # the flagship's layout width, 16 channels per GroupNorm group: at the
@@ -1031,21 +1062,31 @@ def check_tiny_train_against_cpu() -> dict:
              "noise_shape": torch.randn(
                  (m, sd.image_size, sd.image_size, sd.image_size,
                   cfg.shape_branch.vqvae.embed_dim), generator=g)}
-    runs = []
-    for device in ("cpu", "cuda"):
+    runs, masks = {}, None
+    # the card first: its branches are recorded, then forced on the CPU
+    for device in ("cuda", "cpu"):
         torch.manual_seed(0)
         sg = SGDiff(cfg, 9, 16, device=device)
         seeded_weights_(sg.module.cpu(), 0)
         sg.module.to(device)
+        branches = ReluBranches(sg.module, masks)
         loss, _ = sg.loss_fn(batch.to(device), draws={
             k: v.to(device) for k, v in draws.items()})
         loss.backward()
+        branches.remove()
+        masks = branches.masks
         params = trainable_parameters(sg.module)
         names = [n for n, _ in params]
         grads = [p.grad.detach().cpu() if p.grad is not None
                  else torch.zeros(p.shape) for _, p in params]
-        runs.append((sg, loss.item(), grads))
-    (cpu, loss_c, grads_c), (card, loss_g, grads_g) = runs
+        runs[device] = (sg, loss.item(), grads)
+    (cpu, loss_c, grads_c), (card, loss_g, grads_g) = runs["cpu"], \
+        runs["cuda"]
+    if not branches.margin <= RELU_MARGIN:
+        fail(f"tiny training step: {branches.flips} CPU ReLU inputs on the "
+             f"other side of 0 from the card's branch, the largest "
+             f"{branches.margin:.3e} of its call's peak (limit "
+             f"{RELU_MARGIN})")
     loss_rel = abs(loss_g - loss_c) / abs(loss_c)
     # each leaf within GRAD_LEAF_RTOL of the gradient peak of its part
     # (layout_denoiser, shape_denoiser, ...) + 1e-7: a leaf whose gradient
@@ -1083,7 +1124,8 @@ def check_tiny_train_against_cpu() -> dict:
              f"{param_err:.3e} between CUDA and CPU (limit {PARAM_ATOL})")
     return {"loss_rel_err": loss_rel, "grad_err_of_part_peak": of_part,
             "grad_err_of_own_peak": leaf,
-            "param_abs_err_after_2_steps": param_err}
+            "param_abs_err_after_2_steps": param_err,
+            "relu_flips": branches.flips, "relu_margin": branches.margin}
 
 
 def trainer_steps(sg, state, card: str, steps: int = 2) -> dict:
@@ -2428,6 +2470,26 @@ def dp_train_path(sg, card: str) -> dict:
             "adamw_ms": adamw_ms, "trainable": n, "buffers": bytes_}
 
 
+def run_against(a, b):
+    """Two rank jobs' results of one run (`dryrun.train_job`): (loss rel
+    err, the largest first-moment error as a share of its part's peak, the
+    leaves off by more than GRAD_LEAF_RTOL of it)."""
+    part = lambda name: name.split(".")[0]
+    rel = max(abs(x["loss"] - y["loss"]) / abs(y["loss"])
+              for x, y in zip(a["metrics"], b["metrics"]))
+    peak = {}
+    for name, (mu, _) in b["moments"].items():
+        peak[part(name)] = max(peak.get(part(name), 0.0),
+                               mu.abs().max().item())
+    errs = {name: (a["moments"][name][0] - mu).abs().max().item()
+            for name, (mu, _) in b["moments"].items()}
+    bad = [name for name, e in errs.items()
+           if not e <= GRAD_LEAF_RTOL * peak[part(name)] + 1e-8]
+    of_part = max(e / peak[part(name)] for name, e in errs.items()
+                  if peak[part(name)] > 0)
+    return rel, of_part, bad
+
+
 def dp_tiny_gloo(card: str) -> dict:
     """Phase 11 (b): the tiny config (layout width 512, as phase 3) over 2
     gloo ranks sharing cuda:0, every collective through host memory, with
@@ -2490,28 +2552,11 @@ def dp_tiny_gloo(card: str) -> dict:
     jobs[1]["relu"] = {n: card_res[n]["relu_masks"] for n in names}
     cpu_res = run(jobs[1])
     seconds = time.perf_counter() - t0
-    part = lambda name: name.split(".")[0]
-
-    def against(a, b):
-        """(loss rel err, the largest first-moment error as a share of its
-        part's peak, the leaves off by more than GRAD_LEAF_RTOL of it)."""
-        rel = max(abs(x["loss"] - y["loss"]) / abs(y["loss"])
-                  for x, y in zip(a["metrics"], b["metrics"]))
-        peak = {}
-        for name, (mu, _) in b["moments"].items():
-            peak[part(name)] = max(peak.get(part(name), 0.0),
-                                   mu.abs().max().item())
-        errs = {name: (a["moments"][name][0] - mu).abs().max().item()
-                for name, (mu, _) in b["moments"].items()}
-        bad = [name for name, e in errs.items()
-               if not e <= GRAD_LEAF_RTOL * peak[part(name)] + 1e-8]
-        of_part = max(e / peak[part(name)] for name, e in errs.items()
-                      if peak[part(name)] > 0)
-        return rel, of_part, bad
 
     worst, own = {}, {}
     for run_name in names:
-        rel, of_part, bad = against(card_res[run_name], cpu_res[run_name])
+        rel, of_part, bad = run_against(card_res[run_name],
+                                        cpu_res[run_name])
         flips = cpu_res[run_name]["relu_flips"]
         margin = cpu_res[run_name]["relu_margin"]
         if not (rel <= LOSS_RTOL and not bad and margin <= RELU_MARGIN):
@@ -2524,7 +2569,8 @@ def dp_tiny_gloo(card: str) -> dict:
         worst[run_name] = {"loss_rel_err": rel,
                            "moment_err_of_part_peak": of_part,
                            "relu_flips": flips, "relu_margin": margin}
-        rel, of_part, bad = against(card_res[run_name], own_res[run_name])
+        rel, of_part, bad = run_against(card_res[run_name],
+                                        own_res[run_name])
         own[run_name] = {"loss_rel_err": rel,
                          "moment_err_of_part_peak": of_part,
                          "leaves_past_limit": len(bad)}
@@ -2713,6 +2759,285 @@ def dp_path(sg, card: str, phase8: dict) -> dict:
     return out
 
 
+BF16_TP_MAX = 2.0 ** -4       # phase 12 (a): bf16 tp vs one device, of peak
+BF16_TP_MEAN = 2.0 ** -5      # ... mean err of the mean magnitude
+F32_TP_MAX = 1e-4             # ... f32, of the peak
+
+
+def upsample_sites(rows: int, card: str) -> list:
+    """Phase 5: each upsample site of the flagship (the shape UNet's two at
+    the path's rows, the VQ decoder's two at a decode chunk of 8) in the
+    factored form against interpolate + conv: ms of each in bf16, as the
+    sampling twin runs them (bf16 weights; the factored form's bias f32),
+    after the two forms agree in f32 (TF32 off) within 1e-5 of the peak."""
+    import torch
+    import torch.nn.functional as F
+    from echoscene_torch.nn.blocks import factored_upsample_conv
+
+    sites = [("unet level 2, 16x4x4", (rows, 672, 16, 4, 4), (1, 2)),
+             ("unet level 1, 16x8x8", (rows, 448, 16, 8, 8), (1, 2)),
+             ("decoder 16^3", (8, 256, 16, 16, 16), (0, 1, 2)),
+             ("decoder 32^3", (8, 128, 32, 32, 32), (0, 1, 2))]
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    out = []
+    for name, shape, up in sites:
+        c = shape[1]
+        x = torch.randn(shape, generator=gen, device="cuda")
+        w = torch.randn((c, c, 3, 3, 3), generator=gen,
+                        device="cuda") / math.sqrt(27 * c)
+        b = 0.02 * torch.randn((c,), generator=gen, device="cuda")
+        scale = [2 if a in up else 1 for a in range(3)]
+
+        def direct(x, w, b):
+            return F.conv3d(F.interpolate(x, scale_factor=scale,
+                                          mode="nearest"), w, b, padding=1)
+
+        want = direct(x, w, b)
+        err = ((factored_upsample_conv(x, w, b, up) - want).abs().max()
+               / want.abs().max()).item()
+        if not err <= 1e-5:
+            fail(f"factored upsample at {name} {shape}: f32 max err {err:.3e}"
+                 f" of the peak against interpolate + conv (limit 1e-5)")
+        del want
+        xb, wb, bb = x.bfloat16(), w.bfloat16(), b.bfloat16()
+        forms = {"factored": lambda: factored_upsample_conv(xb, wb, b, up),
+                 "direct": lambda: direct(xb, wb, bb)}
+        # in turns, factored, direct, direct, factored
+        ms = {"factored": [], "direct": []}
+        for form in ("factored", "direct", "direct", "factored"):
+            ms[form].append(cuda_ms(forms[form], iters=10))
+        f_ms, d_ms = (sum(ms[f]) / 2 for f in ("factored", "direct"))
+        macs = (math.prod(shape) * c * 27
+                * 2 ** len(up)) / (2.25 if len(up) == 2 else 3.375)
+        out.append({"site": name, "shape": list(shape), "up_axes": list(up),
+                    "factored_ms": f_ms, "direct_ms": d_ms, "turns_ms": ms,
+                    "f32_err_of_peak": err, "factored_gmacs": macs / 1e9})
+        print(f"upsample {name} {list(shape)}: factored {f_ms:.4f} ms "
+              f"{ms['factored']}, interpolate + conv {d_ms:.4f} ms "
+              f"{ms['direct']} ({d_ms / f_ms:.2f} x), bf16; f32 forms within "
+              f"{err:.2e} of the peak [{card}]")
+    return out
+
+
+def factored_twin_path(sg, batch, rows: int, card: str) -> dict:
+    """Phase 5: the shape step and the decode chunk of the flagship's
+    sampling twin (the factored upsamples) beside the same weights in a
+    twin with interpolate + conv, timed factored, direct, factored again:
+    ms, busy share, launches and the 8 kernels with the most device time
+    of each (`device_busy_shares`), and the bf16 difference of the two
+    twins' outputs on the same inputs (max of each output's peak, mean of
+    its mean magnitude)."""
+    import torch
+    from echoscene_torch.benchmarks import device_busy_shares, part_calls
+    from echoscene_torch.models.sgdiff import inference_twin
+
+    direct = inference_twin(sg.module, torch.bfloat16, factored=False)
+    names = ("shape_step", "decode_chunk")
+    runs = [device_busy_shares(sg, batch, rows, model=m, names=names, top=8)
+            for m in (None, direct, None)]
+    diffs = {}
+    with torch.no_grad():
+        fac, dirc = part_calls(sg, batch, rows), part_calls(sg, batch, rows,
+                                                             direct)
+        for name in names:
+            a, b = fac[name]().float(), dirc[name]().float()
+            diffs[name] = {
+                "max_of_peak": ((a - b).abs().max()
+                                / a.abs().max()).item(),
+                "mean_of_mean": ((a - b).abs().mean()
+                                 / a.abs().mean()).item()}
+            if not torch.isfinite(b).all():
+                fail(f"the direct twin's {name} is not finite")
+    del direct, fac, dirc
+    torch.cuda.empty_cache()
+    return {"factored_parts": runs[0], "direct_parts": runs[1],
+            "factored_parts_again": runs[2],
+            "diff_factored_vs_direct": diffs}
+
+
+def tp_forward(sg, batch, rows: int, card: str) -> dict:
+    """Phase 12 (a): one shape-denoiser forward at full width on the
+    flagship's step inputs, sampling twin and f32 module, over 2 gloo
+    ranks sharing cuda:0 (`dryrun.tp_forward_job`: each rank builds the
+    seeded flagship and shards it), against the single-device forward of
+    the phase-4 model: bf16 within BF16_TP_MAX of the peak and
+    BF16_TP_MEAN of the mean magnitude, f32 within F32_TP_MAX of the peak;
+    each rank runs 4 heads a site and launches K1 5 times a forward (at
+    (rows, 1024, 4, 56)); ms per forward per rank beside one device's,
+    through host memory on one card: not a scaling number."""
+    import torch
+    from echoscene_torch.benchmarks import part_calls
+    from echoscene_torch.kernels import flash_attention as fa
+    from echoscene_torch.parallel.dryrun import run_job, tp_forward_job
+
+    single = {}
+    with torch.no_grad():
+        calls = part_calls(sg, batch, rows)
+        x = calls["inputs"]
+        args = [x[k] for k in ("z", "t", "obj_embed", "triples", "obj_mask",
+                               "triple_mask")]
+        for form, fn in (("bf16", calls["shape_step"]),
+                         ("f32", lambda: sg.module.eval().shape_eps(*args))):
+            torch.cuda.synchronize()
+            fa.reset_launches()
+            y = fn()
+            torch.cuda.synchronize()
+            launches = dict(fa.LAUNCHES)
+            t0 = time.perf_counter()
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+            single[form] = {"out": y.float().cpu(), "launches": launches,
+                            "ms": (time.perf_counter() - t0) * 1e3 / 3}
+    del calls
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = run_job({"devices": ["cuda:0", "cuda:0"], "iters": 1,
+                   "inputs": {k: v.cpu() for k, v in x.items()}}, "gloo",
+                  fn=tp_forward_job)
+    seconds = time.perf_counter() - t0
+    out = {"seconds": seconds, "ranks": res["ranks"], "errors": {},
+           "single_ms": {f: single[f]["ms"] for f in single},
+           "single_launches": {f: single[f]["launches"] for f in single}}
+    for rank in res["ranks"]:
+        if rank["heads"] != [4]:
+            fail(f"a tp rank's attention runs {rank['heads']} heads, want 4")
+        for form in ("bf16", "f32"):
+            got = rank[f"{form}_launches"]["onepass_attention"]
+            if got != 5:
+                fail(f"K1 launched {got} times in a tp rank's {form} "
+                     f"forward, want 5")
+    for form, (lim_max, lim_mean) in (("bf16", (BF16_TP_MAX, BF16_TP_MEAN)),
+                                      ("f32", (F32_TP_MAX, None))):
+        a, b = res["outputs"][form], single[form]["out"]
+        if not bool(torch.isfinite(a).all()):
+            fail(f"the tp {form} forward is not finite")
+        err = ((a - b).abs().max() / b.abs().max()).item()
+        mean = ((a - b).abs().mean() / b.abs().mean()).item()
+        out["errors"][form] = {"max_of_peak": err, "mean_of_mean": mean}
+        if not (err <= lim_max and (lim_mean is None or mean <= lim_mean)):
+            fail(f"tp {form} shape step vs one device: max err {err:.3e} of "
+                 f"the peak (limit {lim_max}), mean err {mean:.3e} of the "
+                 f"mean magnitude (limit {lim_mean})")
+    r0 = res["ranks"][0]
+    print(f"tp shape step at full width, 2 gloo ranks sharing cuda:0 (one "
+          f"card through host memory, not a scaling number): bf16 "
+          f"{r0['bf16_ms']:.3f} / {res['ranks'][1]['bf16_ms']:.3f} ms a "
+          f"forward per rank against {single['bf16']['ms']:.3f} ms on one "
+          f"device; f32 {r0['f32_ms']:.3f} / {res['ranks'][1]['f32_ms']:.3f}"
+          f" against {single['f32']['ms']:.3f}; K1 5 a forward per rank at "
+          f"({rows}, 1024, 4, 56); vs one device {json.dumps(out['errors'])};"
+          f" {seconds:.1f} s with the ranks' start [{card}]")
+    return out
+
+
+def tp_dryrun_start():
+    """Phase 12 (b), started: `python -m echoscene_torch.parallel.dryrun
+    --n 4 --devices cuda:0,cuda:0,cuda:0,cuda:0` (4 gloo ranks on the card,
+    a (2, 2) mesh, as a user runs it) in the background, its output in
+    temporary files; (start time, process, stdout file, stderr file)."""
+    import tempfile
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen([sys.executable, "-m",
+                             "echoscene_torch.parallel.dryrun", "--n", "4",
+                             "--devices", ",".join(["cuda:0"] * 4)],
+                            cwd=ROOT, stdout=out, stderr=err, text=True)
+    return time.perf_counter(), proc, out, err
+
+
+def tp_dryrun(started, card: str) -> dict:
+    """Phase 12 (b), awaited: the dry run's exit code and its stage
+    lines."""
+    t0, proc, out, err = started
+    proc.wait(timeout=600)
+    seconds = time.perf_counter() - t0
+    out.seek(0)
+    err.seek(0)
+    lines = [ln for ln in out.read().splitlines()
+             if ln.startswith("[dryrun]")]
+    if proc.returncode != 0:
+        fail(f"parallel.dryrun --n 4 on cuda:0 exited {proc.returncode}: "
+             f"{err.read()[-2000:]}")
+    for ln in lines:
+        print(f"  {ln}")
+    print(f"parallel.dryrun --n 4, 4 gloo ranks on cuda:0 (mesh 2 x 2): "
+          f"{seconds:.1f} s, beside (c) [{card}]")
+    return {"seconds": seconds, "lines": lines}
+
+
+def tp_tiny_gloo(card: str) -> dict:
+    """Phase 12 (c): the tiny dp x tp step (layout width 512, as phase 3)
+    over 4 gloo ranks sharing cuda:0, a (2, 2) mesh, against the same ranks
+    on the CPU forced down the card's ReLU branches, as phase 11 (b): the
+    loss within LOSS_RTOL, the first moments (gathered to full tensors)
+    within GRAD_LEAF_RTOL of their part's peak, each flipped input within
+    RELU_MARGIN of its call's peak."""
+    from echoscene_torch.models.config import tiny_config
+    from echoscene_torch.parallel.dryrun import run_job, tiny_job
+
+    cfg = tiny_config()
+    cfg.layout_denoiser.model_channels = 512
+    jobs = []
+    for where in ("cuda:0", "cpu"):
+        job = tiny_job([where] * 4, steps=1, cfg=cfg, draws=True,
+                       model_par=2)
+        job["deterministic"] = True
+        job["runs"] = [{"name": "dp_tp", "mode": "dp",
+                        "shards": job.pop("shards")}]
+        jobs.append(job)
+    t0 = time.perf_counter()
+    jobs[0]["relu"] = "record"
+    card_res = run_job(jobs[0], "gloo")
+    jobs[1]["relu"] = {"dp_tp": card_res["dp_tp"]["relu_masks"]}
+    cpu_res = run_job(jobs[1], "gloo")
+    seconds = time.perf_counter() - t0
+    rel, of_part, bad = run_against(card_res["dp_tp"], cpu_res["dp_tp"])
+    flips = cpu_res["dp_tp"]["relu_flips"]
+    margin = cpu_res["dp_tp"]["relu_margin"]
+    if not (rel <= LOSS_RTOL and not bad and margin <= RELU_MARGIN):
+        fail(f"dp x tp step, 4 gloo ranks on cuda:0 vs the CPU on the card's "
+             f"ReLU branches: loss rel err {rel:.3e} (limit {LOSS_RTOL}); "
+             f"first moments off by more than {GRAD_LEAF_RTOL} of their "
+             f"part's peak: {bad[:6]}; {flips} ReLU inputs on the other side "
+             f"of 0, the largest {margin:.3e} of its call's peak (limit "
+             f"{RELU_MARGIN})")
+    hops = card_res["host_hops"]
+    if not hops:
+        fail("gloo on cuda:0 ran no collective through host memory")
+    out = {"loss_rel_err": rel, "moment_err_of_part_peak": of_part,
+           "relu_flips": flips, "relu_margin": margin,
+           "host_hops_rank0": hops, "seconds": seconds}
+    print(f"dp x tp step (tiny config, mesh 2 x 2) over 4 gloo ranks sharing "
+          f"cuda:0 against the CPU's ranks on the card's ReLU branches: "
+          f"{json.dumps(out)} [{card}]")
+    return out
+
+
+def tp_path(rows: int, card: str) -> dict:
+    """Phase 12: tensor parallelism on the one card, (a) to (c).  (a) holds
+    the ranks against a freshly built seeded flagship (the phase-4 model
+    has trained since); (b) runs in its own process beside (c), both on
+    tiny models, and is stopped if (c) fails."""
+    import torch
+    from echoscene_torch.benchmarks import build_flagship
+
+    t0 = time.perf_counter()
+    ref, batch = build_flagship(device="cuda")
+    out = {"forward": tp_forward(ref, batch, rows, card)}
+    del ref
+    torch.cuda.empty_cache()
+    started = tp_dryrun_start()
+    try:
+        out["tiny"] = tp_tiny_gloo(card)
+        out["dryrun"] = tp_dryrun(started, card)
+    finally:
+        if started[1].poll() is None:
+            started[1].kill()
+            started[1].wait()
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     global T_START
     T_START = time.perf_counter()
@@ -2788,6 +3113,18 @@ def main() -> int:
               f"{e['err_of_limit'][1]:.3f} of their limits, 32 keys left out "
               f"at {e['keys_dropped_err_of_limit'][0]:.3f} / "
               f"{e['keys_dropped_err_of_limit'][1]:.3f} [{card}]")
+    # K1 at a tensor-parallel rank's head shard (phase 12: 4 of the 8)
+    tp_entry = check_kernel("onepass_attention", fa.onepass_attention,
+                            (rows, 1024, 4, 56), [],
+                            "echoscene_tpu/kernels/flash_attention.py:73",
+                            clock)
+    tp_entry["name"] = "onepass_attention_tp_shard"
+    print(f"kernel onepass_attention {tp_entry['shape']} (a tp rank's 4 "
+          f"heads): {tp_entry['ms']:.4f} ms, {tp_entry['share_of_bound']:.3f}"
+          f" of the bound {tp_entry['bound_ms']:.4f} ms (by "
+          f"{tp_entry['bound_by']}); sdpa {tp_entry['library_ms']:.4f} ms, "
+          f"plain {tp_entry['plain_ms']:.3f} ms; max abs err "
+          f"{tp_entry['max_abs_err']:.3e} [{card}]")
     # K1 / K2 at the training shapes, through the differentiable Function
     for e, shape in zip(entries, (TRAIN_K1_SHAPE, TRAIN_K2_SHAPE)):
         wrapper = getattr(fa, e["name"])
@@ -2902,6 +3239,25 @@ def main() -> int:
         print(f"part {name}: {p['wall_ms']:.3f} ms wall per call, device "
               f"busy share {busy}, {p['kernel_launches']} kernel launches "
               f"[{card}]")
+    # the factored upsamples (the flagship's twin) beside interpolate + conv
+    ft = factored_twin_path(sg, batch, rows, card)
+    for name in ft["direct_parts"]:
+        line = "; ".join(
+            f"{form} {p[name]['wall_ms']:.3f} ms wall, device "
+            f"{p[name]['device_ms']} ms, {p[name]['kernel_launches']} "
+            f"launches" for form, p in (
+                ("factored", ft["factored_parts"]),
+                ("interpolate + conv", ft["direct_parts"]),
+                ("factored again", ft["factored_parts_again"])))
+        print(f"part {name}, the twin's upsamples: {line}; bf16 outputs of "
+              f"the two twins differ by "
+              f"{json.dumps(ft['diff_factored_vs_direct'][name])} [{card}]")
+        for form in ("factored_parts", "direct_parts"):
+            print(f"  {form} {name} top kernels (name, device ms, "
+                  f"launches): {json.dumps(ft[form][name]['top'])}")
+    ft["sites"] = upsample_sites(rows, card)
+    print(f"flagship generation (factored twin, phase 4): {wall:.3f} s wall "
+          f"[{card}]")
 
     # 6. the evaluation path: fake dataset -> SceneEvaluator -> SDF dumps ->
     # consistency CLI -> MMD / COV / 1-NN, on the phase-4 model
@@ -3042,6 +3398,17 @@ def main() -> int:
     entries[2]["dp_launches"] = dp["k4_launches"]
     print(f"dp details: {json.dumps(dp)}; phase 11 took "
           f"{dp['phase_s']:.1f} s")
+    # 12. tensor parallelism on the one card: the full-width shape step
+    # over 2 gloo ranks, the (2, 2) dry run, the tiny dp x tp step vs CPU
+    tp = tp_path(rows, card)
+    tp_entry["launches"] = tp["forward"]["ranks"][0]["bf16_launches"][
+        "onepass_attention"]
+    tp_entry["launches_per_rank"] = [
+        r["bf16_launches"]["onepass_attention"]
+        for r in tp["forward"]["ranks"]]
+    print(f"tp details: {json.dumps(tp)}; phase 12 took "
+          f"{tp['phase_s']:.1f} s")
+    entries.append(tp_entry)
     entries[2:2] = f32_entries + [k2_train]
     for e in entries:
         e["status"] = "ported: built, matches its plain version, on the path"

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import os
 import time
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -200,15 +200,14 @@ def time_train_step(sg: SGDiff, state: TrainState, batch: SceneBatch,
     return batch_scenes * k / dt, dt / k, torch.stack(losses).cpu()
 
 
-@torch.no_grad()
-def device_busy_shares(sg: SGDiff, batch: SceneBatch, rows: int,
-                       iters: int = 5) -> dict:
-    """For each part of `sample_fn` (the graph context, one layout denoiser
-    step, one shape denoiser step, one decode chunk): wall ms per call on
-    the card, and the device time and kernel launches of one call under
-    torch.profiler (device-side events only), whose ratio to the wall time
-    is the share of the call the device is busy."""
-    model = sg.inference_module()
+def part_calls(sg: SGDiff, batch: SceneBatch, rows: int,
+               model: Optional[torch.nn.Module] = None) -> dict:
+    """The parts of `sample_fn` as calls of `model` (the sampling module,
+    `sg.inference_module()`, by default) on seeded inputs of the flagship
+    step: {"context", "layout_step", "shape_step", "decode_chunk"}; and
+    under "inputs" the shape step's (z, t, obj_embed, triples, obj_mask,
+    triple_mask)."""
+    model = sg.inference_module() if model is None else model
     dev = sg.device
     cfg = sg.cfg
     gen = torch.Generator(device=dev).manual_seed(7)
@@ -222,14 +221,35 @@ def device_busy_shares(sg: SGDiff, batch: SceneBatch, rows: int,
                     generator=gen, device=dev)
     t = torch.full((rows,), 500, dtype=torch.long, device=dev)
     obj_embed, uc_s = ctx["obj_embed"][:rows], ctx["uc_s"][:rows, None, :]
-    parts = {
+    return {
         "context": lambda: model.encode_context(batch, change, False),
         "layout_step": lambda: model.layout_eps(
             x, t, obj_embed, triples, obj_mask, tri_mask),
         "shape_step": lambda: model.shape_eps(
             z, t, uc_s, triples, obj_mask, tri_mask),
         "decode_chunk": lambda: model.decode_latent(z[:8]),
+        "inputs": {"z": z, "t": t, "obj_embed": uc_s, "triples": triples,
+                   "obj_mask": obj_mask, "triple_mask": tri_mask},
     }
+
+
+@torch.no_grad()
+def device_busy_shares(sg: SGDiff, batch: SceneBatch, rows: int,
+                       iters: int = 5,
+                       model: Optional[torch.nn.Module] = None,
+                       names: Optional[Sequence[str]] = None,
+                       top: int = 0) -> dict:
+    """For each part of `sample_fn` (the graph context, one layout denoiser
+    step, one shape denoiser step, one decode chunk; or the parts `names`)
+    of `model` (the sampling module by default): wall ms per call on
+    the card, and the device time and kernel launches of one call under
+    torch.profiler (device-side events only), whose ratio to the wall time
+    is the share of the call the device is busy; with `top`, that many
+    kernels with the most device time (`profile_call`)."""
+    calls = part_calls(sg, batch, rows, model)
+    dev = sg.device
+    parts = {k: calls[k] for k in (names or ("context", "layout_step",
+                                             "shape_step", "decode_chunk"))}
     out = {}
     for name, fn in parts.items():
         fn()
@@ -239,15 +259,17 @@ def device_busy_shares(sg: SGDiff, batch: SceneBatch, rows: int,
             fn()
         torch.cuda.synchronize(dev)
         out[name] = profile_call(fn, dev,
-                                 (time.perf_counter() - t0) / iters * 1e3)
+                                 (time.perf_counter() - t0) / iters * 1e3,
+                                 top)
     return out
 
 
-def profile_call(fn, device, wall_ms: float) -> dict:
+def profile_call(fn, device, wall_ms: float, top: int = 0) -> dict:
     """The device time and kernel launches of one call of `fn` under
     torch.profiler (device-side events only), and their ratio to `wall_ms`,
     the call's wall time measured without the profiler: the share of the
-    call the device is busy."""
+    call the device is busy; with `top`, under "top" the `top` kernels
+    with the most device time, as [name, ms, launches]."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -258,9 +280,14 @@ def profile_call(fn, device, wall_ms: float) -> dict:
     cuda = torch.autograd.DeviceType.CUDA
     kernels = [e for e in prof.key_averages() if e.device_type == cuda]
     dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    return {"wall_ms": wall_ms, "device_ms": dev_ms if dev_ms > 0 else None,
-            "busy_share": dev_ms / wall_ms if dev_ms > 0 else None,
-            "kernel_launches": sum(e.count for e in kernels)}
+    out = {"wall_ms": wall_ms, "device_ms": dev_ms if dev_ms > 0 else None,
+           "busy_share": dev_ms / wall_ms if dev_ms > 0 else None,
+           "kernel_launches": sum(e.count for e in kernels)}
+    if top:
+        kernels.sort(key=lambda e: -e.self_device_time_total)
+        out["top"] = [[e.key[:90], e.self_device_time_total / 1e3, e.count]
+                      for e in kernels[:top]]
+    return out
 
 
 def concurrent_latency(service, requests, window_ms: float, n_clients: int,

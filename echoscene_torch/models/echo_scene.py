@@ -76,14 +76,15 @@ class EchoSceneModule(nn.Module):
                 message_passing=sd.message_passing,
                 enable_t_emb=sd.enable_t_emb,
                 gconv_num_layers=sd.gconv_num_layers, num_preds=16,
-                obj_dim=dims[-1])
+                obj_dim=dims[-1], factored_upsample=sd.factored_upsample)
             vq = cfg.shape_branch.vqvae
             self.vqvae = VQVAE(
                 n_embed=vq.n_embed, embed_dim=vq.embed_dim, ch=vq.ch,
                 ch_mult=tuple(vq.ch_mult), num_res_blocks=vq.num_res_blocks,
                 attn_resolutions=tuple(vq.attn_resolutions),
                 in_channels=vq.in_channels, out_ch=vq.out_ch,
-                z_channels=vq.z_channels, resolution=vq.resolution)
+                z_channels=vq.z_channels, resolution=vq.resolution,
+                factored_upsample=vq.factored_upsample)
 
         ld = cfg.layout_denoiser
         self.layout_denoiser = LayoutDenoiser(

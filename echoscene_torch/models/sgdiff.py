@@ -43,6 +43,8 @@ from ..core.boxes import box_vec_from_boxes
 from ..core.graphbatch import SceneBatch
 from ..diffusion.ddpm import LayoutDiffusion
 from ..diffusion.ldm import ShapeDiffusion
+from ..nn.blocks import Upsample
+from ..nn.vqvae import Upsample3D
 from .config import EchoSceneConfig
 from .echo_scene import EchoSceneModule
 
@@ -62,12 +64,30 @@ def set_precision() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
-def inference_twin(module: torch.nn.Module, dtype: torch.dtype
-                   ) -> torch.nn.Module:
-    """A copy of `module` with its parameters (not buffers) cast to dtype."""
+def inference_twin(module: torch.nn.Module, dtype: torch.dtype,
+                   factored: bool = True) -> torch.nn.Module:
+    """A copy of `module` with its parameters (not buffers) cast to dtype:
+    JAX's bf16 sampling twin (echoscene_tpu/models/sgdiff.py:143-157).  As
+    there, with `factored` its shape denoiser's and VQ-VAE's 3D upsamples
+    (`nn.blocks.Upsample`, `nn.vqvae.Upsample3D`) run the exact factored
+    form, whose conv bias stays f32 (JAX's FactoredUpsampleConv adds the
+    f32 parameter); without it, interpolate + conv, every parameter in
+    dtype."""
     twin = copy.deepcopy(module).eval()
+    for name in ("shape_denoiser", "vqvae"):
+        for m in getattr(twin, name, torch.nn.Module()).modules():
+            if isinstance(m, (Upsample, Upsample3D)):
+                m.factored = factored
+    cfg = getattr(twin, "cfg", None)
+    if cfg is not None:
+        cfg.shape_branch.denoiser.factored_upsample = factored
+        cfg.shape_branch.vqvae.factored_upsample = factored
+    keep = {id(m.conv.bias) for m in twin.modules()
+            if isinstance(m, (Upsample, Upsample3D)) and m.factored
+            and m.conv.bias is not None}
     for p in twin.parameters():
-        p.data = p.data.to(dtype)
+        if id(p) not in keep:
+            p.data = p.data.to(dtype)
         p.requires_grad_(False)
     return twin
 
@@ -119,15 +139,21 @@ def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
 @torch.no_grad()
 def clip_and_sanitize_grads(names: Sequence[str],
                             grads: Sequence[torch.Tensor],
-                            max_norm: float = 5.0) -> None:
+                            max_norm: float = 5.0,
+                            norm: Optional[Callable] = None) -> None:
     """In place: the shape denoiser's gradients scaled by min(1, max_norm /
     max(norm, 1e-6)) of their global norm, then NaN -> 0 on every gradient
     (train_3dfront.py:253-259, JAX's formula, not clip_grad_norm_'s).  A
-    NaN norm makes the scale NaN, so the whole shape subtree is zeroed."""
-    shape = [g for n, g in zip(names, grads)
+    NaN norm makes the scale NaN, so the whole shape subtree is zeroed.
+    `norm(names, tensors)` computes the global norm (`global_norm` of the
+    tensors by default; tensor parallelism passes the norm of the logical,
+    unsharded tensors)."""
+    named = [(n, g) for n, g in zip(names, grads)
              if n.startswith("shape_denoiser.")]
+    shape = [g for _, g in named]
     if shape:
-        norm = global_norm(shape)
+        norm = (global_norm(shape) if norm is None
+                else norm([n for n, _ in named], shape))
         scale = torch.minimum(torch.ones_like(norm), max_norm / torch.maximum(
             norm, torch.full_like(norm, 1e-6)))
         torch._foreach_mul_(shape, scale)
@@ -173,6 +199,11 @@ class SGDiff:
             raise NotImplementedError(f"sample_dtype {cfg.sample_dtype}")
         if cfg.compute_dtype not in ("float32", "bfloat16"):
             raise NotImplementedError(f"compute_dtype {cfg.compute_dtype}")
+        if (cfg.sample_conv != "direct"
+                or cfg.shape_branch.denoiser.winograd):
+            raise NotImplementedError(
+                f"sample_conv {cfg.sample_conv!r} / denoiser.winograd: only "
+                "the direct convolution is ported")
         self.cfg = cfg
         self.device = torch.device(device)
         self.module = EchoSceneModule(cfg, num_objs, num_preds).to(
@@ -203,12 +234,17 @@ class SGDiff:
                 self.ddim_tables = self.shape_diff.make_ddim_tables(
                     sb.ddim_steps, sb.ddim_eta)
 
-    def inference_module(self) -> EchoSceneModule:
+    def inference_module(self, device=None) -> EchoSceneModule:
         """The module sampling runs (batch norms on their running
-        statistics): the bf16 twin, or the f32 module."""
+        statistics): the bf16 twin with the factored upsamples, or the f32
+        module as it is configured; on `device` (the module's by default;
+        elsewhere a copy)."""
+        dev = self.device if device is None else torch.device(device)
         if self.cfg.sample_dtype == "bfloat16":
-            return inference_twin(self.module, torch.bfloat16)
-        return self.module.eval()
+            return inference_twin(self.module, torch.bfloat16).to(dev)
+        if dev == self.device:
+            return self.module.eval()
+        return copy.deepcopy(self.module).to(dev).eval()
 
     # ------------------------------------------------------------------
     def init_train_state(self) -> TrainState:
@@ -335,10 +371,12 @@ class SGDiff:
         return {k: v.detach() for k, v in metrics.items()}
 
     def apply_gradients(self, state: TrainState,
-                        grads: List[torch.Tensor]) -> None:
+                        grads: List[torch.Tensor],
+                        norm: Optional[Callable] = None) -> None:
         """The optimizer chain on one call's gradients (aligned with
         `trainable_parameters`), optax.MultiSteps(clip_and_sanitize ->
-        adamw) when grad_accum > 1; advances state.step."""
+        adamw) when grad_accum > 1; advances state.step.  `norm` is the
+        clip's global norm (see `clip_and_sanitize_grads`)."""
         k = max(1, int(self.cfg.grad_accum or 1))
         mini = state.step % k
         if k > 1:
@@ -350,7 +388,7 @@ class SGDiff:
             grads = state.accum
         if mini == k - 1:
             names = [n for n, _ in trainable_parameters(self.module)]
-            clip_and_sanitize_grads(names, grads)
+            clip_and_sanitize_grads(names, grads, norm=norm)
             opt = state.optimizer
             lr = lr_schedule(self.cfg)(state.step // k)
             for group in opt.param_groups:

@@ -42,7 +42,8 @@ class ShapeDenoiser(UNetTorso):
                  message_passing: bool = True, enable_t_emb: bool = True,
                  gconv_dim: int = 64, gconv_num_layers: int = 5,
                  num_preds: int = 16, obj_dim: Optional[int] = None,
-                 use_checkpoint: bool = False):
+                 use_checkpoint: bool = False,
+                 factored_upsample: bool = False):
         if conditioning_key == "concat":
             x_dim, torso_in, torso_ctx = image_size ** 3, in_channels + 2, None
         elif conditioning_key == "crossattn":
@@ -52,7 +53,8 @@ class ShapeDenoiser(UNetTorso):
         super().__init__(torso_in, model_channels, out_channels,
                          num_res_blocks, attention_resolutions, channel_mult,
                          num_heads, dims=3, transformer_depth=transformer_depth,
-                         context_dim=torso_ctx, use_checkpoint=use_checkpoint)
+                         context_dim=torso_ctx, use_checkpoint=use_checkpoint,
+                         factored_upsample=factored_upsample)
         self.image_size = image_size
         self.model_channels = model_channels
         self.conditioning_key = conditioning_key

@@ -45,7 +45,8 @@ class UNetTorso(nn.Module):
                  channel_mult: Sequence[int], num_heads: int, dims: int,
                  transformer_depth: int = 1,
                  context_dim: Optional[int] = None,
-                 use_checkpoint: bool = False):
+                 use_checkpoint: bool = False,
+                 factored_upsample: bool = False):
         super().__init__()
         mc = model_channels
         emb_dim = mc * 4
@@ -87,7 +88,7 @@ class UNetTorso(nn.Module):
                 if ds in attention_resolutions:
                     layers.append(attn(ch))
                 if level and i == num_res_blocks:
-                    layers.append(Upsample(ch, dims))
+                    layers.append(Upsample(ch, dims, factored_upsample))
                     ds //= 2
                 self.output_blocks.append(TimestepEmbedSequential(*layers))
 

@@ -24,7 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels.attention import dot_product_attention
-from .blocks import group_norm
+from .blocks import factored_upsample_conv, group_norm
 from .layers import Conv3d, pointwise
 
 
@@ -98,11 +98,20 @@ class Downsample3D(nn.Module):
 
 
 class Upsample3D(nn.Module):
-    def __init__(self, channels: int):
+    """Nearest 2x in all three dims + conv (vqvae_modules.py:24-39);
+    `factored` (the sampling twin only) computes the pair as 8 2-tap
+    convolutions on the pre-upsample grid (`blocks.factored_upsample_conv`,
+    3.375x fewer multiply-adds), on the same parameters."""
+
+    def __init__(self, channels: int, factored: bool = False):
         super().__init__()
+        self.factored = factored
         self.conv = Conv3d(channels, channels, 3, padding=1)
 
     def forward(self, x):
+        if self.factored:
+            return factored_upsample_conv(x, self.conv.weight, self.conv.bias,
+                                          (0, 1, 2))
         return self.conv(F.interpolate(x, scale_factor=2, mode="nearest"))
 
 
@@ -168,7 +177,7 @@ class Decoder3D(nn.Module):
     def __init__(self, ch: int = 64, out_ch: int = 1,
                  ch_mult: Sequence[int] = (1, 2, 4), num_res_blocks: int = 1,
                  attn_resolutions: Sequence[int] = (), z_channels: int = 3,
-                 resolution: int = 64):
+                 resolution: int = 64, factored_upsample: bool = False):
         super().__init__()
         num_levels = len(ch_mult)
         block_in = ch * ch_mult[-1]
@@ -185,7 +194,7 @@ class Decoder3D(nn.Module):
                     attns.append(AttnBlock3D(block_in))
             level = _Level(blocks, attns)
             if i_level != 0:
-                level.upsample = Upsample3D(block_in)
+                level.upsample = Upsample3D(block_in, factored_upsample)
                 curr_res *= 2
             levels[i_level] = level
         self.up = nn.ModuleList([levels[i] for i in range(num_levels)])
@@ -244,12 +253,14 @@ class VQVAE(nn.Module):
     def __init__(self, n_embed: int = 8192, embed_dim: int = 3, ch: int = 64,
                  ch_mult: Sequence[int] = (1, 2, 4), num_res_blocks: int = 1,
                  attn_resolutions: Sequence[int] = (), in_channels: int = 1,
-                 out_ch: int = 1, z_channels: int = 3, resolution: int = 64):
+                 out_ch: int = 1, z_channels: int = 3, resolution: int = 64,
+                 factored_upsample: bool = False):
         super().__init__()
         self.encoder = Encoder3D(ch, ch_mult, num_res_blocks, attn_resolutions,
                                  in_channels, z_channels, resolution)
         self.decoder = Decoder3D(ch, out_ch, ch_mult, num_res_blocks,
-                                 attn_resolutions, z_channels, resolution)
+                                 attn_resolutions, z_channels, resolution,
+                                 factored_upsample)
         self.quantize = VectorQuantizer(n_embed, embed_dim)
         self.quant_conv = Conv3d(z_channels, embed_dim, 1)
         self.post_quant_conv = Conv3d(embed_dim, z_channels, 1)

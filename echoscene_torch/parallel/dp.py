@@ -1,7 +1,8 @@
 """Data-parallel training step and data-parallel generation.
 
 Port of echoscene_tpu/parallel/dp.py (`build_dp_train_step`,
-`build_dp_sample`; tensor parallelism is not ported):
+`build_dp_sample`, `build_dp_tp_sample`; the parameter sharding of tensor
+parallelism is parallel/tp.py):
   * `dp_train_step` runs on every rank of a `torch.distributed` group, one
     process per device, each rank on its own flat graph batch (scenes are
     whole-shard local, so the echo GCN never crosses ranks).  As JAX's step
@@ -19,19 +20,26 @@ Port of echoscene_tpu/parallel/dp.py (`build_dp_train_step`,
     hold fewer shards than devices (the first ones run them): JAX's
     shard_map takes one batch a device and its callers pad with repeats,
     which here would be work whose outputs nobody reads.
+  * Under tensor parallelism (a (data, model) `mesh.Mesh`, the shape
+    denoiser sharded by `tp.shard_module_`), `dp_train_step` averages over
+    the data group only and clips on the logical norm, and `dp_tp_sample`
+    runs one collective `sample_fn` per rank, the model ranks of a data
+    index on the same noise.
 """
 from __future__ import annotations
 
-import copy
+import functools
 import threading
 from typing import Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..models.sgdiff import SGDiff, TrainState, global_norm, inference_twin
+from ..models.sgdiff import SGDiff, TrainState, trainable_parameters
 from ..nn.mlp import MaskedBatchNorm
-from .mesh import all_reduce_, stack_shards
+from . import tp
+from .mesh import Mesh, all_reduce_, stack_shards
 
 
 def batch_norm_buffers(module: torch.nn.Module) -> List[torch.Tensor]:
@@ -41,13 +49,15 @@ def batch_norm_buffers(module: torch.nn.Module) -> List[torch.Tensor]:
             for b in (m.running_mean, m.running_var)]
 
 
-def mean_across_ranks(tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-    """The mean over the ranks of each tensor (JAX's pmean), through one
-    f32 bucket: flattened, all-reduced with SUM, divided by the world size.
-    Returns views of the bucket shaped as the inputs."""
-    world = dist.get_world_size()
+def mean_across_ranks(tensors: Sequence[torch.Tensor],
+                      group=None) -> List[torch.Tensor]:
+    """The mean over the ranks of `group` (the default group when None) of
+    each tensor (JAX's pmean), through one f32 bucket: flattened,
+    all-reduced with SUM, divided by the group's size.  Returns views of
+    the bucket shaped as the inputs."""
+    world = dist.get_world_size(group)
     flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
-    all_reduce_(flat).div_(world)
+    all_reduce_(flat, group=group).div_(world)
     out, off = [], 0
     for t in tensors:
         out.append(flat[off:off + t.numel()].view(t.shape))
@@ -56,40 +66,49 @@ def mean_across_ranks(tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
 
 
 @torch.no_grad()
-def average_batch_stats_(module: torch.nn.Module) -> None:
+def average_batch_stats_(module: torch.nn.Module, group=None) -> None:
     """Every rank's batch-norm running statistics set to their mean over
-    the ranks (JAX pmeans `new_bs`; DDP's broadcast_buffers would copy rank
-    0's instead)."""
+    the ranks of `group` (JAX pmeans `new_bs`; DDP's broadcast_buffers
+    would copy rank 0's instead)."""
     bufs = batch_norm_buffers(module)
     if bufs:
-        for b, m in zip(bufs, mean_across_ranks(bufs)):
+        for b, m in zip(bufs, mean_across_ranks(bufs, group)):
             b.copy_(m)
 
 
-def average_metrics(metrics: Dict[str, torch.Tensor]
+def average_metrics(metrics: Dict[str, torch.Tensor], group=None
                     ) -> Dict[str, torch.Tensor]:
-    """The mean over the ranks of each scalar metric."""
+    """The mean over the ranks of `group` of each scalar metric."""
     names = sorted(metrics)
     means = mean_across_ranks([metrics[k].detach().reshape(()).float()
-                               for k in names])
+                               for k in names], group)
     return {k: v for k, v in zip(names, means)}
 
 
 def dp_train_step(sg: SGDiff, state: TrainState, batch,
                   generator: Optional[torch.Generator] = None,
-                  draws: Optional[Dict[str, torch.Tensor]] = None
-                  ) -> Dict[str, torch.Tensor]:
+                  draws: Optional[Dict[str, torch.Tensor]] = None,
+                  mesh: Optional[Mesh] = None) -> Dict[str, torch.Tensor]:
     """One data-parallel step on this rank's `batch` (JAX's
     build_dp_train_step); every rank of the default group must call it.
-    Returns the rank-averaged metrics with the loss and the global norm of
-    the averaged gradient before the clip."""
+    With a `mesh` whose model axis shards `sg.module` (`tp.shard_module_`)
+    it is the dp x tp step: the ranks of one model group take the same
+    batch and draws, the gradients (each rank's shard of a sharded
+    parameter), the batch-norm statistics and the metrics are averaged over
+    the data group only, and the clip and the reported norm take the
+    logical global norm (`tp.global_norm`).  Returns the averaged metrics
+    with the loss and the global norm of the averaged gradient before the
+    clip."""
+    group = None if mesh is None else mesh.data_group
     loss, metrics, grads = sg.loss_and_grads(batch, generator, draws)
-    grads = mean_across_ranks(grads)
-    average_batch_stats_(sg.module)
+    grads = mean_across_ranks(grads, group)
+    average_batch_stats_(sg.module, group)
     metrics["loss"] = loss
-    metrics = average_metrics(metrics)
-    metrics["grad_norm"] = global_norm(grads)
-    sg.apply_gradients(state, grads)
+    metrics = average_metrics(metrics, group)
+    names = [n for n, _ in trainable_parameters(sg.module)]
+    metrics["grad_norm"] = tp.global_norm(names, grads, sg.module)
+    sg.apply_gradients(state, grads, norm=functools.partial(
+        tp.global_norm, module=sg.module))
     return metrics
 
 
@@ -106,15 +125,8 @@ class DPSampler:
         self.devices = [torch.device(d) for d in devices]
         self.models: Dict[torch.device, torch.nn.Module] = {}
         for dev in self.devices:
-            if dev in self.models:
-                continue
-            if sg.cfg.sample_dtype == "bfloat16":
-                self.models[dev] = inference_twin(sg.module,
-                                                  torch.bfloat16).to(dev)
-            elif dev == sg.device:
-                self.models[dev] = sg.module.eval()
-            else:
-                self.models[dev] = copy.deepcopy(sg.module).to(dev).eval()
+            if dev not in self.models:
+                self.models[dev] = sg.inference_module(dev)
         self.streams = [torch.cuda.Stream(d) if d.type == "cuda" else None
                         for d in self.devices]
 
@@ -193,3 +205,32 @@ class DPSampler:
                                 model=self.models[dev], device=dev)
         # copied to host on this shard's stream, which waits for it
         return {k: v.cpu() for k, v in out.items()}
+
+
+@torch.no_grad()
+def dp_tp_sample(sg: SGDiff, batch, mesh: Mesh, seed: int = 0,
+                 noise: Optional[Dict[str, torch.Tensor]] = None,
+                 gen_shape: bool = True, with_manipulation: bool = False,
+                 shape_rows: Optional[int] = None):
+    """dp x tp generation (JAX's build_dp_tp_sample, echoscene_tpu/parallel/
+    dp.py:167-185): every rank of the mesh calls it with the batch of its
+    data index; the ranks of one model group draw identical noise (a
+    generator seeded from `seed` and the data index only, or the injected
+    `noise`) and run `sample_fn` on the sharded module's sampling twin,
+    whose shape denoiser sums over the model group.  Returns every data
+    index's outputs stacked on a leading axis (host arrays, bf16 as f32),
+    on every rank."""
+    dev = sg.device
+    gen = torch.Generator(dev).manual_seed(int(np.random.SeedSequence(
+        [int(seed), mesh.data_rank]).generate_state(1, np.uint64)[0] >> 2))
+    out = sg.sample_fn(batch.to(dev), gen, gen_shape=gen_shape,
+                       with_manipulation=with_manipulation,
+                       shape_rows=shape_rows,
+                       noise=None if noise is None else {
+                           k: v.to(dev) for k, v in noise.items()})
+    host = {k: v.cpu() for k, v in out.items()}
+    shards = [host]
+    if mesh.data > 1:
+        shards = [None] * mesh.data
+        dist.all_gather_object(shards, host, group=mesh.data_group)
+    return stack_shards(shards)

@@ -1,24 +1,36 @@
-"""Dry run of the port's data parallelism, and the rank job it runs.
+"""Dry run of the port's data and tensor parallelism, and the rank job it
+runs.
 
-Port of `__graft_entry__.py`'s dryrun_multichip without its tensor-parallel
-part:
+Port of `__graft_entry__.py`'s dryrun_multichip:
 
     python -m echoscene_torch.parallel.dryrun --n N [--device cpu]
+        [--devices cuda:0,cuda:0,...]
 
-spawns N ranks (gloo on the CPU, NCCL on `cuda:0 .. cuda:N-1`) and, on the
-tiny configuration with seeded weights and synthetic batches, runs one dp
-step, one ZeRO-1 step, a ZeRO-1 checkpoint round trip into a model with
-other weights and one more step on both (the resumed parameters must equal
-the uninterrupted ones bit for bit: on CUDA the ranks run torch's
-deterministic algorithms); then, in this process, one
-`DPSampler` generation over N devices.  Each stage prints its wall time.
+spawns N ranks (gloo on the CPU, NCCL on `cuda:0 .. cuda:N-1`; `--devices`
+names each rank's device, and ranks that share a card join over gloo) and
+runs the tiny configuration with seeded weights and synthetic batches.  As
+JAX's, N >= 4 and even carves a model axis of 2 out of the ranks, a (N / 2,
+2) mesh (`__graft_entry__.py:95-97`): one dp x tp step (the shape denoiser
+sharded over each model group, `tp.py`), a dp x tp generation
+(`dp.dp_tp_sample`), a checkpoint round trip into a model with other
+weights (the restored parameters bit-equal to the saved ones, the step
+count kept), one more step on both (the step count + 1, the resumed
+parameters bit-equal to the uninterrupted ones) and a generation from the
+resumed model.  Otherwise (no model axis): one dp step, one ZeRO-1 step, a
+ZeRO-1 checkpoint round trip into a model with other weights and one more
+step on both (bit-equal as above), then, in this process, one `DPSampler`
+generation over N devices.  On CUDA the ranks run torch's deterministic
+algorithms.  Each stage prints its wall time.
 
 `train_job(rank, world, job_path, out_path)` is the function each rank
 runs (spawned children import it from here): it reads a job written with
-torch.save — the config, the starting weights, each rank's device and a
-list of runs, each a mode (dp or zero1), a grad_accum, every rank's
-(batch, draws) per step and optionally a step to save a checkpoint at and
-resume from; with "deterministic", torch's deterministic algorithms; with
+torch.save — the config, the starting weights, each rank's device, a
+"model_par" (the model axis; 1 by default) and a list of runs, each a mode
+(dp or zero1), a grad_accum, every data index's (batch, draws) per step,
+optionally a step to save a checkpoint at and resume from and a "sample"
+({"batches": one a data index, "seed"}: a dp x tp generation after the
+first steps and after the resumed ones); with "deterministic", torch's
+deterministic algorithms; with
 "relu" = "record", the branches every ReLU of each run's model took, or
 with "relu" = {run name: those of every rank}, those branches forced
 (`ReluBranches`) — and rank 0 writes the parameters, batch-norm
@@ -33,22 +45,26 @@ from __future__ import annotations
 import argparse
 import copy
 import dataclasses
+import functools
 import math
 import os
 import tempfile
 import time
 from typing import Dict, List
 
+import numpy as np
 import torch
 
 from ..models.sgdiff import SGDiff
-from .dp import DPSampler, dp_train_step
-from .mesh import rank_and_world, resolve_devices, spawn
+from . import tp
+from .dp import DPSampler, dp_tp_sample, dp_train_step
+from .mesh import make_mesh, rank_and_world, resolve_devices, spawn
 from .zero import init_zero1_state, zero1_train_step
 
 
-def _model(job: dict, device, seed=None) -> SGDiff:
-    """The job's model on `device`: its weights, or fresh seeded ones."""
+def _model(job: dict, device, seed=None, mesh=None) -> SGDiff:
+    """The job's model on `device`: its weights, or fresh seeded ones; with
+    a mesh of a model axis, its shape denoiser sharded over it."""
     from ..benchmarks import seeded_weights_
 
     with torch.random.fork_rng(devices=[]):
@@ -59,6 +75,8 @@ def _model(job: dict, device, seed=None) -> SGDiff:
         sg.module.load_state_dict(job["state_dict"], strict=True)
     else:
         seeded_weights_(sg.module, seed)
+    if mesh is not None and mesh.model > 1:
+        tp.shard_module_(sg.module, mesh)
     return sg
 
 
@@ -113,15 +131,17 @@ class ReluBranches:
                                "unused")
 
 
-def _steps(sg, state, mode, shards, device, first: int = 0
+def _steps(sg, state, mode, shards, device, first: int = 0, mesh=None
            ) -> List[Dict[str, float]]:
     """Steps `first`, `first` + 1, ... of this rank's shards; a step without
-    draws takes them from a generator seeded by the rank and the step."""
-    step = zero1_train_step if mode == "zero1" else dp_train_step
-    rank = rank_and_world()[0]
+    draws takes them from a generator seeded by the data index and the
+    step (the ranks of a model group draw alike)."""
+    step = (zero1_train_step if mode == "zero1"
+            else functools.partial(dp_train_step, mesh=mesh))
+    data_rank = rank_and_world()[0] if mesh is None else mesh.data_rank
     out = []
     for i, (batch, draws) in enumerate(shards, first):
-        gen = torch.Generator(device).manual_seed(1000 * rank + i)
+        gen = torch.Generator(device).manual_seed(1000 * data_rank + i)
         draws = None if draws is None else {k: v.to(device)
                                             for k, v in draws.items()}
         t0 = time.perf_counter()
@@ -139,10 +159,11 @@ def _snapshot(sg: SGDiff, state) -> dict:
     from ..models.sgdiff import trainable_parameters
     from .zero import Zero1State, gather_state
 
-    out = {"params": {n: p.detach().cpu().clone()
-                      for n, p in sg.module.named_parameters()},
-           "buffers": {n: b.detach().cpu().clone()
-                       for n, b in sg.module.named_buffers()}}
+    full = tp.gather_state_dict(sg.module)
+    out = {"params": {n: full[n].cpu().clone()
+                      for n, _ in sg.module.named_parameters()},
+           "buffers": {n: full[n].cpu().clone()
+                       for n, _ in sg.module.named_buffers()}}
     named = trainable_parameters(sg.module)
     if isinstance(state.optimizer, Zero1State):
         full = gather_state(state.optimizer)
@@ -157,9 +178,12 @@ def _snapshot(sg: SGDiff, state) -> dict:
             off += k
     else:
         opt = state.optimizer.state
-        out["moments"] = {n: (opt[p]["exp_avg"].cpu(),
-                              opt[p]["exp_avg_sq"].cpu())
-                          for n, p in named if p in opt}
+        names = [n for n, p in named if p in opt]
+        mu, nu = (tp.gather_tensors(names, [opt[p][k] for _, p in named
+                                            if p in opt], sg.module)
+                  for k in ("exp_avg", "exp_avg_sq"))
+        out["moments"] = {n: (a.cpu(), b.cpu())
+                          for n, a, b in zip(names, mu, nu)}
     return out
 
 
@@ -167,7 +191,7 @@ def train_job(rank: int, world: int, job_path: str, out_path: str) -> None:
     """Run a job's training runs on this rank (see the module docstring)."""
     from ..train.checkpoint import restore_checkpoint, save_checkpoint
 
-    from . import mesh
+    from .mesh import HOST_HOPS
 
     job = torch.load(job_path, weights_only=False)
     device = torch.device(job["devices"][rank])
@@ -179,12 +203,18 @@ def train_job(rank: int, world: int, job_path: str, out_path: str) -> None:
         torch.use_deterministic_algorithms(True, warn_only=True)
     if device.type == "cuda":
         torch.cuda.set_device(device)
+    model_par = int(job.get("model_par", 1))
+    mesh = (make_mesh(world // model_par, model_par) if model_par > 1
+            else None)
+    data_rank = rank // model_par
+    steps = functools.partial(_steps, device=device, mesh=mesh)
     relu = job.get("relu")
     results = {}
     for run in job["runs"]:
         job["cfg"].grad_accum = int(run.get("grad_accum", 1))
-        mode, shards = run["mode"], run["shards"][rank]
-        sg = _model(job, device)
+        mode, shards = run["mode"], run["shards"][data_rank]
+        sample = run.get("sample")
+        sg = _model(job, device, mesh=mesh)
         state = _state(sg, mode)
         branches = None
         if relu is not None:
@@ -193,37 +223,63 @@ def train_job(rank: int, world: int, job_path: str, out_path: str) -> None:
                                     None if forced is None else forced[rank])
         at = run.get("resume_at")
         t0 = time.perf_counter()
-        metrics = _steps(sg, state, mode, shards[:at], device)
+        metrics = steps(sg, state, mode, shards[:at])
         res = {"first_s": time.perf_counter() - t0}
+        if sample is not None:
+            res["sample"] = _sample(sg, sample, mesh, data_rank)
         if at is not None:
             ckpt = os.path.join(run["ckpt_dir"], "model")
             t0 = time.perf_counter()
             save_checkpoint(ckpt, sg, state)
             res["save_s"] = time.perf_counter() - t0
             res["saved"] = _snapshot(sg, state)
-            metrics += _steps(sg, state, mode, shards[at:], device, at)
+            res["saved_step"] = state.step
+            metrics += steps(sg, state, mode, shards[at:], first=at)
             if branches is not None:   # the main model's steps are done
                 branches.remove()
                 _gather_branches(branches, res)
                 branches = None
             # a model with other weights, restored, takes the same steps
-            other = _model(job, device, seed=job.get("other_seed", 1))
+            other = _model(job, device, seed=job.get("other_seed", 1),
+                           mesh=mesh)
             t0 = time.perf_counter()
             other_state = restore_checkpoint(ckpt, other,
                                              _state(other, mode))
             res["restore_s"] = time.perf_counter() - t0
-            res["resumed_metrics"] = _steps(other, other_state, mode,
-                                            shards[at:], device, at)
+            res["restored"] = _snapshot(other, other_state)
+            res["restored_step"] = other_state.step
+            res["resumed_metrics"] = steps(other, other_state, mode,
+                                           shards[at:], first=at)
             res["resumed"] = _snapshot(other, other_state)
             res["resumed_step"] = other_state.step
+            if sample is not None:
+                res["resumed_sample"] = _sample(other, sample, mesh,
+                                                data_rank)
         if branches is not None:
             branches.remove()
             _gather_branches(branches, res)
         res.update(_snapshot(sg, state), metrics=metrics, step=state.step)
         results[run["name"]] = res
-    results["host_hops"] = dict(mesh.HOST_HOPS)
+    results["host_hops"] = dict(HOST_HOPS)
     if rank_and_world()[0] == 0:
         torch.save(results, out_path)
+
+
+def _sample(sg: SGDiff, sample: dict, mesh, data_rank: int) -> dict:
+    """A dp x tp generation of the data index's batch (every rank calls
+    it), from `sample`'s "seed" or its injected "noises" (one a data
+    index), at its "shape_rows" and "with_manipulation"; host arrays
+    stacked over the data indices."""
+    t0 = time.perf_counter()
+    noises = sample.get("noises")
+    out = dp_tp_sample(sg, sample["batches"][data_rank], mesh,
+                       seed=sample.get("seed", 0),
+                       noise=None if noises is None else noises[data_rank],
+                       shape_rows=sample.get("shape_rows"),
+                       with_manipulation=sample.get("with_manipulation",
+                                                    False))
+    out["wall_s"] = time.perf_counter() - t0
+    return out
 
 
 def _gather_branches(branches: ReluBranches, res: dict) -> None:
@@ -240,6 +296,64 @@ def _gather_branches(branches: ReluBranches, res: dict) -> None:
         res["relu_masks"] = [g[0] for g in got]
         res["relu_flips"] = sum(g[1] for g in got)
         res["relu_margin"] = max(g[2] for g in got)
+
+
+@torch.no_grad()
+def tp_forward_job(rank: int, world: int, job_path: str,
+                   out_path: str) -> None:
+    """One shape-denoiser forward of the flagship (`benchmarks.
+    build_flagship`, seeded weights; the job's "cfg" in place of
+    full_mp.yaml's if it has one) sharded over all `world` ranks as one
+    model group, in its bf16 sampling twin and in f32: the job holds the
+    step's inputs ("inputs": z, t, obj_embed, triples, obj_mask,
+    triple_mask), each rank's device and "iters"; rank 0 writes each
+    form's output, every rank's K1 / K2 launches of one forward (the
+    counts set to 0 just before it and read just after), the ms per
+    forward of each rank (the mean of `iters` after one untimed call, the
+    card synchronised) and the heads each rank's attention runs."""
+    import torch.distributed as dist
+
+    from ..benchmarks import build_flagship
+    from ..kernels import flash_attention as fa
+    from ..nn.attention import CrossAttention
+
+    job = torch.load(job_path, weights_only=False)
+    device = torch.device(job["devices"][rank])
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    cfg = job.get("cfg")
+    sg, _ = build_flagship(device=device,
+                           cfg=None if cfg is None else copy.deepcopy(cfg))
+    mesh = make_mesh(1, world)
+    tp.shard_module_(sg.module, mesh)
+    x = {k: v.to(device) for k, v in job["inputs"].items()}
+    sync = (lambda: torch.cuda.synchronize(device)) if device.type == "cuda" \
+        else (lambda: None)
+    mine = {"heads": sorted({m.heads for m in sg.module.shape_denoiser.modules()
+                             if isinstance(m, CrossAttention)})}
+    outs = {}
+    for form, model in (("bf16", sg.inference_module()),
+                        ("f32", sg.module.eval())):
+        call = lambda: model.shape_eps(x["z"], x["t"], x["obj_embed"],
+                                       x["triples"], x["obj_mask"],
+                                       x["triple_mask"])
+        sync()
+        fa.reset_launches()
+        out = call()
+        sync()
+        mine[f"{form}_launches"] = dict(fa.LAUNCHES)
+        outs[form] = out.float().cpu()
+        t0 = time.perf_counter()
+        for _ in range(int(job.get("iters", 3))):
+            call()
+        sync()
+        mine[f"{form}_ms"] = ((time.perf_counter() - t0) * 1e3
+                              / int(job.get("iters", 3)))
+        del model
+    ranks = [None] * world
+    dist.all_gather_object(ranks, mine)
+    if rank == 0:
+        torch.save({"outputs": outs, "ranks": ranks}, out_path)
 
 
 def update_job(rank: int, world: int, job_path: str, out_path: str) -> None:
@@ -306,9 +420,11 @@ def cpu_draws(cfg, batch, seed: int) -> Dict[str, torch.Tensor]:
 
 
 def tiny_job(devices, steps: int = 1, seed: int = 0, cfg=None,
-             draws: bool = False, latents: bool = False) -> dict:
+             draws: bool = False, latents: bool = False,
+             model_par: int = 1) -> dict:
     """The tiny configuration (or `cfg`) with seeded weights, and a
-    synthetic batch per rank and step (seeded by both); with `draws`, each
+    synthetic batch per data index (the ranks over `model_par`; each rank
+    without a model axis) and step (seeded by both); with `draws`, each
     step's draws made on the CPU (`cpu_draws`), else the rank's generator
     draws them on its device; with `latents`, the batches carry the frozen
     encoder's latents of their SDFs, encoded here on the CPU (the latent
@@ -323,9 +439,8 @@ def tiny_job(devices, steps: int = 1, seed: int = 0, cfg=None,
         torch.manual_seed(seed)
         sg = SGDiff(cfg, NUM_OBJS, NUM_PREDS, device="cpu")
     seeded_weights_(sg.module, seed)
-    world = len(devices)
     shards = []
-    for r in range(world):
+    for r in range(len(devices) // model_par):
         shards.append([])
         for i in range(steps):
             b = synthetic_batch(3, cfg.max_nodes, cfg.max_triples,
@@ -342,23 +457,100 @@ def tiny_job(devices, steps: int = 1, seed: int = 0, cfg=None,
     return {"cfg": cfg, "num_objs": NUM_OBJS, "num_preds": NUM_PREDS,
             "state_dict": sg.module.state_dict(),
             "devices": [str(d) for d in devices], "runs": [],
-            "shards": shards}
+            "shards": shards, "model_par": model_par}
+
+
+def _tp_dryrun(n: int, devices, backend: str) -> None:
+    """JAX's dryrun_multichip on a (n / 2, 2) mesh: dp x tp step, dp x tp
+    generation, checkpoint round trip, resumed step, generation, with
+    JAX's assertions (and the resumed parameters bit-equal to the
+    uninterrupted run's)."""
+    from ..benchmarks import synthetic_batch
+
+    model_par = 2
+    data_par = n // model_par
+    job = tiny_job(devices, steps=2, model_par=model_par)
+    cfg = job["cfg"]
+    sample = {"seed": 0, "batches": [
+        synthetic_batch(3, cfg.max_nodes, cfg.max_triples, seed=7 + i)
+        for i in range(data_par)]}
+    job["deterministic"] = any(torch.device(d).type == "cuda"
+                               for d in devices)
+    with tempfile.TemporaryDirectory(prefix="echoscene_dryrun_") as tmp:
+        job["runs"] = [{"name": "tp", "mode": "dp",
+                        "shards": job.pop("shards"), "resume_at": 1,
+                        "ckpt_dir": tmp, "sample": sample}]
+        t0 = time.perf_counter()
+        r = run_job(job, backend)["tp"]
+        spawn_s = time.perf_counter() - t0
+    print(f"[dryrun] {n} ranks ({backend}, {[str(d) for d in devices]}), "
+          f"mesh (data {data_par}, model {model_par}): spawn + the run "
+          f"{spawn_s:.2f} s")
+    loss = r["metrics"][0]["loss"]
+    print(f"[dryrun] dp x tp train step: loss {loss:.6g}, "
+          f"{r['metrics'][0]['wall_s']:.3f} s")
+    if not math.isfinite(loss):
+        raise RuntimeError(f"the dp x tp step's loss is {loss}")
+    for key in ("sample", "resumed_sample"):
+        out = r[key]
+        finite = all(bool(np.isfinite(v).all()) for k, v in out.items()
+                     if k != "wall_s")
+        want = (data_par, cfg.max_nodes)
+        print(f"[dryrun] dp x tp {key.replace('_', ' ')}: "
+              f"{out['wall_s']:.3f} s, shapes {tuple(out['shapes'].shape)},"
+              f" finite {finite}")
+        if not (finite and tuple(out["shapes"].shape[:2]) == want):
+            raise RuntimeError(f"the dp x tp {key} is not finite or its "
+                               f"shapes do not start with {want}")
+    restored = all(torch.equal(v, r["restored"]["params"][k])
+                   for k, v in r["saved"]["params"].items())
+    print(f"[dryrun] checkpoint: save {r['save_s']:.3f} s, restore into "
+          f"other weights {r['restore_s']:.3f} s; parameters bit-equal "
+          f"{restored}, step {r['restored_step']} (saved at "
+          f"{r['saved_step']})")
+    if not (restored and r["restored_step"] == r["saved_step"]):
+        raise RuntimeError("the restored checkpoint differs from the saved "
+                           "state")
+    loss2 = r["resumed_metrics"][0]["loss"]
+    same = all(torch.equal(v, r["resumed"]["params"][k])
+               for k, v in r["params"].items())
+    print(f"[dryrun] resumed step: loss {loss2:.6g} (uninterrupted "
+          f"{r['metrics'][1]['loss']:.6g}), step {r['resumed_step']}, "
+          f"parameters bit-equal to the uninterrupted run {same}")
+    if not (math.isfinite(loss2) and same
+            and r["resumed_step"] == r["saved_step"] + 1):
+        raise RuntimeError("the resumed step is not finite, did not count, "
+                           "or differs from the uninterrupted one")
 
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--n", type=int, default=2, help="ranks (devices)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    p.add_argument("--devices", default=None,
+                   help="each rank's device, comma-separated (a device may "
+                        "repeat; ranks sharing a card join over gloo); "
+                        "overrides --device")
     args = p.parse_args(argv)
     t_all = time.perf_counter()
-    if args.device == "cuda":
+    if args.devices:
+        devices = resolve_devices(args.n, args.devices.split(","))
+        shared = len(set(devices)) < len(devices)
+        backend = ("nccl" if all(d.type == "cuda" for d in devices)
+                   and not shared else "gloo")
+    elif args.device == "cuda":
         devices, backend = resolve_devices(args.n), "nccl"
     else:
         devices, backend = [torch.device("cpu")] * args.n, "gloo"
+    # JAX's rule for the model axis (__graft_entry__.py:95-97)
+    if args.n % 2 == 0 and args.n >= 4:
+        _tp_dryrun(args.n, devices, backend)
+        print(f"[dryrun] all stages {time.perf_counter() - t_all:.2f} s")
+        return 0
     job = tiny_job(devices, steps=2)
     shards = job.pop("shards")
     # cuDNN's weight gradients are not bit-reproducible by default
-    job["deterministic"] = args.device == "cuda"
+    job["deterministic"] = any(d.type == "cuda" for d in devices)
     with tempfile.TemporaryDirectory(prefix="echoscene_dryrun_") as tmp:
         job["runs"] = [
             {"name": "dp", "mode": "dp", "shards": [s[:1] for s in shards]},

@@ -14,8 +14,14 @@ device for generation (parallel/dp.py `DPSampler`):
     a function of the package on N spawned ranks joined through a
     `file://` rendezvous in a fresh temporary directory (no TCP port to
     fight over);
+  * `make_mesh(data, model)`: the 2-D (data, model) layout of the ranks
+    for tensor parallelism (parallel/tp.py), rank r at data r // model and
+    model r % model, the row-major order of JAX's `make_mesh((data_par,
+    model_par))` (`__graft_entry__.py:95-99`), with a process group per row
+    (the model group) and per column (the data group);
   * the collectives the steps use (`all_reduce_`, `reduce_scatter`,
-    `all_gather`, `any_rank`) and the checkpoint's `gather_to_host`.  The
+    `all_gather`, `any_rank`; over the default group or a `group`) and the
+    checkpoint's `gather_to_host`.  The
     caller names the backend: NCCL for CUDA tensors, gloo for CPU ones.
     gloo given CUDA tensors (two ranks sharing one card, where NCCL
     refuses) moves them through host memory; each such hop is counted in
@@ -23,6 +29,7 @@ device for generation (parallel/dp.py `DPSampler`):
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 import tempfile
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
@@ -92,6 +99,46 @@ def rank_and_world(group=None) -> Tuple[int, int]:
     return 0, 1
 
 
+@dataclasses.dataclass
+class Mesh:
+    """This rank's place in a (data, model) layout of the default group:
+    `data` x `model` ranks, this one at (data_rank, model_rank); the
+    `model_group` joins the `model` ranks of its data index (tensor
+    parallelism's collectives), the `data_group` the `data` ranks of its
+    model index (the gradient mean).  Groups are None for one rank."""
+    data: int
+    model: int
+    data_rank: int
+    model_rank: int
+    data_group: object = None
+    model_group: object = None
+
+    def __deepcopy__(self, memo):   # process groups are shared, not copied
+        return self
+
+
+def make_mesh(data: int, model: int) -> Mesh:
+    """The (data, model) layout of the default group's ranks (row-major, as
+    JAX's make_mesh): every rank must call it (creating a process group is
+    collective), with data x model equal to the world size."""
+    rank, world = rank_and_world()
+    if data * model != world:
+        raise ValueError(f"a ({data}, {model}) mesh needs {data * model} "
+                         f"ranks, the group has {world}")
+    mesh = Mesh(data, model, rank // model, rank % model)
+    if world == 1:
+        return mesh
+    for d in range(data):
+        g = dist.new_group(list(range(d * model, (d + 1) * model)))
+        if d == mesh.data_rank:
+            mesh.model_group = g
+    for m in range(model):
+        g = dist.new_group(list(range(m, world, model)))
+        if m == mesh.model_rank:
+            mesh.data_group = g
+    return mesh
+
+
 def _rank_entry(rank: int, fn: Callable, world: int, backend: str,
                 init_file: str, threads: int, args: tuple) -> None:
     torch.set_num_threads(threads)
@@ -129,14 +176,16 @@ def _through_host(name: str, tensors: Sequence[torch.Tensor]) -> bool:
     return hop
 
 
-def all_reduce_(t: torch.Tensor, op=dist.ReduceOp.SUM) -> torch.Tensor:
-    """In-place all-reduce of `t` over the default group."""
+def all_reduce_(t: torch.Tensor, op=dist.ReduceOp.SUM,
+                group=None) -> torch.Tensor:
+    """In-place all-reduce of `t` over `group` (the default group when
+    None)."""
     if _through_host("all_reduce", [t]):
         host = t.cpu()
-        dist.all_reduce(host, op=op)
+        dist.all_reduce(host, op=op, group=group)
         t.copy_(host)
     else:
-        dist.all_reduce(t, op=op)
+        dist.all_reduce(t, op=op, group=group)
     return t
 
 
@@ -161,15 +210,16 @@ def reduce_scatter(out: torch.Tensor, inp: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def all_gather(out: torch.Tensor, inp: torch.Tensor) -> torch.Tensor:
-    """out (world * n,) = every rank's inp (n,), in rank order (JAX's
-    all_gather, tiled)."""
+def all_gather(out: torch.Tensor, inp: torch.Tensor,
+               group=None) -> torch.Tensor:
+    """out (world * n,) = every rank's inp (n,) of `group` (the default
+    group when None), in rank order (JAX's all_gather, tiled)."""
     if _through_host("all_gather", [out, inp]):
         host = out.new_empty(out.shape, device="cpu")
-        _single("all_gather")(host, inp.cpu())
+        _single("all_gather")(host, inp.cpu(), group=group)
         out.copy_(host)
     else:
-        _single("all_gather")(out, inp)
+        _single("all_gather")(out, inp, group=group)
     return out
 
 

@@ -34,6 +34,7 @@ import torch
 
 from ..models.sgdiff import SGDiff, TrainState, lr_schedule, \
     trainable_parameters
+from . import tp
 from .dp import average_batch_stats_, average_metrics
 from .mesh import (all_gather, all_reduce_, gather_to_host, rank_and_world,
                    reduce_scatter)
@@ -88,10 +89,22 @@ def shard_masks(module: torch.nn.Module, start: int, stop: int,
     return train, clip
 
 
+def _refuse_tp(sg: SGDiff) -> None:
+    plan = tp.plan_of(sg.module)
+    if plan is not None and plan.n > 1:
+        raise ValueError("ZeRO-1 does not compose with tensor parallelism "
+                         f"(a model group of {plan.n} ranks); use the dp "
+                         "step (parallel.dp.dp_train_step with the mesh)")
+
+
 def init_zero1_state(sg: SGDiff, state: TrainState,
                      grad_accum: int = 1) -> TrainState:
     """`state` with its optimizer replaced by a fresh Zero1State (zeros)
-    over this rank's slice of the default process group."""
+    over this rank's slice of the default process group.  Refuses a module
+    sharded over a model group of more than one rank, as JAX's ZeRO-1
+    refuses a 'model' axis (echoscene_tpu/parallel/zero.py:166-169): the
+    channel-sharded parameters would interleave with the flat partition."""
+    _refuse_tp(sg)
     rank, world = rank_and_world()
     n, n_pad = flat_length(sg.module, world)
     chunk = n_pad // world
@@ -171,6 +184,7 @@ def zero1_train_step(sg: SGDiff, state: TrainState, batch,
     build_zero1_train_step); every rank of the default group must call it.
     Returns the rank-averaged metrics with the loss and the global norm of
     the mean gradient before the clip."""
+    _refuse_tp(sg)
     z = state.optimizer
     if not isinstance(z, Zero1State):
         raise ValueError("state.optimizer is not a Zero1State; call "

@@ -29,7 +29,11 @@ memory (no rank holds them at full length on its device), in their padded
 layout, with the rank count that sharded them ("opt":
 {"zero1": ...}); it restores only over as many ranks and raises a clear
 error otherwise, as JAX's template restore fails.  `restore_for_inference`
-reads the parameters of any of these checkpoints.
+reads the parameters of any of these checkpoints.  A module sharded by
+tensor parallelism (parallel/tp.py) is saved gathered to its full tensors,
+its AdamW moments and accumulators too, so the file has the single-device
+layout; rank 0, at (data 0, model 0), writes it, and a restore takes each
+rank's slices of it.
 """
 from __future__ import annotations
 
@@ -40,7 +44,8 @@ from typing import Any, Optional
 import torch
 
 from ..convert.from_jax import checkpoint_to_module, module_to_checkpoint
-from ..models.sgdiff import SGDiff, TrainState
+from ..models.sgdiff import SGDiff, TrainState, trainable_parameters
+from ..parallel import tp
 from ..parallel.mesh import barrier, rank_and_world
 
 _writer: Optional[threading.Thread] = None
@@ -105,13 +110,46 @@ def save_checkpoint(path: str, sg: SGDiff, state: TrainState,
     if isinstance(state.optimizer, Zero1State):
         opt = {"zero1": gather_state(state.optimizer)}
     else:
-        opt = {"adamw": state.optimizer.state_dict(), "accum": state.accum}
+        opt = {"adamw": _adamw_state(sg.module,
+                                     state.optimizer.state_dict(),
+                                     tp.gather_tensors),
+               "accum": None if state.accum is None else tp.gather_tensors(
+                   _names(sg.module), state.accum, sg.module)}
+    full = tp.gather_state_dict(sg.module)
     if rank_and_world()[0] == 0:
-        payload = module_to_checkpoint(sg.module.state_dict())
+        payload = module_to_checkpoint(full)
         payload.update({"opt": opt, "epoch": state.epoch,
                         "counter": state.step})
         _save_payload(path, payload, wait)
     barrier()
+
+
+def _names(module: torch.nn.Module):
+    return [n for n, _ in trainable_parameters(module)]
+
+
+def _adamw_state(module: torch.nn.Module, sd: dict, convert) -> dict:
+    """An AdamW state_dict with each moment passed through
+    convert(names, tensors, module) (its index is the parameter's place in
+    `trainable_parameters`, the optimizer's order): gathered to full
+    tensors for a save, sliced to this rank's for a restore."""
+    sd = dict(sd, state=dict(sd["state"]))
+    names = _names(module)
+    for key in ("exp_avg", "exp_avg_sq"):
+        idx = [i for i in sd["state"] if key in sd["state"][i]]
+        new = convert([names[i] for i in idx],
+                      [sd["state"][i][key] for i in idx], module)
+        for i, t in zip(idx, new):
+            sd["state"][i] = dict(sd["state"][i], **{key: t})
+    return sd
+
+
+def _local(names, tensors, module):
+    plan = tp.plan_of(module)
+    if plan is None:
+        return list(tensors)
+    return [tp.shard_tensor(t, plan.dims[n], plan.rank, plan.n)
+            if n in plan.dims else t for n, t in zip(names, tensors)]
 
 
 def save_vqvae_checkpoint(path: str, state) -> None:
@@ -148,14 +186,17 @@ def restore_checkpoint(path: str, sg: SGDiff, state: TrainState
             f"optimizer state; this run uses "
             f"{'ZeRO-1' if zero1 else 'AdamW'} (--zero1 must match the run "
             "that saved it)")
-    sg.module.load_state_dict(checkpoint_to_module(payload), strict=True)
+    sg.module.load_state_dict(tp.local_state_dict(
+        sg.module, checkpoint_to_module(payload)), strict=True)
     if zero1:
         scatter_state(state.optimizer, opt["zero1"])
     else:
-        state.optimizer.load_state_dict(opt["adamw"])
+        state.optimizer.load_state_dict(
+            _adamw_state(sg.module, opt["adamw"], _local))
         accum = opt["accum"]
-        state.accum = (None if accum is None
-                       else [a.to(sg.device) for a in accum])
+        state.accum = (None if accum is None else [
+            a.to(sg.device) for a in _local(_names(sg.module), accum,
+                                            sg.module)])
     state.step = int(payload["counter"])
     state.epoch = int(payload["epoch"])
     return state
@@ -165,7 +206,8 @@ def restore_for_inference(path: str, module: torch.nn.Module) -> int:
     """Load parameters and buffers only (eval and serving read no optimizer
     state); returns the checkpoint's epoch."""
     payload = _load(path)
-    module.load_state_dict(checkpoint_to_module(payload), strict=True)
+    module.load_state_dict(tp.local_state_dict(
+        module, checkpoint_to_module(payload)), strict=True)
     return int(payload["epoch"])
 
 
