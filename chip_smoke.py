@@ -54,6 +54,21 @@ result line):
        (bit-equal expected: the backward is the same plain computation);
        times the kernel forward + plain backward beside the plain forward +
        backward and SDPA's forward + backward;
+     * Q1 / Q2 (the int8 W8A8 convolution, `csrc/int8_conv.cu`, hand
+       kernels with no TPU counterpart) at each of the 33 distinct
+       convolutions of the flagship's int8 torso at the main path's rows
+       (`int8_conv.torso_conv_sites`: conv_in, the ResBlocks' 3x3x3 and
+       1x1x1 convolutions on the concatenated inputs, the strided
+       Downsamples, the factored upsamples' (3, 2, 2) sub-convolutions,
+       the output conv) and a ragged case: Q1 bit-equal to its plain
+       version (int8 values and scale), Q2's bf16 output within 1 bf16 ulp
+       of its plain version (a float64 convolution of the int8 values,
+       exact) on every element of all rows, a tolerance the plain version
+       with the last input channel left out must fail; times beside the
+       bound (max(2 M K taps C_in / 1,979 TOP/s, bytes / 3.35 TB/s)), the
+       plain versions, the bf16 cuDNN F.conv3d at the same shape (the call
+       the int8 mode replaces) and torch._int_mm on an im2col of the same
+       GEMM (cuBLASLt's int8 rate), neither of which the port calls;
   3. check the port on the card against the port on the CPU: the tiny
      test configuration in f32 (same weights, same injected noise; max abs
      error <= 1e-4 on boxes and SDFs), one tiny-config f32 training step
@@ -84,7 +99,9 @@ result line):
      f32 within 1e-5 of the peak;
   6. drive the evaluation path: a fake SG-FRONT dataset (test split) ->
      `SceneEvaluator` generating every scene at flagship width with SDF
-     dumps -> the consistency CLI on the same-category instances -> MMD /
+     dumps (at the service's DPM++ 50 / 20; phase 4 drives the protocol's
+     chains; the model stays on it for the later phases) -> the
+     consistency CLI on the same-category instances -> MMD /
      COV / 1-NN (auction EMD) of 8 generated clouds against 8 clouds of
      analytic SDFs, on the card; checks that the report parses, that every
      dumped real-row SDF meshes, one 256^2 render and one .glb per
@@ -195,7 +212,18 @@ result line):
      process beside (c); (c) the tiny
      dp x tp step over 4 gloo ranks on cuda:0 against the same ranks on the
      CPU forced down the card's ReLU branches (phase 3's limits on the loss
-     and the first moments).
+     and the first moments);
+ 13. drive bench.py's fast profile at full width: `build_flagship(
+     fast_profile=True)`, int8 torso convolutions with DPM++ 50 layout / 20
+     shape steps, on the flagship batch: one generation with every count
+     set to 0 just before and read just after (K1 = 5 and Q2 = 57, Q1 = 51
+     a shape step, K2 = one a decode chunk), finite outputs of the JAX
+     shapes, its wall seconds; the int8 twin's build (per sample_fn call);
+     one shape step of the int8 twin beside the bf16 twin's (ms, busy
+     share, top kernels, the outputs' difference); the service with
+     sample_dtype int8 (warmup, 8 requests from 4 clients, the counts per
+     dispatch); one shape step of the `sample_conv: winograd` twin beside
+     the direct bf16 twin's (ms, error).
 
 Prints the total seconds, the `kernels` JSON line (K1 / K2 in bf16 and in
 f32, each entry with its dtype; K1 / K2 also carry their training launches,
@@ -209,7 +237,10 @@ bf16 also carry phase 11's launches per rank and train step, dp and
 ZeRO-1, and per shard and serving call; K4's `dp_launches` is its count
 over the whole of phase 11, set to 0 at the phase's start and read at its
 end; `onepass_attention_tp_shard` is K1 at a tensor-parallel rank's 4
-heads, its launches phase 12 (a)'s per rank and forward), the card's name
+heads, its launches phase 12 (a)'s per rank and forward; Q1 / Q2
+`quantize_act` / `int8_conv3d`, hand kernels with no TPU counterpart,
+their launches phase 13's generation, each with every torso shape and
+the per-step totals), the card's name
 and power limit (nvidia-smi), and as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Needs one card; exits 2 without CUDA or without the repository beside it.
@@ -447,6 +478,170 @@ def check_kernel(name, wrapper, shape, ragged_shapes, replaces, sm_clock_hz):
             "keys_dropped_err_of_limit": dropped}
 
 
+INT8_REPLACES = ("none: a hand kernel of the port; JAX's int8 convolution is "
+                 "XLA's lax.conv_general_dilated, echoscene_tpu/nn/quant.py:89")
+INT8_RAGGED = [  # a small ragged case: odd sizes, channels not a multiple
+    dict(name="ragged", x_shape=(3, 37, 5, 7, 9), k=19, taps=(3, 3, 3),
+         stride=(1, 2, 2), pads=((1, 1),) * 3, bias=True, x_dtype="bfloat16",
+         calls=0)]
+
+
+def im2col_int8(xq, taps, stride, pads):
+    """The (M, taps x Cp) int8 matrix of Q2's implicit GEMM, built
+    explicitly (for torch._int_mm, the cuBLASLt yardstick)."""
+    import torch.nn.functional as F
+    (pd0, pd1), (ph0, ph1), (pw0, pw1) = pads
+    x = F.pad(xq.permute(0, 4, 1, 2, 3), (pw0, pw1, ph0, ph1, pd0, pd1))
+    x = x.unfold(2, taps[0], stride[0]).unfold(3, taps[1], stride[1]).unfold(
+        4, taps[2], stride[2])     # (N, Cp, Do, Ho, Wo, kd, kh, kw)
+    return x.permute(0, 2, 3, 4, 5, 6, 7, 1).reshape(
+        -1, taps[0] * taps[1] * taps[2] * xq.shape[-1]).contiguous()
+
+
+def check_int8_kernels(rows: int) -> dict:
+    """Phase 2 for Q1 / Q2 (`kernels/int8_conv.py`, `csrc/int8_conv.cu`) at
+    every distinct convolution of the flagship's int8 torso at `rows` rows
+    (`int8_conv.torso_conv_sites`) and a ragged case: Q1 bit-equal to its
+    plain version (int8 values and scale), Q2's bf16 output within 1 ulp of
+    its plain version (float64 convolution of the int8 values, exact) on
+    every element, over all rows, a tolerance the plain version with the
+    last input channel left out must fail; times of Q1, Q2, their plain
+    versions, the bf16 cuDNN F.conv3d at the same shape (the call the int8
+    mode replaces) and torch._int_mm on an im2col of the same GEMM
+    (cuBLASLt's int8 rate; the im2col is not timed), beside the bounds."""
+    import torch
+    import torch.nn.functional as F
+    from echoscene_torch.kernels import int8_conv as q8
+    from echoscene_torch.models.config import ShapeDenoiserConfig
+    from echoscene_torch.nn.quant import quantize_weight
+
+    sites, q1_calls = q8.torso_conv_sites(ShapeDenoiserConfig(), rows)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    q1_rows, q2_rows = [], []
+    seen_q1 = set()
+    for site in sites + INT8_RAGGED:
+        shape, dtype = site["x_shape"], getattr(torch, site["x_dtype"])
+        x = (2 * torch.randn(shape, generator=gen, device="cuda")).to(dtype)
+        xq, xs = q8.quantize_act(x)
+        torch.cuda.synchronize()
+        pq, ps = q8.quantize_plain(x)
+        if not (torch.equal(xq, pq) and torch.equal(xs, ps)):
+            fail(f"Q1 at {shape} {site['x_dtype']}: not bit-equal to its plain "
+                 f"version (scale {xs.item()!r} / {ps.item()!r}, "
+                 f"{int((xq != pq).sum())} int8 values differ)")
+        if (shape, site["x_dtype"]) not in seen_q1:
+            seen_q1.add((shape, site["x_dtype"]))
+            b1 = q8.quantize_bound(x.numel(), x.element_size(), xq.numel())
+            q1_rows.append({
+                "shape": list(shape), "dtype": site["x_dtype"],
+                "ms": cuda_ms(lambda: q8.quantize_act(x), iters=10),
+                "plain_ms": cuda_ms(lambda: q8.quantize_plain(x), iters=3,
+                                    warmup=1),
+                "bound_ms": b1["ms"], "bound_by": b1["bound_by"],
+                "calls_per_step": 0})
+        k, taps = site["k"], site["taps"]
+        w = torch.randn((k, shape[1]) + taps, generator=gen,
+                        device="cuda") / math.sqrt(shape[1] * math.prod(taps))
+        wq, ws = quantize_weight(w)
+        bias = (0.1 * torch.randn(k, generator=gen, device="cuda")
+                if site["bias"] else None)
+        args = (xq, wq, xs, ws, bias, site["stride"], site["pads"])
+        out = q8.int8_conv3d(*args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = q8.int8_conv3d_plain(*args)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        ulps = int(q8.bf16_ulps(out, ref).max())
+        if ulps > 1:
+            fail(f"Q2 {site['name']} at {shape}: {ulps} bf16 ulps from its "
+                 f"plain version (limit 1)")
+        cut = xq.clone()
+        cut[..., shape[1] - 1] = 0
+        cut_ulps = int(q8.bf16_ulps(q8.int8_conv3d_plain(cut, *args[1:]),
+                                 ref).max())
+        if cut_ulps <= 1:
+            fail(f"Q2 {site['name']}: the 1-ulp tolerance passes the plain "
+                 f"version with the last input channel left out")
+        del cut
+        max_err = (out.float() - ref.float()).abs().max().item()
+        ms = cuda_ms(lambda: q8.int8_conv3d(*args), iters=10)
+        osize = tuple(out.shape[2:])
+        b2 = q8.int8_conv_bound(shape[0], shape[2:], shape[1], xq.shape[-1],
+                                k, taps, osize, bias is not None)
+        # the bf16 cuDNN convolution at the same shape (TF32 is moot: bf16)
+        xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
+        (pd0, pd1), (ph0, ph1), (pw0, pw1) = site["pads"]
+        xpad = F.pad(xb, (pw0, pw1, ph0, ph1, pd0, pd1))
+        bb = None if bias is None else bias.to(torch.bfloat16)
+        cudnn_ms = cuda_ms(lambda: F.conv3d(xpad, wb, bb,
+                                            stride=site["stride"]), iters=10)
+        del xpad
+        a = im2col_int8(xq, taps, site["stride"], site["pads"])
+        kp = -(-k // 8) * 8    # _int_mm wants N % 8 == 0
+        bmat = torch.zeros((a.shape[1], kp), dtype=torch.int8, device="cuda")
+        bmat[:, :k] = wq.reshape(k, -1).t()
+        int_mm_ms = cuda_ms(lambda: torch._int_mm(a, bmat), iters=10)
+        acc = torch._int_mm(a, bmat)[:, :k].float()
+        del a, bmat, acc
+        q2_rows.append({
+            "name": site["name"], "shape": list(shape), "k": k,
+            "taps": list(taps), "stride": list(site["stride"]),
+            "pads": [list(p) for p in site["pads"]],
+            "calls_per_step": site["calls"], "ms": ms,
+            "plain_ms": plain_s * 1e3, "bound_ms": b2["ms"],
+            "bound_by": b2["bound_by"], "share_of_bound": b2["ms"] / ms,
+            "tops": b2["ops"] / ms * 1e-9, "cudnn_bf16_ms": cudnn_ms,
+            "int_mm_ms": int_mm_ms, "max_ulps": ulps,
+            "last_channel_cut_ulps": cut_ulps, "max_abs_err": max_err})
+        del x, xq, out, ref
+    torch.cuda.empty_cache()
+    for r in q1_rows:
+        r["calls_per_step"] = sum(
+            s["calls"] for s in sites
+            if list(s["x_shape"]) == r["shape"] and s["x_dtype"] == r["dtype"])
+    return {"sites": sites, "q1_calls_per_step": q1_calls,
+            "q2_calls_per_step": sum(s["calls"] for s in sites),
+            "q1": q1_rows, "q2": q2_rows}
+
+
+def int8_entries(chk: dict) -> list:
+    """The `kernels` entries of Q1 and Q2: the numbers of the main path's
+    most frequent shape (Q1: the 16^3 x 224 bf16 input; Q2: the 3x3x3
+    224 -> 224 convolution at 16^3), every shape under `per_shape`, and the
+    per-step totals of the torso's shapes (ms, plain, bound, cuDNN bf16,
+    _int_mm) weighted by their calls."""
+    out = []
+    for name, rows, pick in (
+            ("quantize_act", chk["q1"],
+             lambda r: r["shape"][1:] == [224, 16, 16, 16]
+             and r["dtype"] == "bfloat16"),
+            ("int8_conv3d", chk["q2"],
+             lambda r: r["shape"][1:] == [224, 16, 16, 16]
+             and r["taps"] == [3, 3, 3] and r["k"] == 224
+             and r["stride"] == [1, 1, 1])):
+        main = next(r for r in rows if pick(r))
+        step = {key: sum(r[key] * r["calls_per_step"] for r in rows)
+                for key in ("ms", "bound_ms") + (
+                    ("cudnn_bf16_ms", "int_mm_ms") if name == "int8_conv3d"
+                    else ())}
+        out.append({
+            "name": name, "route": "cuda", "dtype": "int8",
+            "source": "echoscene_torch/csrc/int8_conv.cu",
+            "replaces": INT8_REPLACES, "launches": None,
+            "max_abs_err": max(r.get("max_abs_err", 0.0) for r in rows),
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            # the same integer GEMM by one PyTorch call (on an im2col of
+            # the input); Q1 has none
+            "library_ms": main.get("int_mm_ms"),
+            "cudnn_bf16_ms": main.get("cudnn_bf16_ms"),
+            "shape": main["shape"], "per_step_totals": step,
+            "per_shape": rows,
+            "status": "hand kernel of the port, no TPU counterpart"})
+    return out
+
+
 def check_kernel_f32(name, wrapper, shape, ragged_shapes, replaces,
                      sm_clock_hz):
     """Phase 2 for the f32 kernel of one attention wrapper (3xTF32 on the
@@ -565,10 +760,17 @@ def check_kernel_backward(name, wrapper, shape):
           for x in (q, k, v)]
     library_ms = cuda_ms(fwd_bwd(F.scaled_dot_product_attention, tr,
                                  g.transpose(1, 2).contiguous()), iters=5)
+    # the bound of forward + backward, as phase 9's f32 one: three times
+    # the forward's products, the forward's exp2, twice its bytes
+    fwd = fa.attention_bound(*shape)
+    parts = {"operations": max(3 * fwd["tensor_core_ms"], fwd["exp2_ms"]),
+             "bytes": 2 * fwd["bytes_ms"]}
+    by = max(parts, key=parts.get)
     return {"train_shape": list(shape), "grad_bit_equal": equal,
             "grad_max_diff_of_peak": max(diffs),
             "train_err_of_limit": ratios, "fwd_bwd_ms": kernel_ms,
-            "plain_fwd_bwd_ms": plain_ms, "library_fwd_bwd_ms": library_ms}
+            "plain_fwd_bwd_ms": plain_ms, "library_fwd_bwd_ms": library_ms,
+            "fwd_bwd_bound_ms": parts[by], "fwd_bwd_bound_by": by}
 
 
 def check_chamfer_kernel(shapes, ragged_shape):
@@ -718,6 +920,15 @@ def eval_path(sg, card: str) -> dict:
         rows = shape_row_capacity(collate_scenes(examples, spec))
         store = os.path.join(tmp, "eval")
         render_dir = os.path.join(tmp, "renders")
+        # the service's DPM++ 50 / 20, not the protocol's DDPM 1000 / DDIM
+        # 100 that phase 4 drives: the same evaluator, dumps, renders and
+        # metrics in a fraction of the chains' time (the smoke's budget)
+        cfg = sg.cfg
+        cfg.layout_diffusion.sampler = "dpmpp"
+        cfg.layout_diffusion.sample_steps = 50
+        cfg.shape_branch.sampler, cfg.shape_branch.ddim_steps = "dpmpp", 20
+        sg.layout_fast_tables["dpmpp"] = sg.layout_diff.make_dpmpp_tables(50)
+        sg.ddim_tables = sg.shape_diff.make_dpmpp_tables(20)
         ev = SceneEvaluator(sg, spec, ds.box_stats, gen_shape=True,
                             store_path=store, dump_sdfs=True, eval_batch=8,
                             render_dir=render_dir, export_glb=True)
@@ -3038,6 +3249,215 @@ def tp_path(rows: int, card: str) -> dict:
     return out
 
 
+def int8_path(card: str, sites: dict) -> dict:
+    """Phase 13: bench.py's fast profile at full width, `build_flagship(
+    fast_profile=True)`: int8 W8A8 shape-torso convolutions, DPM++ 50
+    layout / 20 shape steps, on the flagship batch.  One generation with
+    every count set to 0 just before and read just after (K1 = 5 a shape
+    step, K2 = one a decode chunk, Q2 = `q2_calls_per_step` and Q1 =
+    `q1_calls_per_step` a shape step), finite outputs of the JAX shapes;
+    the cost of building the int8 twin (a fresh twin per sample_fn call,
+    ~57 weights quantized); one shape step of the int8 twin beside the bf16
+    twin's on the same weights and inputs (ms, busy share, top kernels, the
+    difference of the outputs); the service at the fast profile with
+    sample_dtype int8 (warmup, a short stream of 8 requests from 4
+    clients, the counts per dispatch); one shape step of the
+    `sample_conv: winograd` twin beside the direct bf16 twin (ms, error)."""
+    import numpy as np
+    import torch
+    from echoscene_torch.benchmarks import (NUM_OBJS, NUM_PREDS,
+                                            build_flagship,
+                                            concurrent_latency,
+                                            device_busy_shares, part_calls,
+                                            time_generation)
+    from echoscene_torch.data.clip_text import ClipTextEncoder
+    from echoscene_torch.data.collate import CollateSpec
+    from echoscene_torch.data.fake import make_fake_dataset
+    from echoscene_torch.data.sgfront import SGFrontDataset
+    from echoscene_torch.kernels import flash_attention as fa
+    from echoscene_torch.kernels import int8_conv as q8
+    from echoscene_torch.models.sgdiff import (inference_twin,
+                                               shape_row_capacity)
+    from echoscene_torch.serve.service import GenerationService
+
+    t_phase = time.perf_counter()
+    sg, batch = build_flagship(device="cuda", fast_profile=True)
+    cfg = sg.cfg
+    assert cfg.sample_dtype == "int8" and cfg.shape_branch.ddim_steps == 20
+    rows = shape_row_capacity(batch, multiple=1)
+    steps = sg.ddim_tables.num_steps
+    out = {"rows": rows, "shape_steps": steps,
+           "layout_steps": cfg.layout_diffusion.sample_steps}
+
+    def reset():
+        torch.cuda.synchronize()
+        fa.reset_launches()
+        q8.reset_launches()
+
+    def counts():
+        torch.cuda.synchronize()
+        return {**fa.LAUNCHES, **q8.LAUNCHES}
+
+    # 1. one generation, counted
+    reset()
+    sps, wall, gen = time_generation(sg, batch, batch.num_scenes, n_iters=1,
+                                     warmup=False)
+    got = counts()
+    want = {"onepass_attention": 5 * steps,
+            "stream_attention": math.ceil(rows / 8),
+            "quantize_act": sites["q1_calls_per_step"] * steps,
+            "int8_conv3d": sites["q2_calls_per_step"] * steps}
+    if got != want:
+        fail(f"int8 fast profile launched {got}, want {want}")
+    n = batch.num_nodes
+    for key, shp in {"sizes": (n, 3), "translations": (n, 3),
+                     "angles": (n, 1), "shapes": (n, 64, 64, 64, 1)}.items():
+        if tuple(gen[key].shape) != shp or not bool(
+                torch.isfinite(gen[key].float()).all()):
+            fail(f"int8 fast profile output {key}: shape "
+                 f"{tuple(gen[key].shape)}, want {shp}, or not finite")
+    if not bool(gen["shapes"][:rows].float().abs().sum() > 0):
+        fail("int8 fast profile: the real rows' SDFs are all zero")
+    out.update(generation_s=wall, scenes_per_sec=sps, launches=got)
+    print(f"int8 fast profile generation (DPM++ 50 / 20, int8 torso): "
+          f"{wall:.3f} s wall, {sps:.4f} scenes/sec, first call in the "
+          f"process; launches {json.dumps(got)} (Q2 "
+          f"{sites['q2_calls_per_step']} and Q1 "
+          f"{sites['q1_calls_per_step']} a shape step) [{card}]")
+
+    # 2. the twin's build, then one shape step int8 beside bf16
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        twin8 = sg.inference_module()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    out["int8_twin_build_s"] = times
+    twin16 = inference_twin(sg.module, torch.bfloat16)
+    reset()
+    parts = {name: device_busy_shares(sg, batch, rows, model=m,
+                                      names=("shape_step",), top=8)
+             ["shape_step"] for name, m in (("int8", twin8),
+                                            ("bf16", twin16),
+                                            ("int8_again", twin8))}
+    with torch.no_grad():
+        a = part_calls(sg, batch, rows, twin8)["shape_step"]().float()
+        b = part_calls(sg, batch, rows, twin16)["shape_step"]().float()
+    if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+        fail("int8 / bf16 shape step not finite")
+    diff = {"max_of_peak": ((a - b).abs().max() / b.abs().max()).item(),
+            "mean_of_mean": ((a - b).abs().mean() / b.abs().mean()).item()}
+    out.update(shape_step=parts, int8_vs_bf16=diff)
+    for name, p in parts.items():
+        print(f"shape step {name}: {p['wall_ms']:.3f} ms wall, device "
+              f"{p['device_ms']} ms, busy share {p['busy_share']}, "
+              f"{p['kernel_launches']} launches; top kernels "
+              f"{json.dumps(p['top'])} [{card}]")
+    print(f"int8 vs bf16 twin shape step outputs: {json.dumps(diff)}; int8 "
+          f"twin build {', '.join(f'{t:.3f}' for t in times)} s [{card}]")
+    del a, b, twin16
+
+    # 3. the service at the fast profile, sample_dtype int8
+    clip = ClipTextEncoder("hash")
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        root = make_fake_dataset(os.path.join(tmp, "data"), num_scenes=8,
+                                 min_objs=3, max_objs=6, with_sdf=False,
+                                 seed=0)
+        ds = SGFrontDataset(root, split="test", shuffle_objs=False,
+                            use_sdf=False, with_changes=False, clip=clip,
+                            seed=47)
+    if (len(ds.classes), len(ds.pred_names)) != (NUM_OBJS, NUM_PREDS):
+        fail("the fake vocabulary does not match the flagship model's")
+    spec = CollateSpec(max_nodes=48, max_triples=160, max_scenes=8,
+                       diffusion_bs=48, with_sdf=False)
+    svc = GenerationService(sg, spec, ds.box_stats, ds.classes, ds.rel_dict,
+                            clip=clip, row_buckets=(16, 32, 48),
+                            result_format="arrays", gen_shape=True, seed=0)
+    dispatch_rows = []
+    sample_fn = sg.sample_fn
+
+    def logged(batch_, generator=None, **kw):
+        dispatch_rows.append(kw["shape_rows"])
+        return sample_fn(batch_, generator, **kw)
+    sg.sample_fn = logged
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n_warm = svc.warmup(manips=(False,), verbose=False)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    names = [c for c in ds.classes if c != "_scene_"]
+    preds = list(ds.rel_dict)
+    rng = np.random.default_rng(13)
+
+    def request(rid):
+        k = int(rng.integers(3, 7))
+        return {"id": rid,
+                "objects": [names[int(i)] for i in rng.integers(
+                    0, len(names), k)],
+                "triples": [[0, preds[int(rng.integers(len(preds)))], j]
+                            for j in range(1, k)]}
+    reqs = [request(f"q{i}") for i in range(8)]
+    dispatch_rows.clear()
+    reset()
+    stream = concurrent_latency(svc, reqs, 10.0, 4)
+    got = counts()
+    sg.sample_fn = sample_fn
+    nd = len(dispatch_rows)
+    want = {"onepass_attention": 5 * steps * nd,
+            "stream_attention": sum(math.ceil(r / 8) for r in dispatch_rows),
+            "quantize_act": sites["q1_calls_per_step"] * steps * nd,
+            "int8_conv3d": sites["q2_calls_per_step"] * steps * nd}
+    results = stream["results"]
+    if not nd or got != want:
+        fail(f"int8 service: {nd} dispatches at rows {dispatch_rows} "
+             f"launched {got}, want {want}")
+    if sorted(results) != list(range(len(reqs))) or not all(
+            np.isfinite(np.asarray(r[k])).all() for r in results.values()
+            for k in ("sizes", "translations", "angles", "sdfs") if k in r):
+        fail("int8 service: results missing or not finite")
+    lat = np.asarray(stream["latencies_s"])
+    out["service"] = {
+        "warmup_variants": n_warm, "warmup_s": warm_s, "requests": len(reqs),
+        "dispatch_rows": list(dispatch_rows),
+        "latency_p50_s": float(np.percentile(lat, 50)),
+        "latency_p95_s": float(np.percentile(lat, 95)),
+        "req_per_sec": stream["req_per_sec"], "launches": got}
+    print(f"int8 service (fast profile): warmup {n_warm} variants in "
+          f"{warm_s:.3f} s; {len(reqs)} requests from 4 clients, p50 "
+          f"{out['service']['latency_p50_s']:.3f} s, p95 "
+          f"{out['service']['latency_p95_s']:.3f} s, "
+          f"{stream['req_per_sec']:.4f} requests/sec, dispatches at rows "
+          f"{dispatch_rows}; launches {json.dumps(got)} [{card}]")
+    del svc
+
+    # 4. the Winograd twin's shape step beside the direct bf16 twin's
+    wino = inference_twin(sg.module, torch.bfloat16, winograd=True)
+    direct = inference_twin(sg.module, torch.bfloat16)
+    w_parts = {name: device_busy_shares(sg, batch, rows, model=m,
+                                        names=("shape_step",))["shape_step"]
+               for name, m in (("winograd", wino), ("direct", direct))}
+    with torch.no_grad():
+        a = part_calls(sg, batch, rows, wino)["shape_step"]().float()
+        b = part_calls(sg, batch, rows, direct)["shape_step"]().float()
+    if not torch.isfinite(a).all():
+        fail("the Winograd twin's shape step is not finite")
+    w_diff = {"max_of_peak": ((a - b).abs().max() / b.abs().max()).item(),
+              "mean_of_mean": ((a - b).abs().mean()
+                               / b.abs().mean()).item()}
+    out.update(winograd_shape_step=w_parts, winograd_vs_direct=w_diff)
+    print(f"Winograd twin shape step {w_parts['winograd']['wall_ms']:.3f} ms"
+          f" wall, device {w_parts['winograd']['device_ms']} ms; direct bf16 "
+          f"twin {w_parts['direct']['wall_ms']:.3f} ms, device "
+          f"{w_parts['direct']['device_ms']} ms; outputs differ by "
+          f"{json.dumps(w_diff)} [{card}]")
+    del wino, direct, a, b, sg, twin8
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> int:
     global T_START
     T_START = time.perf_counter()
@@ -3057,6 +3477,7 @@ def main() -> int:
     from echoscene_torch import native
     from echoscene_torch.kernels import chamfer as k4
     from echoscene_torch.kernels import flash_attention as fa
+    from echoscene_torch.kernels import int8_conv as q8
     from echoscene_torch.models.sgdiff import set_precision, shape_row_capacity
 
     set_precision()
@@ -3066,7 +3487,7 @@ def main() -> int:
 
     # 1. build: one nvcc per source, all started together
     sources = (fa.SOURCE, fa.SOURCE_F32, BASELINE_SOURCE, F32_SIMT_SOURCE,
-               k4.SOURCE, K4_DIRECT_SOURCE)
+               k4.SOURCE, K4_DIRECT_SOURCE, q8.SOURCE)
     t0 = time.perf_counter()
     built = build.build_all(sources)
     for source in sources:
@@ -3130,7 +3551,9 @@ def main() -> int:
         wrapper = getattr(fa, e["name"])
         e.update(check_kernel_backward(e["name"], wrapper, shape))
         print(f"kernel {e['name']} {shape} forward + backward (kernel forward,"
-              f" plain recompute backward): {e['fwd_bwd_ms']:.4f} ms; plain "
+              f" plain recompute backward): {e['fwd_bwd_ms']:.4f} ms, bound "
+              f"{e['fwd_bwd_bound_ms']:.4f} ms (by {e['fwd_bwd_bound_by']}); "
+              f"plain "
               f"forward + backward {e['plain_fwd_bwd_ms']:.4f} ms; sdpa "
               f"forward + backward {e['library_fwd_bwd_ms']:.4f} ms; dq, dk, "
               f"dv vs plain autograd: bit-equal {e['grad_bit_equal']}, max "
@@ -3187,6 +3610,30 @@ def main() -> int:
     print(f"kernel {e['name']}: 64 targets left out at "
           f"{e['targets_dropped_err_of_limit'][0]:.1f} / "
           f"{e['targets_dropped_err_of_limit'][1]:.1f} of the limits")
+
+    # Q1 / Q2 (int8 W8A8) at every convolution of the flagship's int8 torso
+    t0 = time.perf_counter()
+    q8chk = check_int8_kernels(rows)
+    int8_kernel_entries = int8_entries(q8chk)
+    for r in q8chk["q1"]:
+        print(f"kernel quantize_act {r['shape']} {r['dtype']}: "
+              f"{r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms (bytes), "
+              f"share {r['bound_ms'] / r['ms']:.3f}; plain "
+              f"{r['plain_ms']:.3f} ms; {r['calls_per_step']} a shape step; "
+              f"bit-equal [{card}]")
+    for r in q8chk["q2"]:
+        print(f"kernel int8_conv3d {r['name']} {r['shape']} -> {r['k']} taps "
+              f"{r['taps']} stride {r['stride']}: {r['ms']:.4f} ms, "
+              f"{r['tops']:.1f} TOP/s, {r['share_of_bound']:.3f} of the "
+              f"bound {r['bound_ms']:.4f} ms (by {r['bound_by']}); cuDNN "
+              f"bf16 {r['cudnn_bf16_ms']:.4f} ms, _int_mm "
+              f"{r['int_mm_ms']:.4f} ms, plain {r['plain_ms']:.2f} ms; "
+              f"{r['calls_per_step']} a shape step; {r['max_ulps']} ulp (last"
+              f" input channel cut: {r['last_channel_cut_ulps']}) [{card}]")
+    for e in int8_kernel_entries:
+        print(f"kernel {e['name']} per shape step (the torso's shapes x "
+              f"their calls): {json.dumps(e['per_step_totals'])} [{card}]")
+    print(f"int8 kernel checks took {time.perf_counter() - t0:.1f} s")
 
     # 3. the rest of the port on the card vs on the CPU
     err = check_tiny_against_cpu()
@@ -3408,10 +3855,20 @@ def main() -> int:
         for r in tp["forward"]["ranks"]]
     print(f"tp details: {json.dumps(tp)}; phase 12 took "
           f"{tp['phase_s']:.1f} s")
+    # 13. bench.py's fast profile: int8 torso, DPM++ 50 / 20, at full width
+    i8 = int8_path(card, q8chk)
+    for e in int8_kernel_entries:
+        e["launches"] = i8["launches"][e["name"]]
+        e["service_launches"] = i8["service"]["launches"][e["name"]]
+    for e in entries[:2]:
+        e["int8_profile_launches"] = i8["launches"][e["name"]]
+    print(f"int8 details: {json.dumps(i8)}; phase 13 took "
+          f"{i8['phase_s']:.1f} s")
     entries.append(tp_entry)
     entries[2:2] = f32_entries + [k2_train]
     for e in entries:
         e["status"] = "ported: built, matches its plain version, on the path"
+    entries += int8_kernel_entries
 
     print(f"chip_smoke: {time.perf_counter() - T_START:.1f} s in all")
     print(json.dumps({"kernels": entries}))

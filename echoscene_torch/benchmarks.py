@@ -151,13 +151,34 @@ def flagship_config(config_path: Optional[str] = None) -> EchoSceneConfig:
                        or os.path.join(REPO_ROOT, "configs", "full_mp.yaml"))
 
 
+def apply_profile(cfg: EchoSceneConfig, sample_dtype: Optional[str] = None,
+                  fast_profile: bool = False) -> EchoSceneConfig:
+    """`cfg` with bench.py's sampling options set in place (JAX's
+    build_flagship, echoscene_tpu/benchmarks.py:55-67): `sample_dtype`
+    when given; `fast_profile` is the opt-in serving profile, int8 W8A8
+    shape-UNet convolutions with DPM-Solver++(2M) 50-step layout / 20-step
+    shape chains."""
+    if sample_dtype is not None:
+        cfg.sample_dtype = sample_dtype
+    if fast_profile:
+        cfg.sample_dtype = "int8"
+        cfg.layout_diffusion.sampler = "dpmpp"
+        cfg.layout_diffusion.sample_steps = 50
+        cfg.shape_branch.sampler = "dpmpp"
+        cfg.shape_branch.ddim_steps = 20
+    return cfg
+
+
 def build_flagship(max_nodes: int = 48, max_triples: int = 112,
                    batch_scenes: int = 8, seed: int = 0, device="cuda",
-                   cfg: Optional[EchoSceneConfig] = None
+                   cfg: Optional[EchoSceneConfig] = None,
+                   sample_dtype: Optional[str] = None,
+                   fast_profile: bool = False
                    ) -> Tuple[SGDiff, SceneBatch]:
     """Flagship SGDiff (full_mp.yaml widths unless `cfg` is given) with
-    seeded random weights, and the synthetic batch on `device`."""
-    cfg = cfg or flagship_config()
+    seeded random weights, and the synthetic batch on `device`;
+    `sample_dtype` / `fast_profile` as `apply_profile`."""
+    cfg = apply_profile(cfg or flagship_config(), sample_dtype, fast_profile)
     cfg.max_nodes, cfg.max_triples = max_nodes, max_triples
     cfg.batch_scenes = batch_scenes
     torch.manual_seed(seed)

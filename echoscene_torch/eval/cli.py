@@ -26,8 +26,10 @@ ddim|dpmpp`).  `--render_dir R` writes each scene's 256^2 top-down render
 `--export_glb` a .glb beside each, and manipulated eval an overlay
 `<scan_id>_mani.png`.  `--dp_devices N` generates N groups at a time on
 `cuda:0 .. cuda:N-1` (parallel/dp.py `DPSampler`, one thread and stream a
-card) and raises when fewer cards are visible.  Not ported yet, and raising
-NotImplementedError: `--sample_dtype int8` (raised in SGDiff).
+card) and raises when fewer cards are visible.  `--sample_dtype int8`
+samples with int8 W8A8 shape-UNet convolutions (nn/quant.py; with
+`--layout_sampler dpmpp --layout_steps 50 --shape_sampler dpmpp
+--shape_steps 20` it is bench.py's fast profile).
 """
 from __future__ import annotations
 

@@ -1,0 +1,371 @@
+"""Int8 W8A8 convolution: CUDA kernels + plain versions.
+
+Hand kernels of the port with no Pallas counterpart.  The JAX package's
+`sample_dtype: int8` mode (echoscene_tpu/nn/quant.py) quantizes each shape
+UNet convolution's input per tensor and its weight per output channel and
+runs `lax.conv_general_dilated` on the int8 operands with int32
+accumulation (nn/quant.py:89-92): XLA's convolution, not Pallas.  PyTorch
+has no CUDA int8 3D convolution, so the port has two kernels of its own,
+in `csrc/int8_conv.cu`:
+
+  * Q1 `quantize_act`: the per-tensor abs-max, scale = max(amax, eps) /
+    127, q = clip(round(x / scale), -127, 127) (round half to even, IEEE
+    division: JAX's `quantize_symmetric`, nn/quant.py:27-33), written
+    channels-last with the channels padded to a multiple of 32 by zeros
+    (the layout Q2 reads); the scale stays on the device;
+  * Q2 `int8_conv3d`: an implicit-GEMM convolution on the tensor cores
+    (`mma.sync` m16n8k32 s8) with int32 accumulation and the dequantize
+    epilogue acc * (x_scale * w_scale[k]) (+ bias[k]) in f32 -> bf16
+    (nn/quant.py:93-96), for kernels of 1-3 taps an axis, any strides,
+    per-side pads, written channel-first through the output's strides.
+
+On a CPU tensor each wrapper computes its plain version (`quantize_plain`,
+`int8_conv3d_plain`: F.conv3d in float64 on the integer values, exact
+since every sum stays below 2^53); on a CUDA tensor it launches its kernel
+or raises on a dtype, layout or alignment the kernel does not take.
+`LAUNCHES` counts kernel launches per wrapper; `quantize_bound` /
+`int8_conv_bound` give the least time one H100 could take for a call.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+import threading
+from typing import Dict, Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from . import build
+
+SOURCE = "int8_conv.cu"
+LAUNCHES: Dict[str, int] = {"quantize_act": 0, "int8_conv3d": 0}
+CHANNEL_ALIGN = 32          # Q2 reads 32-byte depth slices
+EPS = 1e-8                  # JAX's quantize_symmetric eps
+AMAX_BLOCKS = 1024          # most partial maxima of Q1's first pass
+_entries: Dict[str, ctypes._CFuncPtr] = {}
+_lock = threading.Lock()
+
+# H100 SXM peaks (NVIDIA's data sheet)
+PEAK_INT8_OPS = 1979e12     # dense int8 tensor-core rate
+PEAK_BYTES = 3.35e12        # HBM3
+
+
+def reset_launches() -> None:
+    with _lock:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+
+
+def padded_channels(c: int) -> int:
+    return -(-c // CHANNEL_ALIGN) * CHANNEL_ALIGN
+
+
+def scale_of(amax: torch.Tensor, eps: float = EPS) -> torch.Tensor:
+    """max(amax, eps) / 127 in f32 with IEEE division, as JAX computes it.
+    The divisor is a tensor on amax's device: PyTorch's CUDA division by a
+    Python scalar multiplies by its reciprocal, which can round the scale
+    one ulp away."""
+    return (torch.maximum(amax, amax.new_tensor(eps))
+            / amax.new_full((), 127.0))
+
+
+def quantize_symmetric(x: torch.Tensor, dims: Optional[Sequence[int]] = None,
+                       eps: float = EPS) -> Tuple[torch.Tensor, torch.Tensor]:
+    """abs-max int8 quantization over `dims` (all when None), JAX's
+    quantize_symmetric (echoscene_tpu/nn/quant.py:27-33): scale =
+    max(amax, eps) / 127 (kept dims), q = clip(round(x / scale), -127, 127)
+    in f32, round half to even."""
+    xf = x.float()
+    dims = tuple(range(x.dim())) if dims is None else tuple(dims)
+    scale = scale_of(xf.abs().amax(dim=dims, keepdim=True), eps)
+    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def quantize_plain(x: torch.Tensor, eps: float = EPS
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Q1's plain version: x (N, C, *spatial) -> (q (N, *spatial, Cp) int8,
+    zeros in the padded channels; scale (1,) f32)."""
+    q, scale = quantize_symmetric(x, eps=eps)
+    c = x.shape[1]
+    q = F.pad(q.movedim(1, -1), (0, padded_channels(c) - c))
+    return q.contiguous(), scale.reshape(1)
+
+
+def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Per-element distance in bf16 ulps of two bf16 tensors: the measure
+    Q2 is held to against its plain version (at most 1)."""
+    def ordered(t):
+        i = t.contiguous().view(torch.int16).int()
+        return torch.where(i < 0, -(i + 32768), i)
+    return (ordered(a) - ordered(b)).abs()
+
+
+def output_size(size: Sequence[int], kernel: Sequence[int],
+                stride: Sequence[int], pads: Sequence[Tuple[int, int]]
+                ) -> Tuple[int, ...]:
+    return tuple((n + p0 + p1 - k) // s + 1 for n, k, s, (p0, p1)
+                 in zip(size, kernel, stride, pads))
+
+
+def dequantize(acc: torch.Tensor, x_scale: torch.Tensor,
+               w_scale: torch.Tensor, bias: Optional[torch.Tensor]
+               ) -> torch.Tensor:
+    """f32(acc) * (x_scale * w_scale[k]) (+ bias[k]) -> bf16, channel-first
+    acc (N, K, ...): the product rounded before the add (JAX's order)."""
+    shape = (1, -1) + (1,) * (acc.dim() - 2)
+    y = acc.float() * (x_scale.reshape(()) * w_scale).reshape(shape)
+    if bias is not None:
+        y = y + bias.float().reshape(shape)
+    return y.to(torch.bfloat16)
+
+
+def int8_conv3d_plain(xq: torch.Tensor, wq: torch.Tensor,
+                      x_scale: torch.Tensor, w_scale: torch.Tensor,
+                      bias: Optional[torch.Tensor],
+                      stride: Sequence[int] = (1, 1, 1),
+                      pads: Sequence[Tuple[int, int]] = ((1, 1),) * 3,
+                      out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Q2's plain version: the int32 accumulators as F.conv3d in float64 on
+    the integer values (exact), then `dequantize`.  xq (N, D, H, W, Cp),
+    wq (K, kd, kh, kw, Cp) int8 -> (N, K, Do, Ho, Wo) bf16, written into
+    `out` when given."""
+    xf = xq.permute(0, 4, 1, 2, 3).double()
+    wf = wq.permute(0, 4, 1, 2, 3).double()
+    (pd0, pd1), (ph0, ph1), (pw0, pw1) = pads
+    xf = F.pad(xf, (pw0, pw1, ph0, ph1, pd0, pd1))
+    acc = F.conv3d(xf, wf, stride=tuple(stride)).to(torch.int32)
+    y = dequantize(acc, x_scale, w_scale, bias)
+    if out is None:
+        return y
+    out.copy_(y)
+    return out
+
+
+def _entry(name: str):
+    with _lock:
+        fn = _entries.get(name)
+        if fn is None:
+            lib = build.load(SOURCE)
+            q = lib.echoscene_quantize_act
+            q.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                          ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                          ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+            q.restype = ctypes.c_int
+            c = lib.echoscene_int8_conv3d
+            c.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 18
+                          + [ctypes.c_longlong] * 5 + [ctypes.c_void_p])
+            c.restype = ctypes.c_int
+            _entries["quantize_act"] = q
+            _entries["int8_conv3d"] = c
+            _entries["amax_threads"] = lib.echoscene_quantize_amax_threads
+            fn = _entries[name]
+        return fn
+
+
+def _count(name: str) -> None:
+    with _lock:
+        LAUNCHES[name] += 1
+
+
+def _raise_on_error(name: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+def quantize_act(x: torch.Tensor, eps: float = EPS
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Q1: x (N, C, *spatial) bf16 or f32, channel-first -> (q (N, *spatial,
+    Cp) int8, channels-last, zeros past C; scale (1,) f32 on x's device).
+    CUDA: the kernel (x must be contiguous); CPU: `quantize_plain`."""
+    if x.device.type == "cpu":
+        return quantize_plain(x, eps)
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"quantize_act takes bf16 or f32, got {x.dtype}")
+    if x.dim() < 2 or not x.is_contiguous() or x.numel() == 0:
+        raise ValueError(f"quantize_act needs a contiguous, non-empty (N, C, "
+                         f"...) tensor, got shape {tuple(x.shape)}")
+    n, c = x.shape[:2]
+    spatial = tuple(x.shape[2:])
+    s = x.numel() // (n * c)
+    cp = padded_channels(c)
+    per_block = 16 * _entry("amax_threads")()
+    nparts = max(1, min(AMAX_BLOCKS, -(-x.numel() // per_block)))
+    partial = torch.empty(nparts, dtype=torch.float32, device=x.device)
+    q = torch.empty((n,) + spatial + (cp,), dtype=torch.int8,
+                    device=x.device)
+    scale = torch.empty(1, dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        err = _entry("quantize_act")(
+            x.data_ptr(), int(x.dtype == torch.bfloat16), n, c, s, cp,
+            partial.data_ptr(), nparts, eps, q.data_ptr(), scale.data_ptr(),
+            stream)
+    _raise_on_error("quantize_act", err)
+    _count("quantize_act")
+    return q, scale
+
+
+def _check_conv(xq, wq, x_scale, w_scale, bias, out) -> None:
+    dev = xq.device
+    for name, t, dtype, dims in (("xq", xq, torch.int8, 5),
+                                 ("wq", wq, torch.int8, 5),
+                                 ("x_scale", x_scale, torch.float32, 1),
+                                 ("w_scale", w_scale, torch.float32, 1),
+                                 ("bias", bias, torch.float32, 1)):
+        if t is None:
+            continue
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, xq on {dev}")
+        if t.dtype != dtype or t.dim() != dims or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {dims}-d {dtype} "
+                             f"tensor, got {t.dtype} {tuple(t.shape)}")
+    cp, k = xq.shape[-1], wq.shape[0]
+    if cp % CHANNEL_ALIGN or wq.shape[-1] != cp:
+        raise ValueError(f"xq / wq channels {cp} / {wq.shape[-1]}: must agree"
+                         f" and be a multiple of {CHANNEL_ALIGN}")
+    if xq.data_ptr() % 16 or wq.data_ptr() % 16:
+        raise ValueError("xq and wq must be 16-byte aligned")
+    if any(n not in (1, 2, 3) for n in wq.shape[1:4]):
+        raise ValueError(f"kernel taps {tuple(wq.shape[1:4])}: 1-3 an axis")
+    if x_scale.numel() != 1 or w_scale.numel() != k or (
+            bias is not None and bias.numel() != k):
+        raise ValueError("x_scale must hold 1 value, w_scale and bias K")
+    if out.dtype != torch.bfloat16 or out.device != dev:
+        raise ValueError(f"out must be bf16 on {dev}, got {out.dtype} on "
+                         f"{out.device}")
+
+
+def int8_conv3d(xq: torch.Tensor, wq: torch.Tensor, x_scale: torch.Tensor,
+                w_scale: torch.Tensor, bias: Optional[torch.Tensor],
+                stride: Sequence[int] = (1, 1, 1),
+                pads: Sequence[Tuple[int, int]] = ((1, 1),) * 3,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Q2: xq (N, D, H, W, Cp) int8 (Q1's layout), wq (K, kd, kh, kw, Cp)
+    int8, x_scale (1,), w_scale (K,), bias (K,) or None, f32; stride and
+    per-side pads ((front, back) per axis) -> (N, K, Do, Ho, Wo) bf16,
+    written into `out` (any strides, e.g. a parity's view) when given.
+    CUDA: the kernel; CPU: `int8_conv3d_plain`."""
+    n, d, h, w, _ = xq.shape
+    k = wq.shape[0]
+    osize = output_size((d, h, w), wq.shape[1:4], stride, pads)
+    if out is None:
+        out = torch.empty((n, k) + osize, dtype=torch.bfloat16,
+                          device=xq.device)
+    if tuple(out.shape) != (n, k) + osize:
+        raise ValueError(f"out has shape {tuple(out.shape)}, want "
+                         f"{(n, k) + osize}")
+    if xq.device.type == "cpu":
+        return int8_conv3d_plain(xq, wq, x_scale, w_scale, bias, stride,
+                                 pads, out)
+    _check_conv(xq, wq, x_scale, w_scale, bias, out)
+    (pd, _), (ph, _), (pw, _) = pads
+    stream = torch.cuda.current_stream(xq.device).cuda_stream
+    with torch.cuda.device(xq.device):
+        err = _entry("int8_conv3d")(
+            xq.data_ptr(), wq.data_ptr(), x_scale.data_ptr(),
+            w_scale.data_ptr(), None if bias is None else bias.data_ptr(),
+            out.data_ptr(), n, d, h, w, xq.shape[-1], k, *wq.shape[1:4],
+            *stride, pd, ph, pw, *osize, *out.stride(), stream)
+    _raise_on_error("int8_conv3d", err)
+    _count("int8_conv3d")
+    return out
+
+
+def quantize_bound(numel: int, elem_bytes: int, out_bytes: int) -> Dict:
+    """The least time one H100 could take for Q1: read x once, write q
+    once (bytes at 3.35 TB/s; its operations are a few a byte)."""
+    nbytes = numel * elem_bytes + out_bytes + 4
+    ms = nbytes / PEAK_BYTES * 1e3
+    return {"ms": ms, "bound_by": "bytes", "bytes": nbytes, "bytes_ms": ms}
+
+
+def int8_conv_bound(n: int, in_spatial: Sequence[int], c_in: int, cp: int,
+                    k: int, taps: Sequence[int], out_spatial: Sequence[int],
+                    has_bias: bool) -> Dict:
+    """The least time one H100 could take for Q2: the larger of its 2 M K
+    taps C_in operations (M the output positions, C_in the real input
+    channels) at 1,979 TOP/s (dense int8) and the bytes of reading xq
+    (Cp channels), wq, the scales and bias once and writing the bf16
+    output once at 3.35 TB/s."""
+    m = n * math.prod(out_spatial)
+    t = math.prod(taps)
+    ops = 2 * m * k * t * c_in
+    nbytes = (n * math.prod(in_spatial) * cp + k * t * cp
+              + 4 * (1 + k + (k if has_bias else 0)) + 2 * m * k)
+    times = {"operations": ops / PEAK_INT8_OPS * 1e3,
+             "bytes": nbytes / PEAK_BYTES * 1e3}
+    by = max(times, key=times.get)
+    return {"ms": times[by], "bound_by": by, "ops": ops, "bytes": nbytes,
+            "ops_ms": times["operations"], "bytes_ms": times["bytes"]}
+
+
+def torso_conv_sites(denoiser_cfg, rows: int) -> Tuple[list, int]:
+    """The int8 convolutions of one shape-denoiser call of the int8 twin
+    (`sample_dtype: int8`, factored upsamples), from its config (image
+    size, channels, channel_mult, num_res_blocks) at `rows` rows, in call
+    order, merged by shape: a list of dicts (`x_shape` (N, C, D, H, W), `k`,
+    `taps`, `stride`, `pads`, `bias`, `x_dtype` "float32" for conv_in, else
+    "bfloat16", and `calls` per denoiser call), and the number of Q1
+    launches per call (one per Int8Conv3d, one per factored upsample)."""
+    sd = denoiser_cfg
+    mc = sd.model_channels
+    mult = tuple(sd.channel_mult)
+    r = sd.image_size
+    sites: Dict[tuple, Dict] = {}
+    q1 = 0
+
+    def add(name, c_in, k, spatial, taps=(3, 3, 3), stride=(1, 1, 1),
+            pads=((1, 1),) * 3, bias=True, x_dtype="bfloat16"):
+        key = (c_in, k, spatial, taps, stride, pads, bias, x_dtype)
+        if key in sites:
+            sites[key]["calls"] += 1
+            return
+        sites[key] = dict(name=name, x_shape=(rows, c_in) + spatial, k=k,
+                          taps=taps, stride=stride, pads=pads, bias=bias,
+                          x_dtype=x_dtype, calls=1)
+
+    def res(c_in, c_out, spatial):
+        nonlocal q1
+        add(f"ResBlock in {c_in}->{c_out}", c_in, c_out, spatial)
+        add(f"ResBlock out {c_out}", c_out, c_out, spatial)
+        q1 += 2
+        if c_in != c_out:
+            add(f"skip 1x1x1 {c_in}->{c_out}", c_in, c_out, spatial,
+                taps=(1, 1, 1), pads=((0, 0),) * 3)
+            q1 += 1
+
+    spatial = (r, r, r)
+    add("conv_in", sd.in_channels, mc, spatial, x_dtype="float32")
+    q1 += 1
+    chans, ch = [mc], mc
+    for level, m in enumerate(mult):
+        for _ in range(sd.num_res_blocks):
+            res(ch, m * mc, spatial)
+            ch = m * mc
+            chans.append(ch)
+        if level != len(mult) - 1:
+            add(f"Downsample {ch}", ch, ch, spatial, stride=(1, 2, 2))
+            q1 += 1
+            spatial = (spatial[0], spatial[1] // 2, spatial[2] // 2)
+            chans.append(ch)
+    res(ch, ch, spatial)
+    res(ch, ch, spatial)
+    for level, m in reversed(list(enumerate(mult))):
+        for i in range(sd.num_res_blocks + 1):
+            res(ch + chans.pop(), m * mc, spatial)
+            ch = m * mc
+            if level and i == sd.num_res_blocks:
+                q1 += 1
+                for rh in (0, 1):
+                    for rw in (0, 1):
+                        add(f"Upsample {ch} parity ({rh}, {rw})", ch, ch,
+                            spatial, taps=(3, 2, 2),
+                            pads=((1, 1), ((1, 0), (0, 1))[rh],
+                                  ((1, 0), (0, 1))[rw]), bias=False)
+                spatial = (spatial[0], spatial[1] * 2, spatial[2] * 2)
+    add("conv_out", mc, sd.out_channels, spatial)
+    q1 += 1
+    return list(sites.values()), q1

@@ -76,7 +76,8 @@ class EchoSceneModule(nn.Module):
                 message_passing=sd.message_passing,
                 enable_t_emb=sd.enable_t_emb,
                 gconv_num_layers=sd.gconv_num_layers, num_preds=16,
-                obj_dim=dims[-1], factored_upsample=sd.factored_upsample)
+                obj_dim=dims[-1], factored_upsample=sd.factored_upsample,
+                winograd=sd.winograd)
             vq = cfg.shape_branch.vqvae
             self.vqvae = VQVAE(
                 n_embed=vq.n_embed, embed_dim=vq.embed_dim, ch=vq.ch,

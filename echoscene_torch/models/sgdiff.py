@@ -43,7 +43,8 @@ from ..core.boxes import box_vec_from_boxes
 from ..core.graphbatch import SceneBatch
 from ..diffusion.ddpm import LayoutDiffusion
 from ..diffusion.ldm import ShapeDiffusion
-from ..nn.blocks import Upsample
+from ..nn.blocks import Downsample, ResBlock, Upsample, WinogradConv3d
+from ..nn.quant import Int8Conv3d, jax_rounding_
 from ..nn.vqvae import Upsample3D
 from .config import EchoSceneConfig
 from .echo_scene import EchoSceneModule
@@ -65,31 +66,95 @@ def set_precision() -> None:
 
 
 def inference_twin(module: torch.nn.Module, dtype: torch.dtype,
-                   factored: bool = True) -> torch.nn.Module:
+                   factored: bool = True, int8: bool = False,
+                   winograd: bool = False) -> torch.nn.Module:
     """A copy of `module` with its parameters (not buffers) cast to dtype:
     JAX's bf16 sampling twin (echoscene_tpu/models/sgdiff.py:143-157).  As
     there, with `factored` its shape denoiser's and VQ-VAE's 3D upsamples
     (`nn.blocks.Upsample`, `nn.vqvae.Upsample3D`) run the exact factored
     form, whose conv bias stays f32 (JAX's FactoredUpsampleConv adds the
     f32 parameter); without it, interpolate + conv, every parameter in
-    dtype."""
+    dtype.
+
+    `int8` is the W8A8 twin (`sample_dtype: int8`): the shape denoiser's
+    torso convolutions (conv_in, each ResBlock's two 3x3x3 convolutions and
+    1x1x1 skip, each Downsample, each Upsample, in its quantized factored
+    form, and the output convolution) become `nn.quant.Int8Conv3d`, which
+    keep their f32 parameters and quantize the weight once, here; the rest
+    is the dtype twin (JAX's `_conv` under the int8 sentinel,
+    echoscene_tpu/nn/blocks.py:288-292).  `winograd` (`sample_conv:
+    winograd`) makes each ResBlock's 3x3x3 convolutions and each Upsample's
+    convolution WinogradConv3d (f32 weight, the transformed weight made
+    once in dtype) and turns the shape denoiser's upsamples back to
+    interpolate + conv; int8 takes precedence (blocks.py:288-295).  The
+    int8 twin also rounds around its quantized convolutions where JAX's
+    bf16 ops round (`nn.quant.jax_rounding_`)."""
     twin = copy.deepcopy(module).eval()
+    if int8 and getattr(twin, "tp_plan", None) is not None:
+        raise NotImplementedError(
+            "the int8 twin of a tensor-parallel module is not ported "
+            "(ROADMAP.md: the activation abs-max, the row-split weight "
+            "scales and the int32 partial sums need the model group)")
+    sd = getattr(twin, "shape_denoiser", None)
     for name in ("shape_denoiser", "vqvae"):
         for m in getattr(twin, name, torch.nn.Module()).modules():
             if isinstance(m, (Upsample, Upsample3D)):
                 m.factored = factored
+                if isinstance(m, Upsample) and winograd:
+                    m.winograd = m.dims == 3
     cfg = getattr(twin, "cfg", None)
     if cfg is not None:
         cfg.shape_branch.denoiser.factored_upsample = factored
         cfg.shape_branch.vqvae.factored_upsample = factored
-    keep = {id(m.conv.bias) for m in twin.modules()
-            if isinstance(m, (Upsample, Upsample3D)) and m.factored
-            and m.conv.bias is not None}
+        cfg.shape_branch.denoiser.winograd |= winograd
+    keep = set()
+    if sd is not None and (int8 or winograd):
+        keep = _convert_torso_convs(sd, dtype, int8, winograd)
+    if sd is not None and int8:
+        keep |= jax_rounding_(sd)
+    keep |= {id(m.conv.bias) for m in twin.modules()
+             if isinstance(m, (Upsample, Upsample3D)) and m.factored
+             and m.conv.bias is not None}
     for p in twin.parameters():
         if id(p) not in keep:
             p.data = p.data.to(dtype)
         p.requires_grad_(False)
     return twin
+
+
+def _convert_torso_convs(sd: torch.nn.Module, dtype: torch.dtype,
+                         int8: bool, winograd: bool) -> set:
+    """Swap the shape denoiser's torso convolutions for the int8 / Winograd
+    forms in place; returns the ids of their parameters, which stay f32."""
+    sites = []   # (parent, child name, conv, role)
+    sites.append((sd.input_blocks[0], "0", sd.input_blocks[0][0], "edge"))
+    sites.append((sd.out, "2", sd.out[2], "edge"))
+    for m in sd.modules():
+        if isinstance(m, ResBlock):
+            sites.append((m.in_layers, "2", m.in_layers[2], "3x3"))
+            sites.append((m.out_layers, "3", m.out_layers[3], "3x3"))
+            if isinstance(m.skip_connection, torch.nn.Conv3d):
+                sites.append((m, "skip_connection", m.skip_connection,
+                              "edge"))
+        elif isinstance(m, Downsample) and isinstance(m.op, torch.nn.Conv3d):
+            sites.append((m, "op", m.op, "edge"))
+        elif isinstance(m, Upsample) and m.dims == 3:
+            sites.append((m, "conv", m.conv, "up"))
+    keep = set()
+    for parent, key, conv, role in sites:
+        if int8:
+            up = (1, 2) if role == "up" and parent.factored and not \
+                parent.winograd else None
+            new = Int8Conv3d(conv, up_axes=up)
+        elif role in ("3x3", "up"):
+            if not isinstance(conv, WinogradConv3d):
+                conv = WinogradConv3d.from_conv(conv)
+            new = conv.prepare_(dtype)
+        else:
+            continue
+        setattr(parent, key, new)
+        keep |= {id(p) for p in new.parameters()}
+    return keep
 
 
 def lr_schedule(cfg: EchoSceneConfig) -> Callable[[int], float]:
@@ -195,15 +260,12 @@ class SGDiff:
     def __init__(self, cfg: EchoSceneConfig, num_objs: int, num_preds: int,
                  device="cuda", iou_stats: Optional[np.ndarray] = None):
         set_precision()
-        if cfg.sample_dtype not in ("float32", "bfloat16"):
-            raise NotImplementedError(f"sample_dtype {cfg.sample_dtype}")
+        if cfg.sample_dtype not in ("float32", "bfloat16", "int8"):
+            raise ValueError(f"sample_dtype {cfg.sample_dtype}")
         if cfg.compute_dtype not in ("float32", "bfloat16"):
             raise NotImplementedError(f"compute_dtype {cfg.compute_dtype}")
-        if (cfg.sample_conv != "direct"
-                or cfg.shape_branch.denoiser.winograd):
-            raise NotImplementedError(
-                f"sample_conv {cfg.sample_conv!r} / denoiser.winograd: only "
-                "the direct convolution is ported")
+        if cfg.sample_conv not in ("direct", "winograd"):
+            raise ValueError(f"sample_conv {cfg.sample_conv!r}")
         self.cfg = cfg
         self.device = torch.device(device)
         self.module = EchoSceneModule(cfg, num_objs, num_preds).to(
@@ -236,12 +298,19 @@ class SGDiff:
 
     def inference_module(self, device=None) -> EchoSceneModule:
         """The module sampling runs (batch norms on their running
-        statistics): the bf16 twin with the factored upsamples, or the f32
-        module as it is configured; on `device` (the module's by default;
-        elsewhere a copy)."""
+        statistics): the bf16 twin with the factored upsamples (its shape
+        denoiser's torso convolutions in int8 under `sample_dtype: int8`,
+        its 3x3x3 ones by Winograd under `sample_conv: winograd`), or the
+        f32 module as it is configured (JAX's module_infer); on `device`
+        (the module's by default; elsewhere a copy)."""
         dev = self.device if device is None else torch.device(device)
-        if self.cfg.sample_dtype == "bfloat16":
-            return inference_twin(self.module, torch.bfloat16).to(dev)
+        cfg = self.cfg
+        if cfg.sample_dtype in ("bfloat16", "int8"):
+            return inference_twin(
+                self.module, torch.bfloat16,
+                int8=cfg.sample_dtype == "int8",
+                winograd=(cfg.sample_conv == "winograd"
+                          or cfg.shape_branch.denoiser.winograd)).to(dev)
         if dev == self.device:
             return self.module.eval()
         return copy.deepcopy(self.module).to(dev).eval()

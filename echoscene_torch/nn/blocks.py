@@ -21,7 +21,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import Linear, conv_nd
+from .layers import Conv3d, Linear, conv_nd
+from .quant import Int8Conv3d
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int,
@@ -86,9 +87,35 @@ def zero_module(module: nn.Module) -> nn.Module:
     return module
 
 
+def _parities(up_axes: Sequence[int]):
+    """Every output parity, one bit an axis of `up_axes`, in JAX's order."""
+    parities = [()]
+    for _ in up_axes:
+        parities = [p + (r,) for p in parities for r in (0, 1)]
+    return parities
+
+
+def factored_parities(weight: torch.Tensor, up_axes: Sequence[int]):
+    """[(parity, sub-kernel)] of the factored upsample: for each output
+    parity (one bit an axis of `up_axes`, in order) the 3-tap kernel's taps
+    summed into 2 along each upsampled axis, [W0, W1 + W2] for parity 0
+    and [W0 + W1, W2] for parity 1, in the weight's dtype, axis by axis in
+    `up_axes` order (JAX's sub_kernel)."""
+    out = []
+    for parity in _parities(up_axes):
+        w = weight
+        for s, r in zip(up_axes, parity):
+            w0, w1, w2 = w.unbind(2 + s)
+            w = torch.stack((w0, w1 + w2) if r == 0 else (w0 + w1, w2),
+                            dim=2 + s)
+        out.append((parity, w))
+    return out
+
+
 def factored_upsample_conv(x: torch.Tensor, weight: torch.Tensor,
                            bias: Optional[torch.Tensor],
-                           up_axes: Sequence[int]) -> torch.Tensor:
+                           up_axes: Sequence[int], quantized: bool = False,
+                           int8_subs=None) -> torch.Tensor:
     """Nearest-2x upsample on the spatial axes `up_axes` followed by a SAME
     3^r convolution, computed exactly as 2^len(up_axes) convolutions on the
     pre-upsample grid (JAX's factored_upsample_conv, echoscene_tpu/nn/
@@ -97,44 +124,111 @@ def factored_upsample_conv(x: torch.Tensor, weight: torch.Tensor,
     Output position 2i + r along an upsampled axis reads only input rows
     {i - 1, i} (r = 0: taps [W0, W1 + W2], padded (1, 0)) or {i, i + 1}
     (r = 1: taps [W0 + W1, W2], padded (0, 1)), so each parity is a 2-tap
-    convolution along that axis; the parities are written into strided
-    views of the output, with no repeat tensor.  The UNet's (D, H, W) ->
-    (D, 2H, 2W) upsample (up_axes (1, 2)) runs 4 sub-convolutions, the VQ
-    decoder's all-axes upsample (up_axes (0, 1, 2)) 8.
+    convolution along that axis (`factored_parities`); the parities are
+    written into strided views of the output, with no repeat tensor.  The
+    UNet's (D, H, W) -> (D, 2H, 2W) upsample (up_axes (1, 2)) runs 4
+    sub-convolutions, the VQ decoder's all-axes upsample (up_axes (0, 1,
+    2)) 8.
 
-    x (B, C, *spatial) channel-first, cast to the weight's dtype; weight
-    (K, C, 3, ...), bias (K,) or None.  As in JAX, the taps are summed in
-    the weight's dtype, axis by axis in `up_axes` order, each
-    sub-convolution's output is rounded to that dtype, and the bias is
-    added in f32 (whatever its own dtype) before the result is rounded
-    once more."""
-    x = x.to(weight.dtype)
+    x (B, C, *spatial) channel-first, weight (K, C, 3, ...), bias (K,) or
+    None.  As in JAX, x is cast to the weight's dtype, the taps are summed
+    in the weight's dtype, each sub-convolution's output is rounded to that
+    dtype, and the bias is added in f32 (whatever its own dtype) before the
+    result is rounded once more.
+
+    `quantized` (3D only) is JAX's W8A8 form (blocks.py:174-198): x cast to
+    bf16 and quantized once for all parities (kernel Q1), each parity's
+    sub-kernel summed in f32 from the f32 master weight and quantized per
+    output channel (`int8_subs`, the (wq, w_scale) pairs in parity order
+    that `nn.quant.Int8Conv3d` prepares once, else made here), each
+    sub-output dequantized to bf16 without bias by kernel Q2 straight into
+    its strided view, then the f32 bias and a last bf16 rounding."""
     rank = x.dim() - 2
-    conv = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}[rank]
-    xp = F.pad(x, (1, 1) * rank)
-    out = x.new_empty((x.shape[0], weight.shape[0]) + tuple(
-        n * (2 if s in up_axes else 1) for s, n in enumerate(x.shape[2:])))
-    parities = [()]
-    for _ in up_axes:
-        parities = [p + (r,) for p in parities for r in (0, 1)]
-    for parity in parities:
-        w = weight
-        src = [slice(None), slice(None)] + [slice(None)] * rank
-        dst = [slice(None), slice(None)] + [slice(None)] * rank
-        for s, r in zip(up_axes, parity):
-            w0, w1, w2 = w.unbind(2 + s)
-            w = torch.stack((w0, w1 + w2) if r == 0 else (w0 + w1, w2),
-                            dim=2 + s)
-            n = x.shape[2 + s]
-            # pad (1, 0) or (0, 1) on this axis: a window of the (1, 1) pad
-            src[2 + s] = slice(r, r + n + 1)
-            dst[2 + s] = slice(r, None, 2)
-        out[tuple(dst)] = conv(xp[tuple(src)], w)
+    out_spatial = tuple(n * (2 if s in up_axes else 1)
+                        for s, n in enumerate(x.shape[2:]))
+    if quantized:
+        from .quant import quantize_act, quantize_weight
+        from ..kernels.int8_conv import int8_conv3d
+        if rank != 3:
+            raise ValueError("the quantized factored upsample is 3D")
+        if int8_subs is None:
+            int8_subs = [quantize_weight(w) for _, w in
+                         factored_parities(weight.float(), up_axes)]
+        xq, xs = quantize_act(x.to(torch.bfloat16).contiguous())
+        out = torch.empty((x.shape[0], weight.shape[0]) + out_spatial,
+                          dtype=torch.bfloat16, device=x.device)
+        for parity, (wq, ws) in zip(_parities(up_axes), int8_subs):
+            it = dict(zip(up_axes, parity))
+            pads = tuple(((1, 0) if it[s] == 0 else (0, 1)) if s in it
+                         else (1, 1) for s in range(3))
+            dst = [slice(None), slice(None)] + [
+                slice(it[s], None, 2) if s in it else slice(None)
+                for s in range(3)]
+            int8_conv3d(xq, wq, xs, ws, None, (1, 1, 1), pads,
+                        out=out[tuple(dst)])
+    else:
+        x = x.to(weight.dtype)
+        conv = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}[rank]
+        xp = F.pad(x, (1, 1) * rank)
+        out = x.new_empty((x.shape[0], weight.shape[0]) + out_spatial)
+        for parity, w in factored_parities(weight, up_axes):
+            src = [slice(None), slice(None)] + [slice(None)] * rank
+            dst = [slice(None), slice(None)] + [slice(None)] * rank
+            for s, r in zip(up_axes, parity):
+                n = x.shape[2 + s]
+                # pad (1, 0) or (0, 1) on this axis: a window of the (1, 1)
+                # pad
+                src[2 + s] = slice(r, r + n + 1)
+                dst[2 + s] = slice(r, None, 2)
+            out[tuple(dst)] = conv(xp[tuple(src)], w)
     if bias is not None:
         # an add in f32 (at least), rounded once to the output's dtype
         b = bias.to(torch.promote_types(bias.dtype, torch.float32))
         out.add_(b.reshape((1, -1) + (1,) * rank))
     return out
+
+
+class WinogradConv3d(Conv3d):
+    """A SAME stride-1 3x3x3 Conv3d computed by Winograd F(2,3)^3
+    (`kernels.winograd.winograd_conv3d`; JAX's WinogradConv3d,
+    echoscene_tpu/nn/blocks.py:246-269): same parameters, 3.375x fewer
+    multiply-adds, all stages matrix products; D, H, W must be even.  The
+    input is cast to `act_dtype` (its own dtype when None); the weight
+    transform runs in f32 from the (f32) weight, once when `prepare_` is
+    called (the sampling twin does), else on every call."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.act_dtype: Optional[torch.dtype] = None
+        self.register_buffer("u", None, persistent=False)
+
+    @classmethod
+    def from_conv(cls, conv: nn.Conv3d) -> "WinogradConv3d":
+        """A WinogradConv3d holding `conv`'s parameters."""
+        new = cls(conv.in_channels, conv.out_channels, conv.kernel_size,
+                  stride=conv.stride, padding=conv.padding,
+                  bias=conv.bias is not None, device="meta")
+        new.weight, new.bias = conv.weight, conv.bias
+        return new
+
+    @torch.no_grad()
+    def prepare_(self, act_dtype: torch.dtype) -> "WinogradConv3d":
+        from ..kernels.winograd import transform_weights
+        self.act_dtype = act_dtype
+        self.u = transform_weights(self.weight).to(act_dtype)
+        return self
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        from ..kernels.winograd import winograd_conv3d
+        x = x.to(self.act_dtype or x.dtype)
+        return winograd_conv3d(x, self.weight, self.bias, u=self.u)
+
+
+def _conv3x3(dims: int, c_in: int, c_out: int, winograd: bool) -> nn.Module:
+    """The SAME 3^dims convolution, Winograd's in 3D when asked."""
+    if winograd and dims == 3:
+        return WinogradConv3d(c_in, c_out, 3, padding=1)
+    return conv_nd(dims, c_in, c_out, 3, padding=1)
 
 
 class Upsample(nn.Module):
@@ -146,18 +240,27 @@ class Upsample(nn.Module):
     tensor.  It is set on the sampling twin only (`models.sgdiff.
     inference_twin`), as JAX sets it: JAX measured the factored form's
     backward 2.2x slower than interpolate + conv's (echoscene_tpu/nn/
-    blocks.py:318-321).  The parameters are the conv's either way."""
+    blocks.py:318-321).  The parameters are the conv's either way.  Under
+    the int8 mode the twin's conv is an `Int8Conv3d` and the factored form
+    runs quantized.  With `winograd` (3D) the conv is a WinogradConv3d and
+    the upsample is never factored (JAX's Upsample, blocks.py:322-327)."""
 
-    def __init__(self, channels: int, dims: int, factored: bool = False):
+    def __init__(self, channels: int, dims: int, factored: bool = False,
+                 winograd: bool = False):
         super().__init__()
         self.dims = dims
         self.factored = factored
-        self.conv = conv_nd(dims, channels, channels, 3, padding=1)
+        self.winograd = winograd and dims == 3
+        self.conv = _conv3x3(dims, channels, channels, self.winograd)
 
     def forward(self, x):
-        if self.dims == 3 and self.factored:
-            return factored_upsample_conv(x, self.conv.weight, self.conv.bias,
-                                          (1, 2))
+        if self.dims == 3 and self.factored and not self.winograd:
+            conv = self.conv
+            if isinstance(conv, Int8Conv3d):
+                return factored_upsample_conv(
+                    x, conv.weight, conv.bias, (1, 2), quantized=True,
+                    int8_subs=conv.factored_subs())
+            return factored_upsample_conv(x, conv.weight, conv.bias, (1, 2))
         if self.dims == 3:
             x = F.interpolate(x, scale_factor=(1, 2, 2), mode="nearest")
         return self.conv(x)
@@ -179,21 +282,24 @@ class Downsample(nn.Module):
 class ResBlock(nn.Module):
     """GN-SiLU-conv, + time embedding, GN-SiLU-zero conv, + skip
     (openai_model_3d.py:202-314).  Children are indexed as the reference's
-    in_layers / emb_layers / out_layers."""
+    in_layers / emb_layers / out_layers.  With `winograd` (3D) the two
+    3x3x3 convolutions are WinogradConv3d (JAX's ResBlock(winograd=True));
+    the skip stays direct."""
 
     def __init__(self, channels: int, emb_channels: int,
-                 out_channels: Optional[int] = None, dims: int = 3):
+                 out_channels: Optional[int] = None, dims: int = 3,
+                 winograd: bool = False):
         super().__init__()
         out_channels = out_channels or channels
         self.in_layers = nn.Sequential(
             GroupNorm32(channels), nn.SiLU(),
-            conv_nd(dims, channels, out_channels, 3, padding=1))
+            _conv3x3(dims, channels, out_channels, winograd))
         self.emb_layers = nn.Sequential(nn.SiLU(),
                                         Linear(emb_channels, out_channels))
         self.out_layers = nn.Sequential(
             GroupNorm32(out_channels), nn.SiLU(), nn.Dropout(0.0),
-            zero_module(conv_nd(dims, out_channels, out_channels, 3,
-                                padding=1)))
+            zero_module(_conv3x3(dims, out_channels, out_channels,
+                                 winograd)))
         if out_channels == channels:
             self.skip_connection = nn.Identity()
         else:
@@ -203,5 +309,5 @@ class ResBlock(nn.Module):
         h = self.in_layers(x)
         emb_out = self.emb_layers(emb)
         h = self.out_layers[0](h, shift=emb_out)
-        h = self.out_layers[3](F.silu(h))
+        h = self.out_layers[3](self.out_layers[1](h))
         return self.skip_connection(x) + h

@@ -16,8 +16,16 @@ from torch.utils.checkpoint import checkpoint
 
 
 class Linear(nn.Linear):
+    # set by the int8 sampling twin (nn.quant.jax_rounding_): the product
+    # rounded to the weight's dtype before the bias is added, as flax's
+    # Dense does in a reduced dtype
+    round_before_bias = False
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x.to(self.weight.dtype))
+        x = x.to(self.weight.dtype)
+        if self.round_before_bias and self.bias is not None:
+            return F.linear(x, self.weight) + self.bias.to(x.dtype)
+        return super().forward(x)
 
 
 class Conv1d(nn.Conv1d):

@@ -43,7 +43,7 @@ class ShapeDenoiser(UNetTorso):
                  gconv_dim: int = 64, gconv_num_layers: int = 5,
                  num_preds: int = 16, obj_dim: Optional[int] = None,
                  use_checkpoint: bool = False,
-                 factored_upsample: bool = False):
+                 factored_upsample: bool = False, winograd: bool = False):
         if conditioning_key == "concat":
             x_dim, torso_in, torso_ctx = image_size ** 3, in_channels + 2, None
         elif conditioning_key == "crossattn":
@@ -54,7 +54,8 @@ class ShapeDenoiser(UNetTorso):
                          num_res_blocks, attention_resolutions, channel_mult,
                          num_heads, dims=3, transformer_depth=transformer_depth,
                          context_dim=torso_ctx, use_checkpoint=use_checkpoint,
-                         factored_upsample=factored_upsample)
+                         factored_upsample=factored_upsample,
+                         winograd=winograd)
         self.image_size = image_size
         self.model_channels = model_channels
         self.conditioning_key = conditioning_key
@@ -109,8 +110,12 @@ class ShapeDenoiser(UNetTorso):
                                                obj_mask, triple_mask)
             if self.conditioning_key == "concat":
                 s = self.image_size
-                x_cf = torch.cat([x_cf.to(latent.dtype),
-                                  latent.reshape(-1, 1, s, s, s)], dim=1)
+                # the promoted dtype, as jnp.concatenate: the int8 twin's
+                # conv_in quantizes the f32 concatenation
+                dt = torch.promote_types(x_cf.dtype, latent.dtype)
+                x_cf = torch.cat([x_cf.to(dt),
+                                  latent.to(dt).reshape(-1, 1, s, s, s)],
+                                 dim=1)
                 ctx = None
             elif self.conditioning_key == "crossattn":
                 ctx = latent[:, None, :]

@@ -46,13 +46,14 @@ class UNetTorso(nn.Module):
                  transformer_depth: int = 1,
                  context_dim: Optional[int] = None,
                  use_checkpoint: bool = False,
-                 factored_upsample: bool = False):
+                 factored_upsample: bool = False, winograd: bool = False):
         super().__init__()
         mc = model_channels
         emb_dim = mc * 4
 
         def res(ch_in, ch_out):
-            return ResBlock(ch_in, emb_dim, ch_out, dims=dims)
+            return ResBlock(ch_in, emb_dim, ch_out, dims=dims,
+                            winograd=winograd)
 
         def attn(ch):
             return SpatialTransformer(ch, num_heads, ch // num_heads,
@@ -88,7 +89,8 @@ class UNetTorso(nn.Module):
                 if ds in attention_resolutions:
                     layers.append(attn(ch))
                 if level and i == num_res_blocks:
-                    layers.append(Upsample(ch, dims, factored_upsample))
+                    layers.append(Upsample(ch, dims, factored_upsample,
+                                           winograd))
                     ds //= 2
                 self.output_blocks.append(TimestepEmbedSequential(*layers))
 

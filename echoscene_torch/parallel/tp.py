@@ -223,7 +223,21 @@ def shard_module_(module: torch.nn.Module, mesh: Mesh) -> TPPlan:
     """Shard `module`'s shape denoiser over the mesh's model group in
     place: each splitting block's parameters become this rank's slices and
     the block becomes a TPResBlock / TPCrossAttention.  Returns the plan
-    (also `module.tp_plan`).  Make the optimizer after this call."""
+    (also `module.tp_plan`).  Make the optimizer after this call.
+
+    Refuses a module configured for `sample_dtype: int8`: its twin's
+    quantized convolutions would need the model group for the activation
+    abs-max (a MAX all-reduce), for the per-output-channel scales of the
+    row-split `out_layers.3` (over all input channels, not a rank's shard)
+    and for the row-split partial sums, summed as int32 before the
+    dequantize (they reach ~2.9e8, past f32's exact integers); JAX gets all
+    three from GSPMD."""
+    cfg = getattr(module, "cfg", None)
+    if cfg is not None and cfg.sample_dtype == "int8":
+        raise NotImplementedError(
+            "tensor parallelism with sample_dtype int8 is not ported: the "
+            "activation abs-max, the row-split weight scales and the int32 "
+            "partial sums need the model group (ROADMAP.md)")
     n, rank = mesh.model, mesh.model_rank
     plan = TPPlan(n, rank, mesh.model_group, split_dims(module, n))
     for _, block, dims in _blocks(module, n):

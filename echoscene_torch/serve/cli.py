@@ -25,8 +25,11 @@ boxes / shapes (keep mask):
 `--dp_devices N` spreads the request groups of a call over `cuda:0 ..
 cuda:N-1`, one group a card at a time (parallel/dp.py `DPSampler`; the
 micro-batcher then takes up to N buckets a call), and raises when fewer
-cards are visible.  `--sample_dtype int8` is not ported and raises
-NotImplementedError.
+cards are visible.  `--sample_dtype int8` serves with int8 W8A8
+shape-UNet convolutions (nn/quant.py; bench.py's fast profile with
+`--layout_sampler dpmpp --layout_steps 50 --shape_sampler dpmpp
+--shape_steps 20`); it runs on one card or more, not under tensor
+parallelism.
 """
 from __future__ import annotations
 

@@ -20,7 +20,6 @@
   the port's twin within twice the distance of JAX's twin from JAX's f32
   module, both as max error of the peak and as mean error of the mean
   magnitude, and within 2^-4 / 2^-5 of them outright;
-* `sample_conv: winograd` is refused;
 * on a card (`cuda` marker): the factored form against interpolate + conv
   in f32.
 """
@@ -129,20 +128,6 @@ def test_twin_takes_the_factored_upsample():
     f32 = _tiny_port_sg("float32")
     assert f32.inference_module() is f32.module
     assert not any(m.factored for m in _upsamples(f32.module))
-
-
-def test_winograd_is_refused():
-    from echoscene_torch.models.config import tiny_config
-    from echoscene_torch.models.sgdiff import SGDiff
-
-    cfg = tiny_config()
-    cfg.sample_conv = "winograd"
-    with pytest.raises(NotImplementedError, match="winograd"):
-        SGDiff(cfg, 9, 16, device="cpu")
-    cfg = tiny_config()
-    cfg.shape_branch.denoiser.winograd = True
-    with pytest.raises(NotImplementedError):
-        SGDiff(cfg, 9, 16, device="cpu")
 
 
 def test_sample_fn_with_factored_upsample_matches_jax(fake_batch):

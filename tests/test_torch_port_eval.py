@@ -543,18 +543,17 @@ def test_eval_cli_end_to_end_cpu(eval_run):
 
 def test_eval_cli_raises_on_unported_options(eval_run, tmp_path):
     """--dp_devices 2 raises where fewer than 2 cards are visible (here:
-    none), --sample_dtype int8 still raises; --render_dir and the render
-    types run: a 256^2 render and a .glb per scene, with retrieval reading
-    a size table and its OBJ meshes."""
+    none); --sample_dtype int8 runs at the fast steps (DPM++ 3 / 2, the
+    int8 twin; the report parses, the SDF dumps are finite); --render_dir
+    and the render types run: a 256^2 render and a .glb per scene, with
+    retrieval reading a size table and its OBJ meshes."""
     from PIL import Image
     from echoscene_torch.eval import cli
     from echoscene_torch.eval.render import box_mesh, export_obj
 
     base, _, _, argv, _ = eval_run
-    for extra, error in ((["--dp_devices", "2"], ValueError),
-                         (["--sample_dtype", "int8"], NotImplementedError)):
-        with pytest.raises(error):
-            cli.main(argv + extra)
+    with pytest.raises(ValueError):
+        cli.main(argv + ["--dp_devices", "2"])
     with pytest.raises(ValueError, match="--mesh_db"):
         cli.main(argv + ["--render_type", "retrieval"])
     names = {n.strip() for n in open(os.path.join(
@@ -571,6 +570,19 @@ def test_eval_cli_raises_on_unported_options(eval_run, tmp_path):
             + ["--layout_sampler", "dpmpp", "--layout_steps", "3",
                "--shape_sampler", "dpmpp", "--shape_steps", "2",
                "--export_glb"])
+    int8_store = tmp_path / "int8"
+    results = cli.main(argv[:i + 1] + [str(int8_store)] + argv[i + 2:]
+                       + ["--layout_sampler", "dpmpp", "--layout_steps", "3",
+                          "--shape_sampler", "dpmpp", "--shape_steps", "2",
+                          "--sample_dtype", "int8"])
+    assert sum(len(v) for v in results["none"].values()) > 0
+    assert (int8_store / "none_accuracy_analysis.txt").read_text().startswith(
+        "acc & L/R:")
+    dumps = [f for f in int8_store.iterdir() if f.suffix == ".npz"]
+    assert len(dumps) == 2
+    for f in dumps:
+        with np.load(f) as d:
+            assert np.isfinite(d["sdfs"]).all() and np.abs(d["sdfs"]).max() > 0
     for rt, extra in (("echoscene", []),
                       ("retrieval", ["--mesh_db", str(tmp_path / "cat.json")])):
         out = tmp_path / rt

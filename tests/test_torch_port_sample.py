@@ -367,7 +367,7 @@ def test_port_imports_no_jax():
         "       m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',\n"
         "                           'echoscene_tpu')]\n"
         "assert not bad, bad\n"
-        "assert len(mods) >= 72, mods\n"
+        "assert len(mods) >= 75, mods\n"
         "print(len(mods))\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
