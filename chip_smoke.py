@@ -64,11 +64,14 @@ result line):
        version (int8 values and scale), Q2's bf16 output within 1 bf16 ulp
        of its plain version (a float64 convolution of the int8 values,
        exact) on every element of all rows, a tolerance the plain version
-       with the last input channel left out must fail; times beside the
-       bound (max(2 M K taps C_in / 1,979 TOP/s, bytes / 3.35 TB/s)), the
-       plain versions, the bf16 cuDNN F.conv3d at the same shape (the call
-       the int8 mode replaces) and torch._int_mm on an im2col of the same
-       GEMM (cuBLASLt's int8 rate), neither of which the port calls;
+       with the last input channel left out must fail; the earlier design
+       of both (`csrc/int8_conv_mma.cu`) held to the same checks; times
+       beside the bound (max(2 M K taps C_in / 1,979 TOP/s, bytes / 3.35
+       TB/s)), the earlier design, the plain versions, the bf16 cuDNN
+       F.conv3d at the same shape (the call the int8 mode replaces) and the
+       library route of the same function, an im2col then torch._int_mm
+       (cuBLASLt's int8 GEMM) timed together and _int_mm alone, none of
+       which the port calls;
   3. check the port on the card against the port on the CPU: the tiny
      test configuration in f32 (same weights, same injected noise; max abs
      error <= 1e-4 on boxes and SDFs), one tiny-config f32 training step
@@ -505,10 +508,12 @@ def check_int8_kernels(rows: int) -> dict:
     plain version (int8 values and scale), Q2's bf16 output within 1 ulp of
     its plain version (float64 convolution of the int8 values, exact) on
     every element, over all rows, a tolerance the plain version with the
-    last input channel left out must fail; times of Q1, Q2, their plain
-    versions, the bf16 cuDNN F.conv3d at the same shape (the call the int8
-    mode replaces) and torch._int_mm on an im2col of the same GEMM
-    (cuBLASLt's int8 rate; the im2col is not timed), beside the bounds."""
+    last input channel left out must fail; the earlier design of both
+    (`csrc/int8_conv_mma.cu`) held to the same checks; times of Q1, Q2,
+    their earlier design, their plain versions, the bf16 cuDNN F.conv3d at
+    the same shape (the call the int8 mode replaces), the library route of
+    the same function (an im2col then torch._int_mm, cuBLASLt's int8 GEMM,
+    timed together) and torch._int_mm alone, beside the bounds."""
     import torch
     import torch.nn.functional as F
     from echoscene_torch.kernels import int8_conv as q8
@@ -525,16 +530,23 @@ def check_int8_kernels(rows: int) -> dict:
         xq, xs = q8.quantize_act(x)
         torch.cuda.synchronize()
         pq, ps = q8.quantize_plain(x)
-        if not (torch.equal(xq, pq) and torch.equal(xs, ps)):
-            fail(f"Q1 at {shape} {site['x_dtype']}: not bit-equal to its plain "
-                 f"version (scale {xs.item()!r} / {ps.item()!r}, "
-                 f"{int((xq != pq).sum())} int8 values differ)")
+        eq, es = q8.earlier_quantize_act(x)
+        for design, (gq, gs) in (("", (xq, xs)), (" (earlier design)",
+                                                  (eq, es))):
+            if not (torch.equal(gq, pq) and torch.equal(gs, ps)):
+                fail(f"Q1{design} at {shape} {site['x_dtype']}: not "
+                     f"bit-equal to its plain version (scale {gs.item()!r} "
+                     f"/ {ps.item()!r}, {int((gq != pq).sum())} int8 values "
+                     f"differ)")
+        del eq, es
         if (shape, site["x_dtype"]) not in seen_q1:
             seen_q1.add((shape, site["x_dtype"]))
             b1 = q8.quantize_bound(x.numel(), x.element_size(), xq.numel())
             q1_rows.append({
                 "shape": list(shape), "dtype": site["x_dtype"],
                 "ms": cuda_ms(lambda: q8.quantize_act(x), iters=10),
+                "earlier_ms": cuda_ms(lambda: q8.earlier_quantize_act(x),
+                                      iters=10),
                 "plain_ms": cuda_ms(lambda: q8.quantize_plain(x), iters=3,
                                     warmup=1),
                 "bound_ms": b1["ms"], "bound_by": b1["bound_by"],
@@ -556,6 +568,11 @@ def check_int8_kernels(rows: int) -> dict:
         if ulps > 1:
             fail(f"Q2 {site['name']} at {shape}: {ulps} bf16 ulps from its "
                  f"plain version (limit 1)")
+        earlier_ulps = int(q8.bf16_ulps(q8.earlier_int8_conv3d(*args),
+                                        ref).max())
+        if earlier_ulps > 1:
+            fail(f"Q2's earlier design {site['name']} at {shape}: "
+                 f"{earlier_ulps} bf16 ulps from the plain version (limit 1)")
         cut = xq.clone()
         cut[..., shape[1] - 1] = 0
         cut_ulps = int(q8.bf16_ulps(q8.int8_conv3d_plain(cut, *args[1:]),
@@ -566,6 +583,7 @@ def check_int8_kernels(rows: int) -> dict:
         del cut
         max_err = (out.float() - ref.float()).abs().max().item()
         ms = cuda_ms(lambda: q8.int8_conv3d(*args), iters=10)
+        earlier_ms = cuda_ms(lambda: q8.earlier_int8_conv3d(*args), iters=10)
         osize = tuple(out.shape[2:])
         b2 = q8.int8_conv_bound(shape[0], shape[2:], shape[1], xq.shape[-1],
                                 k, taps, osize, bias is not None)
@@ -577,13 +595,16 @@ def check_int8_kernels(rows: int) -> dict:
         cudnn_ms = cuda_ms(lambda: F.conv3d(xpad, wb, bb,
                                             stride=site["stride"]), iters=10)
         del xpad
-        a = im2col_int8(xq, taps, site["stride"], site["pads"])
         kp = -(-k // 8) * 8    # _int_mm wants N % 8 == 0
-        bmat = torch.zeros((a.shape[1], kp), dtype=torch.int8, device="cuda")
+        bmat = torch.zeros((math.prod(taps) * xq.shape[-1], kp),
+                           dtype=torch.int8, device="cuda")
         bmat[:, :k] = wq.reshape(k, -1).t()
+        # the library route: im2col and the GEMM, timed together
+        int_mm_route_ms = cuda_ms(lambda: torch._int_mm(im2col_int8(
+            xq, taps, site["stride"], site["pads"]), bmat), iters=5)
+        a = im2col_int8(xq, taps, site["stride"], site["pads"])
         int_mm_ms = cuda_ms(lambda: torch._int_mm(a, bmat), iters=10)
-        acc = torch._int_mm(a, bmat)[:, :k].float()
-        del a, bmat, acc
+        del a, bmat
         q2_rows.append({
             "name": site["name"], "shape": list(shape), "k": k,
             "taps": list(taps), "stride": list(site["stride"]),
@@ -591,8 +612,10 @@ def check_int8_kernels(rows: int) -> dict:
             "calls_per_step": site["calls"], "ms": ms,
             "plain_ms": plain_s * 1e3, "bound_ms": b2["ms"],
             "bound_by": b2["bound_by"], "share_of_bound": b2["ms"] / ms,
-            "tops": b2["ops"] / ms * 1e-9, "cudnn_bf16_ms": cudnn_ms,
+            "tops": b2["ops"] / ms * 1e-9, "earlier_ms": earlier_ms,
+            "cudnn_bf16_ms": cudnn_ms, "int_mm_route_ms": int_mm_route_ms,
             "int_mm_ms": int_mm_ms, "max_ulps": ulps,
+            "earlier_max_ulps": earlier_ulps,
             "last_channel_cut_ulps": cut_ulps, "max_abs_err": max_err})
         del x, xq, out, ref
     torch.cuda.empty_cache()
@@ -609,8 +632,10 @@ def int8_entries(chk: dict) -> list:
     """The `kernels` entries of Q1 and Q2: the numbers of the main path's
     most frequent shape (Q1: the 16^3 x 224 bf16 input; Q2: the 3x3x3
     224 -> 224 convolution at 16^3), every shape under `per_shape`, and the
-    per-step totals of the torso's shapes (ms, plain, bound, cuDNN bf16,
-    _int_mm) weighted by their calls."""
+    per-step totals of the torso's shapes (ms, earlier design, bound;
+    Q2: cuDNN bf16, im2col + _int_mm, _int_mm alone) weighted by their
+    calls.  Q2's `library_ms` is the im2col + _int_mm route of the same
+    function; Q1 has no library call."""
     out = []
     for name, rows, pick in (
             ("quantize_act", chk["q1"],
@@ -622,9 +647,9 @@ def int8_entries(chk: dict) -> list:
              and r["stride"] == [1, 1, 1])):
         main = next(r for r in rows if pick(r))
         step = {key: sum(r[key] * r["calls_per_step"] for r in rows)
-                for key in ("ms", "bound_ms") + (
-                    ("cudnn_bf16_ms", "int_mm_ms") if name == "int8_conv3d"
-                    else ())}
+                for key in ("ms", "earlier_ms", "bound_ms") + (
+                    ("cudnn_bf16_ms", "int_mm_route_ms", "int_mm_ms")
+                    if name == "int8_conv3d" else ())}
         out.append({
             "name": name, "route": "cuda", "dtype": "int8",
             "source": "echoscene_torch/csrc/int8_conv.cu",
@@ -632,9 +657,14 @@ def int8_entries(chk: dict) -> list:
             "max_abs_err": max(r.get("max_abs_err", 0.0) for r in rows),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-            # the same integer GEMM by one PyTorch call (on an im2col of
-            # the input); Q1 has none
-            "library_ms": main.get("int_mm_ms"),
+            # the same function by PyTorch calls: an im2col, then the
+            # integer GEMM; no single PyTorch call computes Q1
+            "library_ms": main.get("int_mm_route_ms"),
+            "library": ("im2col + torch._int_mm" if name == "int8_conv3d"
+                        else "none: no single PyTorch call computes it"),
+            "earlier_ms": main["earlier_ms"],
+            "earlier_source": "echoscene_torch/csrc/int8_conv_mma.cu",
+            "int_mm_alone_ms": main.get("int_mm_ms"),
             "cudnn_bf16_ms": main.get("cudnn_bf16_ms"),
             "shape": main["shape"], "per_step_totals": step,
             "per_shape": rows,
@@ -3487,7 +3517,7 @@ def main() -> int:
 
     # 1. build: one nvcc per source, all started together
     sources = (fa.SOURCE, fa.SOURCE_F32, BASELINE_SOURCE, F32_SIMT_SOURCE,
-               k4.SOURCE, K4_DIRECT_SOURCE, q8.SOURCE)
+               k4.SOURCE, K4_DIRECT_SOURCE, q8.SOURCE, q8.EARLIER_SOURCE)
     t0 = time.perf_counter()
     built = build.build_all(sources)
     for source in sources:
@@ -3618,16 +3648,19 @@ def main() -> int:
     for r in q8chk["q1"]:
         print(f"kernel quantize_act {r['shape']} {r['dtype']}: "
               f"{r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms (bytes), "
-              f"share {r['bound_ms'] / r['ms']:.3f}; plain "
+              f"share {r['bound_ms'] / r['ms']:.3f}; earlier design "
+              f"{r['earlier_ms']:.4f} ms; plain "
               f"{r['plain_ms']:.3f} ms; {r['calls_per_step']} a shape step; "
               f"bit-equal [{card}]")
     for r in q8chk["q2"]:
         print(f"kernel int8_conv3d {r['name']} {r['shape']} -> {r['k']} taps "
               f"{r['taps']} stride {r['stride']}: {r['ms']:.4f} ms, "
               f"{r['tops']:.1f} TOP/s, {r['share_of_bound']:.3f} of the "
-              f"bound {r['bound_ms']:.4f} ms (by {r['bound_by']}); cuDNN "
-              f"bf16 {r['cudnn_bf16_ms']:.4f} ms, _int_mm "
-              f"{r['int_mm_ms']:.4f} ms, plain {r['plain_ms']:.2f} ms; "
+              f"bound {r['bound_ms']:.4f} ms (by {r['bound_by']}); earlier "
+              f"design {r['earlier_ms']:.4f} ms; cuDNN bf16 "
+              f"{r['cudnn_bf16_ms']:.4f} ms, im2col + _int_mm "
+              f"{r['int_mm_route_ms']:.4f} ms (_int_mm alone "
+              f"{r['int_mm_ms']:.4f}), plain {r['plain_ms']:.2f} ms; "
               f"{r['calls_per_step']} a shape step; {r['max_ulps']} ulp (last"
               f" input channel cut: {r['last_channel_cut_ulps']}) [{card}]")
     for e in int8_kernel_entries:

@@ -12,23 +12,32 @@ in `csrc/int8_conv.cu`:
     127, q = clip(round(x / scale), -127, 127) (round half to even, IEEE
     division: JAX's `quantize_symmetric`, nn/quant.py:27-33), written
     channels-last with the channels padded to a multiple of 32 by zeros
-    (the layout Q2 reads); the scale stays on the device;
-  * Q2 `int8_conv3d`: an implicit-GEMM convolution on the tensor cores
-    (`mma.sync` m16n8k32 s8) with int32 accumulation and the dequantize
-    epilogue acc * (x_scale * w_scale[k]) (+ bias[k]) in f32 -> bf16
-    (nn/quant.py:93-96), for kernels of 1-3 taps an axis, any strides,
-    per-side pads, written channel-first through the output's strides.
+    (the layout Q2 reads); the scale stays on the device.  One abs-max
+    pass into one device word, then a quantize / transpose pass with
+    16-byte loads and stores;
+  * Q2 `int8_conv3d`: an implicit-GEMM convolution on `wgmma` (m64n224k32
+    or m64n8k32 s8, operands loaded by TMA) with int32 accumulation and
+    the dequantize epilogue acc * (x_scale * w_scale[k]) (+ bias[k]) in
+    f32 -> bf16 (nn/quant.py:93-96), for kernels of 1-3 taps an axis,
+    strides 1-8, per-side pads, written channel-first through the output's
+    strides.  Its tile plan (`conv_plan`) is computed here and passed in.
 
 On a CPU tensor each wrapper computes its plain version (`quantize_plain`,
 `int8_conv3d_plain`: F.conv3d in float64 on the integer values, exact
 since every sum stays below 2^53); on a CUDA tensor it launches its kernel
-or raises on a dtype, layout or alignment the kernel does not take.
+or raises on a dtype, layout, alignment or shape the kernel does not take.
 `LAUNCHES` counts kernel launches per wrapper; `quantize_bound` /
 `int8_conv_bound` give the least time one H100 could take for a call.
+The first design of both kernels (`csrc/int8_conv_mma.cu`) is reachable
+through `earlier_quantize_act` / `earlier_int8_conv3d`, which chip_smoke.py
+times beside the kernels; no path of the port calls them and they count
+no launches.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+import itertools
 import math
 import threading
 from typing import Dict, Optional, Sequence, Tuple
@@ -39,10 +48,20 @@ import torch.nn.functional as F
 from . import build
 
 SOURCE = "int8_conv.cu"
+EARLIER_SOURCE = "int8_conv_mma.cu"   # the first design, on no path
 LAUNCHES: Dict[str, int] = {"quantize_act": 0, "int8_conv3d": 0}
-CHANNEL_ALIGN = 32          # Q2 reads 32-byte depth slices
+CHANNEL_ALIGN = 32          # Q1 pads the channels to a multiple of 32
 EPS = 1e-8                  # JAX's quantize_symmetric eps
-AMAX_BLOCKS = 1024          # most partial maxima of Q1's first pass
+EARLIER_AMAX_BLOCKS = 1024  # most partial maxima of the earlier Q1
+# Q2's tiles: 128 output positions (a box of the output) x 224 output
+# channels (8 for a convolution of at most 8), depth in chunks of 64 or 128
+# channels, one tap at a time
+TILE_M = 128
+TILE_N = 224
+TILE_N_SMALL = 8
+CHUNKS = (128, 64)          # bytes of a chunk, the 128- or 64-byte swizzle
+MAX_STRIDE = 8              # TMA's element strides
+MAX_BOX = 256               # TMA's box extent along an axis
 _entries: Dict[str, ctypes._CFuncPtr] = {}
 _lock = threading.Lock()
 
@@ -143,24 +162,134 @@ def int8_conv3d_plain(xq: torch.Tensor, wq: torch.Tensor,
     return out
 
 
+# the fields of the plan vector, in the order of csrc/int8_conv.cu's
+# PlanField; the taps' (d, h, w) offsets follow
+PLAN_FIELDS = ("n", "di", "hi", "wi", "cp", "k", "taps", "do", "ho", "wo",
+               "sd", "sh", "sw", "nb", "db", "hb", "wb", "cw", "bn",
+               "tiles_n", "tiles_d", "tiles_h", "tiles_w", "n_tiles",
+               "chunks", "osn", "osk", "osd", "osh", "osw")
+
+
+def _box(m_shape: Sequence[int], stride: Sequence[int]) -> Tuple[int, ...]:
+    """The box (Nb, Db, Hb, Wb) of TILE_M output positions that covers the
+    output (N, Do, Ho, Wo) in the fewest tiles (most W, then H, then D
+    among equals, for long runs of the output's innermost axis); each
+    axis's extent times its stride is at most MAX_BOX."""
+    e = int(math.log2(TILE_M))
+    best = None
+    for parts in itertools.product(range(e + 1), repeat=3):
+        if sum(parts) > e:
+            continue
+        bw, bh, bd = (2 ** p for p in parts)
+        box = (TILE_M // (bw * bh * bd), bd, bh, bw)
+        if any(b * s > MAX_BOX for b, s in zip(box, (1,) + tuple(stride))):
+            continue
+        tiles = math.prod(-(-m // b) for m, b in zip(m_shape, box))
+        key = (tiles, -bw, -bh, -bd)
+        if best is None or key < best[0]:
+            best = (key, box)
+    return best[1]
+
+
+@functools.lru_cache(maxsize=512)
+def conv_plan(n: int, in_spatial: Tuple[int, int, int], cp: int, k: int,
+              taps: Tuple[int, int, int], stride: Tuple[int, int, int],
+              pads: Tuple[Tuple[int, int], ...],
+              out_strides: Tuple[int, ...]) -> Dict:
+    """Q2's tile plan for xq (n, *in_spatial, cp), wq (k, *taps, cp), the
+    stride, per-side pads and the output's element strides (N, K, D, H,
+    W): `box` (Nb, Db, Hb, Wb), the M tile; `tiles` (boxes along N, D, H,
+    W); `bn`, the N tile (TILE_N, or TILE_N_SMALL for k <= 8), and
+    `n_tiles`; `cw`, the chunk of channels a stage (128 or 64: whichever
+    pads cp less, 128 on a tie) and `chunks`; `tap_offsets`, the input
+    coordinate of output 0 for each tap in wq's (kd, kh, kw) order, each
+    (d, h, w) = tap - front pad; `vector`, what the kernel reads
+    (PLAN_FIELDS, then the offsets).  Raises ValueError on a shape the
+    kernel does not take."""
+    if any(t not in (1, 2, 3) for t in taps):
+        raise ValueError(f"kernel taps {taps}: 1-3 an axis")
+    if any(not 1 <= s <= MAX_STRIDE for s in stride):
+        raise ValueError(f"strides {stride}: 1-{MAX_STRIDE} an axis (TMA's "
+                         f"element strides)")
+    if any(p < 0 for pair in pads for p in pair):
+        raise ValueError(f"pads {pads}: must not be negative")
+    if cp % CHANNEL_ALIGN:
+        raise ValueError(f"channels {cp}: a multiple of {CHANNEL_ALIGN}")
+    out = output_size(in_spatial, taps, stride, pads)
+    if n < 1 or k < 1 or min(out) < 1 or min(in_spatial) < 1:
+        raise ValueError(f"empty convolution: n {n}, k {k}, input "
+                         f"{in_spatial}, output {out}")
+    m_shape = (n,) + out
+    box = _box(m_shape, stride)
+    tiles = tuple(-(-m // b) for m, b in zip(m_shape, box))
+    cw = min(CHUNKS, key=lambda c: (-(-cp // c) * c, -c))
+    chunks = -(-cp // cw)
+    bn = TILE_N_SMALL if k <= TILE_N_SMALL else TILE_N
+    n_tiles = -(-k // bn)
+    offsets = tuple((tz - pads[0][0], ty - pads[1][0], tx - pads[2][0])
+                    for tz in range(taps[0]) for ty in range(taps[1])
+                    for tx in range(taps[2]))
+    if math.prod(tiles) * n_tiles >= 2 ** 31:
+        raise ValueError(f"{math.prod(tiles) * n_tiles} tiles: more than a "
+                         f"grid holds")
+    fields = dict(n=n, di=in_spatial[0], hi=in_spatial[1], wi=in_spatial[2],
+                  cp=cp, k=k, taps=math.prod(taps), do=out[0], ho=out[1],
+                  wo=out[2], sd=stride[0], sh=stride[1], sw=stride[2],
+                  nb=box[0], db=box[1], hb=box[2], wb=box[3], cw=cw, bn=bn,
+                  tiles_n=tiles[0], tiles_d=tiles[1], tiles_h=tiles[2],
+                  tiles_w=tiles[3], n_tiles=n_tiles, chunks=chunks,
+                  osn=out_strides[0], osk=out_strides[1],
+                  osd=out_strides[2], osh=out_strides[3], osw=out_strides[4])
+    vector = tuple(fields[f] for f in PLAN_FIELDS) + tuple(
+        v for off in offsets for v in off)
+    return dict(box=box, tiles=tiles, bn=bn, n_tiles=n_tiles, cw=cw,
+                chunks=chunks, tap_offsets=offsets, out_shape=out,
+                stride=tuple(stride), vector=vector)
+
+
+def _bind(lib, name, argtypes):
+    fn = getattr(lib, name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def _entry(name: str):
     with _lock:
         fn = _entries.get(name)
         if fn is None:
             lib = build.load(SOURCE)
-            q = lib.echoscene_quantize_act
-            q.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                          ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-                          ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
-                          ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-            q.restype = ctypes.c_int
-            c = lib.echoscene_int8_conv3d
-            c.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 18
-                          + [ctypes.c_longlong] * 5 + [ctypes.c_void_p])
-            c.restype = ctypes.c_int
-            _entries["quantize_act"] = q
-            _entries["int8_conv3d"] = c
-            _entries["amax_threads"] = lib.echoscene_quantize_amax_threads
+            _entries["quantize_act"] = _bind(
+                lib, "echoscene_quantize_act",
+                [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                 ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+                 ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
+                 ctypes.c_void_p])
+            _entries["int8_conv3d"] = _bind(
+                lib, "echoscene_int8_conv3d",
+                [ctypes.c_void_p] * 6 + [ctypes.POINTER(ctypes.c_longlong),
+                                         ctypes.c_int, ctypes.c_void_p])
+            fn = _entries[name]
+        return fn
+
+
+def _earlier_entry(name: str):
+    with _lock:
+        fn = _entries.get(name)
+        if fn is None:
+            lib = build.load(EARLIER_SOURCE)
+            _entries["earlier_quantize_act"] = _bind(
+                lib, "echoscene_quantize_act_mma",
+                [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                 ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+                 ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
+                 ctypes.c_void_p, ctypes.c_void_p])
+            _entries["earlier_int8_conv3d"] = _bind(
+                lib, "echoscene_int8_conv3d_mma",
+                [ctypes.c_void_p] * 6 + [ctypes.c_int] * 18
+                + [ctypes.c_longlong] * 5 + [ctypes.c_void_p])
+            _entries["earlier_amax_threads"] = (
+                lib.echoscene_quantize_amax_threads_mma)
             fn = _entries[name]
         return fn
 
@@ -175,6 +304,22 @@ def _raise_on_error(name: str, err: int) -> None:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
+def _check_act(x: torch.Tensor) -> None:
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"quantize_act takes bf16 or f32, got {x.dtype}")
+    if x.dim() < 2 or not x.is_contiguous() or x.numel() == 0:
+        raise ValueError(f"quantize_act needs a contiguous, non-empty (N, C, "
+                         f"...) tensor, got shape {tuple(x.shape)}")
+
+
+def _act_outputs(x: torch.Tensor):
+    n, c = x.shape[:2]
+    q = torch.empty((n,) + tuple(x.shape[2:]) + (padded_channels(c),),
+                    dtype=torch.int8, device=x.device)
+    scale = torch.empty(1, dtype=torch.float32, device=x.device)
+    return n, c, x.numel() // (n * c), q, scale
+
+
 def quantize_act(x: torch.Tensor, eps: float = EPS
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Q1: x (N, C, *spatial) bf16 or f32, channel-first -> (q (N, *spatial,
@@ -182,29 +327,37 @@ def quantize_act(x: torch.Tensor, eps: float = EPS
     CUDA: the kernel (x must be contiguous); CPU: `quantize_plain`."""
     if x.device.type == "cpu":
         return quantize_plain(x, eps)
-    if x.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"quantize_act takes bf16 or f32, got {x.dtype}")
-    if x.dim() < 2 or not x.is_contiguous() or x.numel() == 0:
-        raise ValueError(f"quantize_act needs a contiguous, non-empty (N, C, "
-                         f"...) tensor, got shape {tuple(x.shape)}")
-    n, c = x.shape[:2]
-    spatial = tuple(x.shape[2:])
-    s = x.numel() // (n * c)
-    cp = padded_channels(c)
-    per_block = 16 * _entry("amax_threads")()
-    nparts = max(1, min(AMAX_BLOCKS, -(-x.numel() // per_block)))
-    partial = torch.empty(nparts, dtype=torch.float32, device=x.device)
-    q = torch.empty((n,) + spatial + (cp,), dtype=torch.int8,
-                    device=x.device)
-    scale = torch.empty(1, dtype=torch.float32, device=x.device)
+    _check_act(x)
+    n, c, s, q, scale = _act_outputs(x)
+    amax = torch.empty(1, dtype=torch.int32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         err = _entry("quantize_act")(
-            x.data_ptr(), int(x.dtype == torch.bfloat16), n, c, s, cp,
-            partial.data_ptr(), nparts, eps, q.data_ptr(), scale.data_ptr(),
-            stream)
+            x.data_ptr(), int(x.dtype == torch.bfloat16), n, c, s,
+            q.shape[-1], amax.data_ptr(), eps, q.data_ptr(),
+            scale.data_ptr(), stream)
     _raise_on_error("quantize_act", err)
     _count("quantize_act")
+    return q, scale
+
+
+def earlier_quantize_act(x: torch.Tensor, eps: float = EPS
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Q1 by the earlier design (`csrc/int8_conv_mma.cu`), CUDA only; the
+    same outputs as `quantize_act`.  Timed beside it by chip_smoke.py; no
+    path of the port calls it and it counts no launches."""
+    _check_act(x)
+    n, c, s, q, scale = _act_outputs(x)
+    per_block = 16 * _earlier_entry("earlier_amax_threads")()
+    nparts = max(1, min(EARLIER_AMAX_BLOCKS, -(-x.numel() // per_block)))
+    partial = torch.empty(nparts, dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        err = _earlier_entry("earlier_quantize_act")(
+            x.data_ptr(), int(x.dtype == torch.bfloat16), n, c, s,
+            q.shape[-1], partial.data_ptr(), nparts, eps, q.data_ptr(),
+            scale.data_ptr(), stream)
+    _raise_on_error("earlier_quantize_act", err)
     return q, scale
 
 
@@ -228,8 +381,6 @@ def _check_conv(xq, wq, x_scale, w_scale, bias, out) -> None:
                          f" and be a multiple of {CHANNEL_ALIGN}")
     if xq.data_ptr() % 16 or wq.data_ptr() % 16:
         raise ValueError("xq and wq must be 16-byte aligned")
-    if any(n not in (1, 2, 3) for n in wq.shape[1:4]):
-        raise ValueError(f"kernel taps {tuple(wq.shape[1:4])}: 1-3 an axis")
     if x_scale.numel() != 1 or w_scale.numel() != k or (
             bias is not None and bias.numel() != k):
         raise ValueError("x_scale must hold 1 value, w_scale and bias K")
@@ -261,16 +412,47 @@ def int8_conv3d(xq: torch.Tensor, wq: torch.Tensor, x_scale: torch.Tensor,
         return int8_conv3d_plain(xq, wq, x_scale, w_scale, bias, stride,
                                  pads, out)
     _check_conv(xq, wq, x_scale, w_scale, bias, out)
-    (pd, _), (ph, _), (pw, _) = pads
+    plan = conv_plan(n, (d, h, w), xq.shape[-1], k, tuple(wq.shape[1:4]),
+                     tuple(stride), tuple(tuple(p) for p in pads),
+                     tuple(out.stride()))
+    vector = (ctypes.c_longlong * len(plan["vector"]))(*plan["vector"])
     stream = torch.cuda.current_stream(xq.device).cuda_stream
     with torch.cuda.device(xq.device):
         err = _entry("int8_conv3d")(
             xq.data_ptr(), wq.data_ptr(), x_scale.data_ptr(),
             w_scale.data_ptr(), None if bias is None else bias.data_ptr(),
-            out.data_ptr(), n, d, h, w, xq.shape[-1], k, *wq.shape[1:4],
-            *stride, pd, ph, pw, *osize, *out.stride(), stream)
+            out.data_ptr(), vector, len(vector), stream)
     _raise_on_error("int8_conv3d", err)
     _count("int8_conv3d")
+    return out
+
+
+def earlier_int8_conv3d(xq: torch.Tensor, wq: torch.Tensor,
+                        x_scale: torch.Tensor, w_scale: torch.Tensor,
+                        bias: Optional[torch.Tensor],
+                        stride: Sequence[int] = (1, 1, 1),
+                        pads: Sequence[Tuple[int, int]] = ((1, 1),) * 3
+                        ) -> torch.Tensor:
+    """Q2 by the earlier design (`csrc/int8_conv_mma.cu`: mma.sync, 128 x
+    64 tiles), CUDA only; the same output as `int8_conv3d` into a fresh
+    tensor.  Timed beside it by chip_smoke.py; no path of the port calls it
+    and it counts no launches."""
+    n, d, h, w, cp = xq.shape
+    k = wq.shape[0]
+    osize = output_size((d, h, w), wq.shape[1:4], stride, pads)
+    out = torch.empty((n, k) + osize, dtype=torch.bfloat16, device=xq.device)
+    _check_conv(xq, wq, x_scale, w_scale, bias, out)
+    if any(t not in (1, 2, 3) for t in wq.shape[1:4]):
+        raise ValueError(f"kernel taps {tuple(wq.shape[1:4])}: 1-3 an axis")
+    (pd, _), (ph, _), (pw, _) = pads
+    stream = torch.cuda.current_stream(xq.device).cuda_stream
+    with torch.cuda.device(xq.device):
+        err = _earlier_entry("earlier_int8_conv3d")(
+            xq.data_ptr(), wq.data_ptr(), x_scale.data_ptr(),
+            w_scale.data_ptr(), None if bias is None else bias.data_ptr(),
+            out.data_ptr(), n, d, h, w, cp, k, *wq.shape[1:4], *stride, pd,
+            ph, pw, *osize, *out.stride(), stream)
+    _raise_on_error("earlier_int8_conv3d", err)
     return out
 
 

@@ -25,10 +25,15 @@ perturbed where a zero head would make a comparison vacuous.
   twice JAX's int8 twin's drift from its f32 module, and SDFs strictly
   closer to JAX's int8 output than the port's bf16 twin is;
 * `build_flagship`'s fast profile (bench.py's) as JAX sets it;
+* Q2's tile plan (`int8_conv.conv_plan`) emulated in torch, bit-equal to
+  the plain version at every torso shape and the ragged cases; Q1's plain
+  version bit-equal to JAX's at the torso's 14 input shapes;
 * on a card (`cuda` marker): Q1 bit-equal and Q2 within 1 bf16 ulp of
-  their plain versions.
+  their plain versions (the factored upsample's parities into strided
+  views too), the earlier design of both likewise.
 """
 import functools
+import math
 
 import numpy as np
 import pytest
@@ -364,6 +369,208 @@ def test_torso_conv_sites_match_the_twin(monkeypatch):
     assert len(q1) == q1_calls == 25
 
 
+# Q2's plan, emulated on the CPU: every distinct convolution of the
+# flagship's int8 torso at 2 rows, chip_smoke.py's ragged case, the cuda
+# test's 3-output one and Int8Linear's 1x1x1 rows
+def _plan_sites():
+    from echoscene_torch.kernels import int8_conv as q8
+    from echoscene_torch.models.config import ShapeDenoiserConfig
+
+    sites, _ = q8.torso_conv_sites(ShapeDenoiserConfig(), 2)
+    cases = [(s["name"], s["x_shape"], s["k"], s["taps"], s["stride"],
+              s["pads"], s["bias"]) for s in sites]
+    cases += [
+        ("ragged", (3, 37, 5, 7, 9), 19, (3, 3, 3), (1, 2, 2),
+         ((1, 1),) * 3, True),
+        ("ragged 3 outputs", (3, 40, 5, 7, 9), 3, (3, 3, 3), (1, 1, 1),
+         ((1, 1),) * 3, True),
+        ("linear rows", (300, 96, 1, 1, 1), 40, (1, 1, 1), (1, 1, 1),
+         ((0, 0),) * 3, True)]
+    return cases
+
+
+PLAN_SITES = _plan_sites()
+
+
+def _conv_by_plan(xq, wq, x_scale, w_scale, bias, plan):
+    """Q2 as its plan lays it out: each tile's box of output positions in
+    the kernel's row order, each tap's box of input positions at the
+    plan's offsets and strides with zero fill outside the input and past
+    the channels (TMA's out-of-range fill), each chunk of `cw` channels
+    summed exactly (float32: at most 128 products of magnitude 127^2),
+    accumulated over chunks and taps in float64, then `dequantize`; rows
+    past the output dropped, as the epilogue does."""
+    import torch.nn.functional as F
+    from echoscene_torch.kernels import int8_conv as q8
+
+    n, d, h, w, cp = xq.shape
+    k = wq.shape[0]
+    nb, db, hb, wb = plan["box"]
+    tn, td, th, tw = plan["tiles"]
+    sd, sh, sw = plan["stride"]
+    cw = plan["cw"]
+    cpad, kpad = plan["chunks"] * cw, plan["n_tiles"] * plan["bn"]
+    assert nb * db * hb * wb == q8.TILE_M and cpad >= cp and kpad >= k
+    x = F.pad(xq, (0, cpad - cp)).float()
+    wm = F.pad(wq.reshape(k, -1, cp), (0, cpad - cp, 0, 0, 0, kpad - k))
+    wm = wm.float()
+    r = torch.arange(q8.TILE_M)
+    t = torch.arange(tn * td * th * tw)[:, None]
+    on = t // (tw * th * td) * nb + r // (wb * hb * db)
+    od = t // (tw * th) % td * db + r // (wb * hb) % db
+    oh = t // tw % th * hb + r // wb % hb
+    ow = t % tw * wb + r % wb
+    acc = torch.zeros(on.numel(), kpad, dtype=torch.float64)
+    for tap, (fd, fh, fw) in enumerate(plan["tap_offsets"]):
+        di, hi, wi = od * sd + fd, oh * sh + fh, ow * sw + fw
+        inside = ((on < n) & (di >= 0) & (di < d) & (hi >= 0) & (hi < h)
+                  & (wi >= 0) & (wi < w))
+        a = x[on.clamp(max=n - 1), di.clamp(0, d - 1), hi.clamp(0, h - 1),
+              wi.clamp(0, w - 1)] * inside[..., None]
+        a = a.reshape(-1, cpad)
+        for c0 in range(0, cpad, cw):
+            acc += (a[:, c0:c0 + cw] @ wm[:, tap, c0:c0 + cw].T).double()
+    do, ho, wo = plan["out_shape"]
+    valid = ((on < n) & (od < do) & (oh < ho) & (ow < wo)).reshape(-1)
+    y = q8.dequantize(acc[valid][:, :k].to(torch.int32), x_scale, w_scale,
+                      bias)
+    out = torch.zeros((n, k, do, ho, wo), dtype=torch.bfloat16)
+    pos = [v.reshape(-1)[valid] for v in (on, od, oh, ow)]
+    out[pos[0], :, pos[1], pos[2], pos[3]] = y
+    # every output position is written by exactly one tile row
+    assert int(valid.sum()) == n * do * ho * wo
+    return out
+
+
+@pytest.mark.parametrize("site", PLAN_SITES, ids=[
+    f"{i}-{c[0]}" for i, c in enumerate(PLAN_SITES)])
+def test_conv_plan_emulation_matches_plain(site):
+    """Q2's tile plan (`int8_conv.conv_plan`: the box of output positions,
+    each tap's input coordinates, the chunk width, the N tile), emulated in
+    torch, equals `int8_conv3d_plain` bit for bit at every torso shape and
+    the ragged cases: the plan covers every output once and reads the
+    right inputs."""
+    from echoscene_torch.kernels import int8_conv as q8
+    from echoscene_torch.nn.quant import quantize_weight
+
+    name, x_shape, k, taps, stride, pads, has_bias = site
+    gen = torch.Generator().manual_seed(13)
+    n, c = x_shape[:2]
+    x = torch.randn(x_shape, generator=gen)
+    xq, xs = q8.quantize_plain(x)
+    wq, ws = quantize_weight(torch.randn((k, c) + tuple(taps), generator=gen))
+    bias = torch.randn(k, generator=gen) if has_bias else None
+    out_shape = q8.output_size(x_shape[2:], taps, stride, pads)
+    out_strides = torch.empty((n, k) + out_shape).stride()
+    plan = q8.conv_plan(n, tuple(x_shape[2:]), xq.shape[-1], k, tuple(taps),
+                        tuple(stride), tuple(pads), out_strides)
+    assert plan["cw"] in q8.CHUNKS and plan["bn"] == (
+        q8.TILE_N_SMALL if k <= q8.TILE_N_SMALL else q8.TILE_N)
+    assert len(plan["vector"]) == len(q8.PLAN_FIELDS) + 3 * math.prod(taps)
+    got = _conv_by_plan(xq, wq, xs, ws, bias, plan)
+    want = q8.int8_conv3d_plain(xq, wq, xs, ws, bias, stride, pads)
+    assert torch.equal(got, want), name
+
+
+def test_conv_plan_tiles_the_torso_without_waste():
+    """At the flagship's 42 rows every torso convolution's box divides
+    its output (no idle tile rows), 224, 448 and 672 output channels take
+    1, 2 and 3 full N tiles and conv_out the small one; a shape the kernel
+    does not take raises with its reason."""
+    from echoscene_torch.kernels import int8_conv as q8
+    from echoscene_torch.models.config import ShapeDenoiserConfig
+
+    sites, _ = q8.torso_conv_sites(ShapeDenoiserConfig(), 42)
+    for s in sites:
+        n, c = s["x_shape"][:2]
+        plan = q8.conv_plan(n, s["x_shape"][2:], q8.padded_channels(c),
+                            s["k"], s["taps"], s["stride"], s["pads"],
+                            (1, 1, 1, 1, 1))
+        m = n * math.prod(plan["out_shape"])
+        assert math.prod(plan["tiles"]) * q8.TILE_M == m, s["name"]
+        assert plan["n_tiles"] * plan["bn"] == (
+            s["k"] if s["k"] % q8.TILE_N == 0 else q8.TILE_N_SMALL), s["name"]
+    args = dict(n=2, in_spatial=(4, 4, 4), cp=32, k=8, taps=(3, 3, 3),
+                stride=(1, 1, 1), pads=((1, 1),) * 3,
+                out_strides=(1, 1, 1, 1, 1))
+    for bad, match in ((dict(stride=(1, 9, 1)), "strides"),
+                       (dict(taps=(4, 3, 3)), "taps"),
+                       (dict(pads=((1, 1), (-1, 1), (1, 1))), "pads"),
+                       (dict(cp=48), "channels"),
+                       (dict(in_spatial=(1, 1, 1), pads=((0, 0),) * 3),
+                        "empty")):
+        with pytest.raises(ValueError, match=match):
+            q8.conv_plan(**{**args, **bad})
+
+
+def test_q1_product_rounds_as_the_division():
+    """Q1's kernel quantizes by y = x * rcp(scale) where y lies more than
+    2^-15 from a half-integer, and by the IEEE division elsewhere
+    (csrc/int8_conv.cu quant1).  Emulated in f32 at 64 scales, on every
+    bf16 value up to the abs-max and on every f32 within 8 ulps of each
+    half-integer multiple of the scale: the int8 values equal
+    round(x / scale)'s everywhere, where the product alone misses some of
+    the latter."""
+    rng = np.random.default_rng(11)
+    bits = torch.arange(-32768, 32768, dtype=torch.int32).to(torch.int16)
+    bf16 = bits.view(torch.bfloat16).float()
+    bf16 = bf16[torch.isfinite(bf16)]
+    halves = torch.arange(-127, 127, dtype=torch.float32) + 0.5
+    near = torch.arange(-8, 9, dtype=torch.int32)
+    product_misses = 0
+    for amax in np.exp(rng.uniform(np.log(1e-3), np.log(1e3), 64)):
+        amax = torch.tensor(np.float32(amax))
+        scale = torch.maximum(amax, torch.tensor(1e-8)) / torch.tensor(127.0)
+        ties = ((halves * scale).view(torch.int32)[:, None] + near).view(
+            torch.float32).reshape(-1)
+        v = torch.cat([bf16, ties])
+        v = v[v.abs() <= amax]
+        want = torch.clamp(torch.round(v / scale), -127, 127)
+        y = v * (torch.tensor(1.0) / scale)
+        t = y.abs()
+        fast = (t - torch.floor(t) - 0.5).abs() > 2.0 ** -15
+        got = torch.where(fast, torch.round(y), torch.round(v / scale))
+        assert torch.equal(torch.clamp(got, -127, 127), want)
+        product_misses += int((torch.clamp(torch.round(y), -127, 127)
+                               != want).sum())
+    assert product_misses > 0
+
+def _q1_inputs():
+    from echoscene_torch.kernels import int8_conv as q8
+    from echoscene_torch.models.config import ShapeDenoiserConfig
+
+    sites, _ = q8.torso_conv_sites(ShapeDenoiserConfig(), 1)
+    return sorted({(s["x_shape"], s["x_dtype"]) for s in sites})
+
+
+Q1_INPUTS = _q1_inputs()
+
+
+@pytest.mark.parametrize("case", Q1_INPUTS, ids=[
+    f"{s[1]}x{s[2]}-{d}" for s, d in Q1_INPUTS])
+def test_quantize_act_matches_jax_at_torso_inputs(case):
+    """Q1's plain version at each of the torso's 14 input shapes (one row):
+    JAX's per-tensor int8 values channels-last, zeros in the padded
+    channels (Q2's chunks read past C), the scale bit-equal."""
+    import jax.numpy as jnp
+    from echoscene_tpu.nn.quant import quantize_act as jq
+    from echoscene_torch.kernels.int8_conv import padded_channels, quantize_act
+
+    shape, dtype = case
+    rng = np.random.default_rng(sum(shape))
+    x = (rng.standard_normal(shape) * 2).astype(np.float32)
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    want_q, want_s = jq(jnp.asarray(x.transpose(0, 2, 3, 4, 1)).astype(
+        getattr(jnp, dtype)))
+    q, s = quantize_act(tx)
+    c = shape[1]
+    assert q.shape == shape[:1] + shape[2:] + (padded_channels(c),)
+    assert np.array_equal(q[..., :c].numpy(), np.asarray(want_q))
+    assert not q[..., c:].any()
+    assert np.array_equal(s.numpy().reshape(()),
+                          np.asarray(want_s).reshape(()))
+
+
 def test_tensor_parallelism_refuses_int8():
     import types
     from echoscene_torch.parallel import tp
@@ -603,6 +810,28 @@ def test_cuda_q1_matches_plain(card, dtype):
 
 
 @pytest.mark.cuda
+def test_cuda_q1_near_ties_match_plain(card):
+    """Q1 on the card at f32 inputs within 8 ulps of every half-integer
+    multiple of the scale (where the kernel's product and the division can
+    round apart): bit-equal to the plain version."""
+    from echoscene_torch.kernels import int8_conv as q
+
+    amax = torch.tensor(3.7, device=card)
+    scale = amax / torch.tensor(127.0, device=card)
+    halves = torch.arange(-127, 127, dtype=torch.float32, device=card) + 0.5
+    near = torch.arange(-8, 9, dtype=torch.int32, device=card)
+    v = ((halves * scale).view(torch.int32)[:, None] + near).view(
+        torch.float32).reshape(-1)
+    v = torch.cat([v[v.abs() <= amax], amax.reshape(1)])
+    x = v[: v.numel() // 7 * 7].reshape(1, 7, -1)
+    x[0, 0, 0] = amax
+    got = q.quantize_act(x)
+    want = q.quantize_plain(x)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("case", [
     ((2, 16, 8, 8, 224), 224, (3, 3, 3), (1, 1, 1), ((1, 1),) * 3, True),
     ((2, 16, 8, 8, 448), 448, (3, 3, 3), (1, 2, 2), ((1, 1),) * 3, True),
@@ -610,7 +839,15 @@ def test_cuda_q1_matches_plain(card, dtype):
     ((2, 16, 4, 4, 672), 672, (3, 2, 2), (1, 1, 1),
      ((1, 1), (1, 0), (0, 1)), False),
     ((3, 16, 16, 16, 3), 224, (3, 3, 3), (1, 1, 1), ((1, 1),) * 3, True),
-    ((3, 5, 7, 9, 40), 3, (3, 3, 3), (1, 1, 1), ((1, 1),) * 3, True)])
+    ((3, 5, 7, 9, 40), 3, (3, 3, 3), (1, 1, 1), ((1, 1),) * 3, True),
+    # conv_out, the 1344 -> 672 ResBlock input, the level-0 Downsample,
+    # a 1x1x1 skip, chip_smoke.py's ragged case and Int8Linear's rows
+    ((2, 16, 16, 16, 224), 3, (3, 3, 3), (1, 1, 1), ((1, 1),) * 3, True),
+    ((2, 16, 4, 4, 1344), 672, (3, 3, 3), (1, 1, 1), ((1, 1),) * 3, True),
+    ((2, 16, 16, 16, 224), 224, (3, 3, 3), (1, 2, 2), ((1, 1),) * 3, True),
+    ((2, 16, 16, 16, 672), 224, (1, 1, 1), (1, 1, 1), ((0, 0),) * 3, True),
+    ((3, 5, 7, 9, 37), 19, (3, 3, 3), (1, 2, 2), ((1, 1),) * 3, True),
+    ((300, 1, 1, 1, 96), 40, (1, 1, 1), (1, 1, 1), ((0, 0),) * 3, True)])
 def test_cuda_q2_matches_plain(card, case):
     """Q2 on the card: bf16 output within 1 ulp of the plain version on
     every element (the int32 accumulators are exact)."""
@@ -629,3 +866,79 @@ def test_cuda_q2_matches_plain(card, case):
     want = q.int8_conv3d_plain(xq, wq, xs, ws, bias, stride, pads)
     torch.cuda.synchronize()
     assert int(bf16_ulps(got, want).max()) <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("level", [(448, (16, 8, 8)), (672, (16, 4, 4))])
+@pytest.mark.parametrize("parity", [(0, 0), (0, 1), (1, 0), (1, 1)])
+def test_cuda_q2_parity_into_strided_view(card, level, parity):
+    """Each parity of the quantized factored upsample at both of the
+    torso's levels, written by Q2 into its strided view of the 2x output
+    as `nn.blocks.factored_upsample_conv` does: within 1 ulp of the plain
+    version, and nothing outside the view written."""
+    from echoscene_torch.kernels import int8_conv as q
+    from echoscene_torch.nn.quant import quantize_weight
+
+    c, spatial = level
+    rh, rw = parity
+    gen = torch.Generator(device=card).manual_seed(2)
+    x = torch.randn((2, c) + spatial, generator=gen, device=card)
+    xq, xs = q.quantize_act(x.to(torch.bfloat16))
+    wq, ws = quantize_weight(torch.randn((c, c, 3, 2, 2), generator=gen,
+                                         device=card))
+    pads = ((1, 1), ((1, 0), (0, 1))[rh], ((1, 0), (0, 1))[rw])
+    d, h, w = spatial
+    full = torch.full((2, c, d, 2 * h, 2 * w), 7.0, dtype=torch.bfloat16,
+                      device=card)
+    view = full[:, :, :, rh::2, rw::2]
+    q.int8_conv3d(xq, wq, xs, ws, None, (1, 1, 1), pads, out=view)
+    want = q.int8_conv3d_plain(xq, wq, xs, ws, None, (1, 1, 1), pads)
+    torch.cuda.synchronize()
+    assert int(bf16_ulps(view, want).max()) <= 1
+    rest = full.clone()
+    rest[:, :, :, rh::2, rw::2] = 7.0
+    assert bool((rest == 7.0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    ((2, 16, 8, 8, 224), 224, (3, 3, 3), (1, 1, 1), ((1, 1),) * 3, True),
+    ((3, 5, 7, 9, 37), 19, (3, 3, 3), (1, 2, 2), ((1, 1),) * 3, True)])
+def test_cuda_earlier_design_still_matches_plain(card, case):
+    """The earlier design of Q1 / Q2 (`csrc/int8_conv_mma.cu`), which
+    chip_smoke.py times beside the kernels, still builds and matches the
+    plain versions: Q1 bit-equal, Q2 within 1 ulp; it counts no launch."""
+    from echoscene_torch.kernels import int8_conv as q
+    from echoscene_torch.nn.quant import quantize_weight
+
+    shape, k, taps, stride, pads, has_bias = case
+    gen = torch.Generator(device=card).manual_seed(3)
+    x = torch.randn((shape[0], shape[-1]) + shape[1:4], generator=gen,
+                    device=card).to(torch.bfloat16)
+    q.reset_launches()
+    xq, xs = q.earlier_quantize_act(x)
+    want_q, want_s = q.quantize_plain(x)
+    wq, ws = quantize_weight(torch.randn((k, shape[-1]) + taps,
+                                         generator=gen, device=card))
+    bias = torch.randn(k, generator=gen, device=card) if has_bias else None
+    got = q.earlier_int8_conv3d(xq, wq, xs, ws, bias, stride, pads)
+    want = q.int8_conv3d_plain(xq, wq, xs, ws, bias, stride, pads)
+    torch.cuda.synchronize()
+    assert torch.equal(xq, want_q) and torch.equal(xs, want_s)
+    assert int(bf16_ulps(got, want).max()) <= 1
+    assert q.LAUNCHES == {"quantize_act": 0, "int8_conv3d": 0}
+
+
+@pytest.mark.cuda
+def test_cuda_q2_raises_on_a_shape_it_does_not_take(card):
+    """A stride past TMA's element strides raises before any launch."""
+    from echoscene_torch.kernels import int8_conv as q
+
+    xq = torch.zeros((1, 4, 20, 20, 32), dtype=torch.int8, device=card)
+    wq = torch.zeros((8, 1, 1, 1, 32), dtype=torch.int8, device=card)
+    one = torch.ones(1, device=card)
+    q.reset_launches()
+    with pytest.raises(ValueError, match="strides"):
+        q.int8_conv3d(xq, wq, one, torch.ones(8, device=card), None,
+                      (1, 9, 1), ((0, 0),) * 3)
+    assert q.LAUNCHES["int8_conv3d"] == 0
