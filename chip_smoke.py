@@ -48,12 +48,23 @@ result line):
        same inputs, same tolerance), SDPA in f32 with TF32 off, the plain
        version and the host time of one wrapper call;
      * K1 / K2 at the training step's shapes ((8, 1024, 8, 56), the VQ
-       encoder's (8, 4096, 1, 256)) through the differentiable Function:
-       the output carries its grad_fn, the forward meets `error_ratios`,
-       and dq, dk, dv equal plain autograd's within 1e-6 of their peak
-       (bit-equal expected: the backward is the same plain computation);
-       times the kernel forward + plain backward beside the plain forward +
-       backward and SDPA's forward + backward;
+       encoder's (8, 4096, 1, 256)), a tp rank's (8, 1024, 4, 56) and the
+       ragged (2, 333, 8, 56) and (2, 77, 3, 200) through the
+       differentiable Function, whose bf16 backward is the hand kernel of
+       `csrc/flash_attention_bwd.cu` (no TPU counterpart: JAX's `_fa_bwd`
+       is XLA): one forward and one backward launch; dq, dk, dv within the
+       bf16 limits of `error_ratios` against plain autograd through
+       `attention_plain` from the same inputs and upstream gradient, a max
+       error against float64 within GRAD_F64_FACTOR (2) times plain
+       autograd's, dq with the last 32 keys left out failing both limits,
+       two runs bit-equal, the forward's lse against
+       `attention_plain_lse` and its output bit-equal to the forward
+       without lse; phase 1 fails if the backward's ptxas report shows a
+       spill; times the kernel forward + backward, the backward kernel
+       alone, the earlier design (forward kernel + the plain recompute
+       differentiated), the plain forward + backward and backward alone,
+       SDPA's forward + backward and its backward alone, beside the bounds
+       (`attention_backward_bound` for the backward alone);
      * Q1 / Q2 (the int8 W8A8 convolution, `csrc/int8_conv.cu`, hand
        kernels with no TPU counterpart) at each of the 33 distinct
        convolutions of the flagship's int8 torso at the main path's rows
@@ -126,16 +137,19 @@ result line):
      encoder; one warm step and 8 timed (train scenes/sec, ms per step,
      peak memory; K1 / K2 counts set to 0 just before and read just after:
      K1 = 10 a step, 5 forward + 5 in the remat recompute, K2 = 1, one
-     encoder chunk), finite losses, the parts that get gradients moved, the
-     VQ-VAE bit-unchanged; the busy share and kernel launches of one step
-     and of its forward, backward and optimizer under torch.profiler; two
-     steps through `Trainer.train` over a fake dataset whose SDFs come from
-     an in-memory loader (K1 = 20, K2 = 2, finite logged losses); a
+     encoder chunk; K1's backward kernel 5 a step), finite losses, the
+     parts that get gradients moved, the VQ-VAE bit-unchanged; the busy
+     share and kernel launches of one step and of its forward, backward
+     and optimizer under torch.profiler, and of one step with the earlier
+     design's backward (the plain recompute); two steps through
+     `Trainer.train` over a fake dataset whose SDFs come from an in-memory
+     loader (K1 = 20, K2 = 2, the K1 backward 10, finite logged losses); a
      `Trainer.save` -> `restore_checkpoint` round trip into a model with
      other weights, bit-exact, and one step after it with the same loss as
      the saved model's; one step at the yaml's diffusion_bs of 64 (K1 = 10,
-     K2 = 8), its peak memory; one step with compute_dtype float32 (K1 =
-     10 and K2 = 1 launches, all f32; finite loss, its ms and peak memory);
+     K2 = 8, the K1 backward 5), its peak memory; one step with
+     compute_dtype float32 (K1 = 10 and K2 = 1 launches, all f32, and no
+     backward kernel; finite loss, its ms and peak memory);
   8. drive the generation service on the phase-4 model at the fast profile
      (DPM++ with 50 layout and 20 shape steps, bf16; row buckets 16, 32,
      48): warmup; 8 concurrent clients with 16 requests of 3-6 objects
@@ -152,8 +166,10 @@ result line):
      widths (ch 64, ch_mult 1-2-4, 8192 codes, 64^3 grids), batch 8, seeded
      weights and analytic SDFs: 3 f32 steps (median ms, peak memory; K2 f32
      = 2 a step, the encoder's and the decoder's mid attention), one under
-     torch.profiler (device time, busy share, launches), 2 bf16 steps (K2
-     bf16 = 2 a step, f32 masters), eval_iou over 64 grids (K2 = 2 a
+     torch.profiler (device time, busy share, launches), one warm and 3
+     timed bf16 steps (median ms, peak memory; K2 bf16 and its backward
+     kernel 2 a step, f32 masters), one under torch.profiler, and one with
+     the earlier design's backward, eval_iou over 64 grids (K2 = 2 a
      batch); K2 in f32 with a gradient at (8, 4096, 1, 256): dq, dk, dv
      bit-equal to plain autograd's, timed beside the plain forward +
      backward, SDPA f32 forward + backward (TF32 off) and the bound of
@@ -230,7 +246,11 @@ result line):
 
 Prints the total seconds, the `kernels` JSON line (K1 / K2 in bf16 and in
 f32, each entry with its dtype; K1 / K2 also carry their training launches,
-serving launches and forward + backward times; the f32 entries' launches
+serving launches and forward + backward times;
+`attention_backward_onepass_attention` / `_stream_attention` are the bf16
+backward kernel at K1's and K2's training shapes, their launches phase 7's
+9 timed steps (5 a step) and phase 9's 3 timed bf16 VQ-VAE steps (2 a
+step), with the dp / ZeRO-1 counts a rank and step; the f32 entries' launches
 are phase 8's f32 request; the f32 K2 entry also carries its VQ-VAE
 launches; `stream_attention_f32_train` is K2 f32 forward + plain backward
 at the VQ-VAE site, its launches phase 9's 3 f32 steps; every entry's
@@ -263,7 +283,13 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 ATOL_TINY = 1e-4
-GRAD_RTOL = 1e-6             # kernel Function's dq, dk, dv vs plain autograd
+# the bf16 backward kernel's dq, dk, dv: the bf16 limits of error_ratios
+# against plain autograd, and a max error against float64 within this many
+# times plain autograd's own
+GRAD_F64_FACTOR = 2.0
+BWD_REPLACES = ("none: a hand kernel of the port for JAX's `_fa_bwd` "
+                "(echoscene_tpu/kernels/flash_attention.py:237, jax.vjp of "
+                "the einsum reference: XLA, no Pallas kernel)")
 LOSS_RTOL = 1e-5             # tiny training step, card vs CPU
 GRAD_LEAF_RTOL = 1e-3        # ... each gradient leaf, of its part's peak
 PARAM_ATOL = 1e-6            # ... parameters after AdamW on the same grads
@@ -275,6 +301,11 @@ RELU_MARGIN = 1e-4
 # diffusion_bs 8 rows, the frozen VQ encoder's mid attention on 8 SDFs
 TRAIN_K1_SHAPE = (8, 1024, 8, 56)
 TRAIN_K2_SHAPE = (8, 4096, 1, 256)
+# the backward kernel's phase-2 shapes: the training shapes first, a tensor
+# parallel rank's 4 heads, ragged ones
+BWD_SHAPES = {"onepass_attention": [TRAIN_K1_SHAPE, (8, 1024, 4, 56),
+                                    (2, 333, 8, 56)],
+              "stream_attention": [TRAIN_K2_SHAPE, (2, 77, 3, 200)]}
 VQ_BATCH = 8                 # VQ-VAE training batch (scripts/train_vqvae.py)
 VQ_GRAD_SHAPE = (8, 4096, 1, 256)   # K2 at the VQ-VAE's mid attention
 VQ_LEAF_RTOL = 1e-3          # tiny VQ-VAE step, each leaf of its own peak
@@ -295,13 +326,15 @@ def card_line() -> str:
         text=True).stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
+def cuda_ms(fn, iters: int, warmup: int = 2,
+            sleep_cycles: int = 5_000_000) -> float:
     import torch
     for _ in range(warmup):
         fn()
-    # the card waits on a sleep (~2.5 ms) while the host enqueues the calls,
-    # so a call shorter than its host time is timed on the card alone
-    torch.cuda._sleep(5_000_000)
+    # the card waits on a sleep (~2.5 ms by default) while the host enqueues
+    # the calls, so a call shorter than its host time is timed on the card
+    # alone as long as all `iters` calls are enqueued within the sleep
+    torch.cuda._sleep(sleep_cycles)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -748,59 +781,166 @@ def check_kernel_f32(name, wrapper, shape, ragged_shapes, replaces,
             "keys_dropped_err_of_limit": dropped}
 
 
-def check_kernel_backward(name, wrapper, shape):
-    """Phase 2, training: the kernel's output carries the differentiable
-    Function, and its dq, dk, dv (the plain version recomputed and
-    differentiated, as JAX's `_fa_bwd`) equal plain autograd's from the same
-    inputs and upstream gradient; times the kernel forward + plain backward
-    beside the plain forward + backward and SDPA's forward + backward."""
+def check_backward_at(name, wrapper, shape, seed):
+    """Phase 2, training, at one shape: the bf16 forward kernel's output
+    carries the differentiable Function; one forward and one backward kernel
+    launch (the counts); dq, dk, dv (the backward kernel of
+    csrc/flash_attention_bwd.cu) meet the bf16 limits of `error_ratios`
+    against plain autograd through `attention_plain` from the same inputs
+    and upstream gradient, and their max error against float64 is within
+    GRAD_F64_FACTOR times plain autograd's; the same backward with the last
+    32 keys left out fails both limits on dq; two runs are bit-equal; the
+    forward's lse matches `attention_plain_lse` and its output is bit-equal
+    to the forward without lse.  Returns the numbers and the inputs."""
     import torch
-    import torch.nn.functional as F
     from echoscene_torch.kernels import flash_attention as fa
 
-    gen = torch.Generator(device="cuda").manual_seed(1)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v, g = (torch.randn(shape, generator=gen, device="cuda").to(
         torch.bfloat16) for _ in range(4))
     leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    fa.reset_launches()
     out = wrapper(*leaves)
     if type(out.grad_fn).__name__ != "KernelAttentionBackward":
         fail(f"{name} at {shape}: output grad_fn {out.grad_fn}, want the "
              "differentiable kernel Function")
-    ratios = fa.error_ratios(out.detach(), fa.attention_plain(q, k, v))
-    if not max(ratios) <= 1.0:
-        fail(f"{name} at {shape}: max / mean abs err at {ratios[0]:.3f} / "
-             f"{ratios[1]:.3f} of their limits")
     got = torch.autograd.grad(out, leaves, g)
+    torch.cuda.synchronize()
+    want_count = {(name, "bfloat16"): 1}
+    if (fa.LAUNCHES_BY_DTYPE != want_count
+            or fa.BACKWARD_LAUNCHES != want_count):
+        fail(f"{name} at {shape}: forward + backward launched "
+             f"{fa.LAUNCHES_BY_DTYPE} forward and {fa.BACKWARD_LAUNCHES} "
+             f"backward kernels, want one each")
+    fwd = fa.error_ratios(out.detach(), fa.attention_plain(q, k, v))
     plain = [x.clone().requires_grad_(True) for x in (q, k, v)]
     want = torch.autograd.grad(fa.attention_plain(*plain), plain, g)
-    diffs = [((a.float() - b.float()).abs().max()
-              / b.float().abs().max()).item() for a, b in zip(got, want)]
-    equal = all(torch.equal(a, b) for a, b in zip(got, want))
-    if not max(diffs) <= GRAD_RTOL:
-        fail(f"{name} at {shape}: dq, dk, dv differ from plain autograd's by "
-             f"{diffs} of their peaks (limit {GRAD_RTOL})")
+    exact = fa.attention_grads_float64(q, k, v, g)
+    ratios = [fa.error_ratios(a, b) for a, b in zip(got, want)]
+    f64 = [((a.double() - e).abs().max() / (b.double() - e).abs().max()
+            ).item() for a, b, e in zip(got, want, exact)]
+    del exact
+    if not (max(fwd) <= 1.0 and max(max(r) for r in ratios) <= 1.0
+            and max(f64) <= GRAD_F64_FACTOR):
+        fail(f"{name} at {shape}: forward at {fwd} of the limits; dq, dk, "
+             f"dv at {ratios} of the limits against plain autograd, max "
+             f"err against float64 {f64} x plain autograd's (limit "
+             f"{GRAD_F64_FACTOR})")
+    s = k.shape[1]
+    cut = [x.clone().requires_grad_(True) for x in (q, k[:, :s - 32],
+                                                    v[:, :s - 32])]
+    dropped = fa.error_ratios(torch.autograd.grad(
+        fa.attention_plain(*cut), cut, g)[0], want[0])
+    if not min(dropped) > 1.0:
+        fail(f"{name} at {shape}: the tolerance passes dq with 32 keys left "
+             f"out ({dropped[0]:.3f} / {dropped[1]:.3f} of the limits)")
+    again = torch.autograd.grad(wrapper(*leaves), leaves, g)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        fail(f"{name} at {shape}: two backward runs differ")
+    o, lse = fa._launch(name, q, k, v, lse=True)
+    ref_o, ref_lse = fa.attention_plain_lse(q, k, v)
+    lse_diff = (lse - ref_lse).abs().max().item()
+    if not (lse_diff <= 1e-4 * max(1.0, ref_lse.abs().max().item())
+            and torch.equal(o, fa._launch(name, q, k, v))):
+        fail(f"{name} at {shape}: lse off by {lse_diff:.3e}, or the "
+             "forward with lse differs from the forward without it")
+    err = max((a.float() - b.float()).abs().max().item()
+              for a, b in zip(got, want))
+    return {"shape": list(shape), "fwd_err_of_limit": fwd,
+            "grad_err_of_limit": dict(zip(("dq", "dk", "dv"), ratios)),
+            "grad_f64_max_err_vs_plain": dict(zip(("dq", "dk", "dv"), f64)),
+            "dq_keys_dropped_err_of_limit": dropped, "max_abs_err": err,
+            "lse_max_diff": lse_diff, "bit_equal_runs": True}, (
+                q, k, v, g, o, lse)
+
+
+def check_kernel_backward(name, wrapper, shapes, sm_clock_hz):
+    """Phase 2, training: `check_backward_at` at each of `shapes` (the
+    training shape first), then at the training shape the times of the
+    kernel's forward + backward, the backward kernel alone, the earlier
+    design (the forward kernel, then KernelAttention's plain recompute
+    differentiated, as every bf16 backward ran before the backward kernel),
+    plain autograd's forward + backward, the plain backward alone
+    (`attention_backward_plain`), SDPA's forward + backward and its backward
+    alone, beside the bounds of forward + backward (three times the
+    forward's products, its exp2, twice its bytes) and of the backward
+    alone (`attention_backward_bound`).  Returns (the fields for the
+    forward kernel's entry, the backward kernel's `kernels` entry)."""
+    import functools
+
+    import torch
+    import torch.nn.functional as F
+    from echoscene_torch.kernels import flash_attention as fa
+
+    checks = []
+    for i, shape in enumerate(shapes):
+        res, inputs = check_backward_at(name, wrapper, shape, 1 + i)
+        checks.append(res)
+        if i == 0:
+            main = inputs
+        del inputs
+    q, k, v, g, o, lse = main
+    shape = shapes[0]
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
 
     def fwd_bwd(fn, xs, gx):
         return lambda: torch.autograd.grad(fn(*xs), xs, gx)
 
-    kernel_ms = cuda_ms(fwd_bwd(wrapper, leaves, g), iters=5)
+    earlier = functools.partial(fa.KernelAttention.apply,
+                                functools.partial(fa._launch, name))
+    # autograd's host time for a forward + backward (~0.3-0.4 ms) exceeds
+    # K1's device time: a ~30 ms sleep keeps all 10 calls' enqueue within it
+    long_sleep = 60_000_000
+    kernel_ms = cuda_ms(fwd_bwd(wrapper, leaves, g), iters=10,
+                        sleep_cycles=long_sleep)
+    backward_ms = cuda_ms(lambda: fa.attention_backward(
+        name, q, k, v, o, lse, g), iters=10, sleep_cycles=long_sleep)
+    earlier_ms = cuda_ms(fwd_bwd(earlier, leaves, g), iters=3, warmup=1)
+    plain = [x.clone().requires_grad_(True) for x in (q, k, v)]
     plain_ms = cuda_ms(fwd_bwd(fa.attention_plain, plain, g), iters=3,
                        warmup=1)
+    plain_bwd_ms = cuda_ms(lambda: fa.attention_backward_plain(
+        q, k, v, o, lse, g), iters=3, warmup=1)
     tr = [x.detach().transpose(1, 2).contiguous().requires_grad_(True)
           for x in (q, k, v)]
-    library_ms = cuda_ms(fwd_bwd(F.scaled_dot_product_attention, tr,
-                                 g.transpose(1, 2).contiguous()), iters=5)
-    # the bound of forward + backward, as phase 9's f32 one: three times
-    # the forward's products, the forward's exp2, twice its bytes
-    fwd = fa.attention_bound(*shape)
+    gt = g.transpose(1, 2).contiguous()
+    library_ms = cuda_ms(fwd_bwd(F.scaled_dot_product_attention, tr, gt),
+                         iters=10, sleep_cycles=long_sleep)
+    out_t = F.scaled_dot_product_attention(*tr)
+    library_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+        out_t, tr, gt, retain_graph=True), iters=10, sleep_cycles=long_sleep)
+    del out_t
+    fwd = fa.attention_bound(*shape, sm_clock_hz=sm_clock_hz)
     parts = {"operations": max(3 * fwd["tensor_core_ms"], fwd["exp2_ms"]),
              "bytes": 2 * fwd["bytes_ms"]}
     by = max(parts, key=parts.get)
-    return {"train_shape": list(shape), "grad_bit_equal": equal,
-            "grad_max_diff_of_peak": max(diffs),
-            "train_err_of_limit": ratios, "fwd_bwd_ms": kernel_ms,
-            "plain_fwd_bwd_ms": plain_ms, "library_fwd_bwd_ms": library_ms,
-            "fwd_bwd_bound_ms": parts[by], "fwd_bwd_bound_by": by}
+    bwd = fa.attention_backward_bound(*shape, sm_clock_hz=sm_clock_hz)
+    fields = {"train_shape": list(shape), "fwd_bwd_ms": kernel_ms, "backward_ms": backward_ms,
+              "earlier_fwd_bwd_ms": earlier_ms, "plain_fwd_bwd_ms": plain_ms,
+              "library_fwd_bwd_ms": library_ms,
+              "fwd_bwd_bound_ms": parts[by], "fwd_bwd_bound_by": by,
+              "fwd_bwd_vs_library": kernel_ms / library_ms,
+              "earlier_over_kernel_fwd_bwd": earlier_ms / kernel_ms}
+    entry = {"name": f"attention_backward_{name}", "route": "cuda",
+             "dtype": "bfloat16",
+             "source": f"echoscene_torch/csrc/{fa.SOURCE_BWD}",
+             "replaces": BWD_REPLACES, "launches": None,
+             "max_abs_err": checks[0]["max_abs_err"], "ms": backward_ms,
+             "plain_ms": plain_bwd_ms, "bound_ms": bwd["ms"],
+             "bound_by": bwd["bound_by"], "library_ms": library_bwd_ms,
+             "earlier_ms": earlier_ms, "shape": list(shape),
+             "bound_detail": {key: bwd[key] for key in (
+                 "by", "tensor_core_ms", "exp2_ms", "bytes_ms")},
+             "tflops": bwd["flops"] / backward_ms * 1e-9,
+             "share_of_bound": bwd["ms"] / backward_ms,
+             "vs_library": backward_ms / library_bwd_ms,
+             "checks": checks,
+             "what": f"dq, dk, dv of {name} (bf16): the delta pre-pass, the "
+                     "key-parallel dK / dV pass and the query-parallel dQ "
+                     "pass; earlier_ms is the earlier design's backward, "
+                     "the plain recompute differentiated (its forward "
+                     "included)"}
+    return fields, entry
 
 
 def check_chamfer_kernel(shapes, ragged_shape):
@@ -1408,12 +1548,15 @@ def trainer_steps(sg, state, card: str, steps: int = 2) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(fa.LAUNCHES)
+        backward = dict(fa.BACKWARD_LAUNCHES)
         with open(os.path.join(exp, "loss_log.txt")) as f:
             lines = f.read().splitlines()
     want = {"onepass_attention": 10 * steps, "stream_attention": steps}
-    if state.step - first != steps or launches != want:
+    want_bwd = {("onepass_attention", "bfloat16"): 5 * steps}
+    if state.step - first != steps or launches != want or backward != want_bwd:
         fail(f"Trainer.train took {state.step - first} steps and launched "
-             f"{launches}, want {steps} steps and {want}")
+             f"{launches} forward and {backward} backward kernels, want "
+             f"{steps} steps, {want} and {want_bwd}")
     losses = [float(x) for line in lines
               for x in re.findall(r"(?:box|shape) (\S+?)[,.] ", line)]
     if len(lines) != steps or len(losses) != 2 * steps or not all(
@@ -1424,7 +1567,44 @@ def trainer_steps(sg, state, card: str, steps: int = 2) -> dict:
           f"collated), launches {json.dumps(launches)}; log: {lines} "
           f"[{card}]")
     return {"steps": steps, "wall_s": wall, "launches": launches,
-            "log": lines}
+            "backward_launches": 5 * steps, "log": lines}
+
+
+def earlier_backward_step(step, device, wall_ms: float = 1.0) -> dict:
+    """One call of `step` with the bf16 attention backward of the earlier
+    design (the forward kernel, then KernelAttention's plain recompute
+    differentiated: `_kernel_attention` routed as f32 is), one warm call and
+    one under the profiler; the route is restored after.  Returns
+    `profile_call`'s numbers, the wall ms of the timed call and the peak
+    memory of the warm one."""
+    import functools
+
+    import torch
+    from echoscene_torch.benchmarks import profile_call
+    from echoscene_torch.kernels import flash_attention as fa
+
+    route = fa._kernel_attention
+    fa._kernel_attention = lambda entry, q, k, v: fa._differentiable(
+        functools.partial(fa._launch, entry), q, k, v)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launches()
+        step()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        if fa.BACKWARD_LAUNCHES:
+            fail(f"the earlier design's step launched the backward kernel "
+                 f"{fa.BACKWARD_LAUNCHES}")
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        out = profile_call(step, device, wall)
+    finally:
+        fa._kernel_attention = route
+    out.update(wall_ms=wall, peak_gib=peak / 2**30)
+    return out
 
 
 def train_path(sg, card: str) -> dict:
@@ -1459,13 +1639,16 @@ def train_path(sg, card: str) -> dict:
     k = 8
     sps, step_s, losses = time_train_step(sg, state, batch, 8, k=k)
     launches = dict(fa.LAUNCHES)
+    backward = dict(fa.BACKWARD_LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     want = {"onepass_attention": 10 * (k + 1),
             "stream_attention": 1 * (k + 1)}
-    if launches != want:
-        fail(f"training launched {launches} in {k + 1} steps, want {want} "
-             "(K1: 5 sites forward + 5 in the remat recompute; K2: one "
-             "encoder chunk of 8 rows)")
+    want_bwd = {("onepass_attention", "bfloat16"): 5 * (k + 1)}
+    if launches != want or backward != want_bwd:
+        fail(f"training launched {launches} forward and {backward} backward "
+             f"kernels in {k + 1} steps, want {want} (K1: 5 sites forward + "
+             "5 in the remat recompute; K2: one encoder chunk of 8 rows, no "
+             f"gradient) and {want_bwd} (K1: one backward a site)")
     if not bool(torch.isfinite(losses).all()):
         fail(f"training losses not finite: {losses.tolist()}")
     moved = {}
@@ -1495,6 +1678,10 @@ def train_path(sg, card: str) -> dict:
     torch.cuda.synchronize()
     busy = profile_call(one_step, sg.device,
                         (time.perf_counter() - t0) * 1e3)
+    # the same step with the earlier design's backward (the plain recompute
+    # differentiated, as every bf16 backward ran before the backward
+    # kernel), one warm step and one under the profiler
+    earlier = earlier_backward_step(one_step, sg.device)
 
     # the step in its parts, as train_step runs them: the forward and the
     # losses, the backward, the optimizer (clip, NaN zeroing, AdamW); one
@@ -1573,9 +1760,12 @@ def train_path(sg, card: str) -> dict:
     torch.cuda.synchronize()
     peak64 = torch.cuda.max_memory_allocated()
     launches64 = dict(fa.LAUNCHES)
-    if launches64 != {"onepass_attention": 10, "stream_attention": 8}:
-        fail(f"the diffusion_bs 64 step launched {launches64}, want K1 10 "
-             "and K2 8 (eight encoder chunks of 8)")
+    backward64 = dict(fa.BACKWARD_LAUNCHES)
+    if (launches64 != {"onepass_attention": 10, "stream_attention": 8}
+            or backward64 != {("onepass_attention", "bfloat16"): 5}):
+        fail(f"the diffusion_bs 64 step launched {launches64} forward and "
+             f"{backward64} backward kernels, want K1 10 and K2 8 (eight "
+             "encoder chunks of 8) and the K1 backward 5")
     if not bool(torch.isfinite(loss64)):
         fail("the diffusion_bs 64 step's loss is not finite")
     del batch64
@@ -1595,19 +1785,23 @@ def train_path(sg, card: str) -> dict:
         f32_ms = (time.perf_counter() - t0) * 1e3
         peak32 = torch.cuda.max_memory_allocated()
         launches32 = dict(fa.LAUNCHES_BY_DTYPE)
+        backward32 = dict(fa.BACKWARD_LAUNCHES)
     finally:
         cfg.compute_dtype = "bfloat16"
     if launches32 != {("onepass_attention", "float32"): 10,
-                      ("stream_attention", "float32"): 1}:
-        fail(f"the f32 training step launched {launches32}, want K1 10 and "
-             "K2 1, all f32")
+                      ("stream_attention", "float32"): 1} or backward32:
+        fail(f"the f32 training step launched {launches32} forward and "
+             f"{backward32} backward kernels, want K1 10 and K2 1, all f32, "
+             "and no backward kernel (f32 takes the plain recompute)")
     if not bool(torch.isfinite(loss32)):
         fail("the f32 training step's loss is not finite")
     return {"scenes_per_sec": sps, "ms_per_step": step_s * 1e3,
             "losses": losses.tolist(), "launches": launches,
-            "steps": k + 1, "peak_gib": peak / 2**30,
+            "backward_launches_per_step": 5, "steps": k + 1,
+            "peak_gib": peak / 2**30,
             "busy_share": busy["busy_share"],
             "step_device_ms": busy["device_ms"],
+            "earlier_backward_step": earlier,
             "step_wall_ms": busy["wall_ms"],
             "step_kernel_launches": busy["kernel_launches"],
             "step_parts": parts, "trainer": trainer,
@@ -1937,9 +2131,12 @@ def vq_train_path(card: str) -> dict:
         losses.append(logs["loss_total"].item())
     launches = dict(fa.LAUNCHES_BY_DTYPE)
     peak = torch.cuda.max_memory_allocated()
-    if launches != {("stream_attention", "float32"): 6}:
-        fail(f"3 f32 VQ-VAE steps launched {launches}, want K2 f32 6 (the "
-             "encoder's and the decoder's mid attention, each step)")
+    if launches != {("stream_attention", "float32"): 6} or \
+            fa.BACKWARD_LAUNCHES:
+        fail(f"3 f32 VQ-VAE steps launched {launches} forward and "
+             f"{fa.BACKWARD_LAUNCHES} backward kernels, want K2 f32 6 (the "
+             "encoder's and the decoder's mid attention, each step) and no "
+             "backward kernel")
     if not all(math.isfinite(x) for x in losses):
         fail(f"VQ-VAE losses not finite: {losses}")
     median = sorted(step_ms)[1]
@@ -1950,16 +2147,31 @@ def vq_train_path(card: str) -> dict:
     st16 = bf16.init(torch.Generator(device="cuda").manual_seed(0))
     bf16.train_step(st16, batches[0])
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     fa.reset_launches()
-    t0 = time.perf_counter()
-    loss16 = bf16.train_step(st16, batches[1])["loss_total"].item()
-    torch.cuda.synchronize()
-    bf16_ms = (time.perf_counter() - t0) * 1e3
+    bf16_all, losses16 = [], []
+    for i in range(3):
+        t0 = time.perf_counter()
+        losses16.append(bf16.train_step(st16, batches[1 + i])[
+            "loss_total"].item())
+        torch.cuda.synchronize()
+        bf16_all.append((time.perf_counter() - t0) * 1e3)
+    peak16 = torch.cuda.max_memory_allocated()
+    bf16_ms = sorted(bf16_all)[1]
     launches16 = dict(fa.LAUNCHES_BY_DTYPE)
-    if launches16 != {("stream_attention", "bfloat16"): 2}:
-        fail(f"the bf16 VQ-VAE step launched {launches16}, want K2 bf16 2")
-    if not math.isfinite(loss16):
-        fail("the bf16 VQ-VAE loss is not finite")
+    backward16 = dict(fa.BACKWARD_LAUNCHES)
+    if (launches16 != {("stream_attention", "bfloat16"): 6}
+            or backward16 != {("stream_attention", "bfloat16"): 6}):
+        fail(f"3 bf16 VQ-VAE steps launched {launches16} forward and "
+             f"{backward16} backward kernels, want K2 bf16 2 and its "
+             "backward 2 a step")
+    loss16 = losses16[-1]
+    if not all(math.isfinite(x) for x in losses16):
+        fail(f"the bf16 VQ-VAE losses are not finite: {losses16}")
+    busy16 = profile_call(lambda: bf16.train_step(st16, batches[4]),
+                          bf16.device, bf16_ms)
+    earlier16 = earlier_backward_step(
+        lambda: bf16.train_step(st16, batches[5]), bf16.device)
     master = next(st16.module.parameters())
     if master.dtype != torch.float32:
         fail("bf16 VQ-VAE training must keep f32 masters")
@@ -1982,6 +2194,12 @@ def vq_train_path(card: str) -> dict:
            "step_device_ms": busy["device_ms"],
            "step_kernel_launches": busy["kernel_launches"],
            "f32_launches_per_step": 2, "bf16_step_ms": bf16_ms,
+           "bf16_step_ms_all": bf16_all, "bf16_peak_gib": peak16 / 2**30,
+           "bf16_step_device_ms": busy16["device_ms"],
+           "bf16_busy_share": busy16["busy_share"],
+           "bf16_step_kernel_launches": busy16["kernel_launches"],
+           "bf16_backward_launches_per_step": 2,
+           "bf16_earlier_backward_step": earlier16,
            "bf16_loss": loss16, "eval_iou": iou, "eval_iou_std": iou_std,
            "eval_iou_s": iou_s, "eval_iou_launches": 2 * len(batches)}
     dev = ("not measured" if busy["device_ms"] is None else
@@ -1992,7 +2210,13 @@ def vq_train_path(card: str) -> dict:
           f"under the profiler: device {dev}, {busy['kernel_launches']} "
           f"kernel launches; K2 f32 "
           f"{launches[('stream_attention', 'float32')] // 3}"
-          f" a step; bf16 step {bf16_ms:.1f} ms (K2 bf16 2); eval_iou over "
+          f" a step; bf16 step {bf16_ms:.3f} ms (median of "
+          f"{', '.join(f'{x:.3f}' for x in bf16_all)}; K2 bf16 2 and its "
+          f"backward kernel 2 a step), peak memory {peak16 / 2**30:.2f} GiB,"
+          f" device {busy16['device_ms']} ms (busy share "
+          f"{busy16['busy_share']}), the earlier design's backward: "
+          f"{earlier16['wall_ms']:.3f} ms, device {earlier16['device_ms']} "
+          f"ms, peak {earlier16['peak_gib']:.2f} GiB; eval_iou over "
           f"64 grids {iou:.4f} +- {iou_std:.4f} in {iou_s:.2f} s [{card}]")
     return res, trainer, state
 
@@ -2021,8 +2245,11 @@ def check_k2_f32_backward(clock: float) -> dict:
     if type(out.grad_fn).__name__ != "KernelAttentionBackward":
         fail(f"K2 f32 output grad_fn {out.grad_fn}, want the Function")
     got = torch.autograd.grad(out, leaves, g)
-    if fa.LAUNCHES_BY_DTYPE != {("stream_attention", "float32"): 1}:
-        fail(f"K2 f32 forward + backward launched {fa.LAUNCHES_BY_DTYPE}")
+    if fa.LAUNCHES_BY_DTYPE != {("stream_attention", "float32"): 1} or \
+            fa.BACKWARD_LAUNCHES:
+        fail(f"K2 f32 forward + backward launched {fa.LAUNCHES_BY_DTYPE} "
+             f"forward and {fa.BACKWARD_LAUNCHES} backward kernels, want "
+             "one f32 forward and the plain recompute")
     ref = fa.attention_plain(q, k, v)
     ratios = fa.error_ratios(out.detach(), ref)
     if not max(ratios) <= 1.0:
@@ -2225,13 +2452,16 @@ def pipeline_path(sg, vq_trainer, vq_state, card: str) -> dict:
         torch.cuda.synchronize()
         res["cli_s"] = time.perf_counter() - t0
         launches = dict(fa.LAUNCHES_BY_DTYPE)
+        backward = dict(fa.BACKWARD_LAUNCHES)
         want = {("onepass_attention", "bfloat16"): 10 * steps + 5 * 20,
                 ("stream_attention", "bfloat16"): nodes // 8}
-        if state.step != steps or launches != want:
+        want_bwd = {("onepass_attention", "bfloat16"): 5 * steps}
+        if state.step != steps or launches != want or backward != want_bwd:
             fail(f"train.cli took {state.step} steps and launched "
-                 f"{launches}, want {steps} steps and {want} (K1 10 a step "
-                 "and 5 x 20 for the preview; K2 0 a step and one per "
-                 "decode chunk of the preview)")
+                 f"{launches} forward and {backward} backward kernels, want "
+                 f"{steps} steps, {want} (K1 10 a step and 5 x 20 for the "
+                 "preview; K2 0 a step and one per decode chunk of the "
+                 f"preview) and {want_bwd} (K1's backward 5 a step)")
         images = [(tag, shp, step) for tag, shp, step in writer.images]
         if images != [(f"gen_shape_{i}", (3, 256, 256), steps)
                       for i in range(2)]:
@@ -2264,10 +2494,13 @@ def pipeline_path(sg, vq_trainer, vq_state, card: str) -> dict:
     k = 8
     sps, step_s, losses = time_train_step(sg, state, batch, 8, k=k)
     launches = dict(fa.LAUNCHES)
+    backward = dict(fa.BACKWARD_LAUNCHES)
     if launches != {"onepass_attention": 10 * (k + 1),
-                    "stream_attention": 0}:
-        fail(f"the joint step from latents launched {launches} in {k + 1} "
-             "steps, want K1 10 and K2 0 a step")
+                    "stream_attention": 0} or backward != {
+                        ("onepass_attention", "bfloat16"): 5 * (k + 1)}:
+        fail(f"the joint step from latents launched {launches} forward and "
+             f"{backward} backward kernels in {k + 1} steps, want K1 10, K2 "
+             "0 and K1's backward 5 a step")
     if not bool(torch.isfinite(losses).all()):
         fail("the joint step from latents gave non-finite losses")
     gen = torch.Generator(device="cuda").manual_seed(29)
@@ -2634,13 +2867,17 @@ def dp_train_path(sg, card: str) -> dict:
                 metrics = step(state)
                 torch.cuda.synchronize()
                 launches = dict(fa.LAUNCHES)
+                backward = {f"{k[0]}/{k[1]}": c
+                            for k, c in fa.BACKWARD_LAUNCHES.items()}
                 peak = torch.cuda.max_memory_allocated()
                 after[name] = {k: v.detach().cpu().clone() for k, v in
                                sg.module.state_dict().items()}
                 if launches != {"onepass_attention": 10,
-                                "stream_attention": 1}:
-                    fail(f"the {name} step launched {launches}, want K1 10 "
-                         "and K2 1")
+                                "stream_attention": 1} or backward != {
+                                    "onepass_attention/bfloat16": 5}:
+                    fail(f"the {name} step launched {launches} forward and "
+                         f"{backward} backward kernels, want K1 10, K2 1 "
+                         "and K1's backward 5")
                 if not math.isfinite(float(metrics["loss"])):
                     fail(f"the {name} step's loss is not finite")
                 walls = []
@@ -2651,7 +2888,9 @@ def dp_train_path(sg, card: str) -> dict:
                     torch.cuda.synchronize()
                     walls.append((time.perf_counter() - t0) * 1e3)
                 runs[name] = {"loss": float(metrics["loss"]),
-                              "launches": launches, "peak_gib": peak / 2**30,
+                              "launches": launches,
+                              "backward_launches": backward,
+                              "peak_gib": peak / 2**30,
                               "ms": sorted(walls)[1], "ms_all": walls}
                 if name == "zero1":
                     z = state.optimizer
@@ -2793,6 +3032,14 @@ def dp_tiny_gloo(card: str) -> dict:
     jobs[1]["relu"] = {n: card_res[n]["relu_masks"] for n in names}
     cpu_res = run(jobs[1])
     seconds = time.perf_counter() - t0
+    # the tiny config's attention (64 tokens, f32) takes the einsum path:
+    # no attention kernel runs on the card's ranks
+    kernel_runs = {n: (card_res[n]["attention_launches"],
+                       card_res[n]["attention_backward_launches"])
+                   for n in names}
+    if any(a or b for a, b in kernel_runs.values()):
+        fail(f"the tiny dp runs launched attention kernels {kernel_runs}, "
+             "want none (64 tokens, f32)")
 
     worst, own = {}, {}
     for run_name in names:
@@ -3232,6 +3479,11 @@ def tp_tiny_gloo(card: str) -> dict:
     jobs[1]["relu"] = {"dp_tp": card_res["dp_tp"]["relu_masks"]}
     cpu_res = run_job(jobs[1], "gloo")
     seconds = time.perf_counter() - t0
+    kernel_runs = (card_res["dp_tp"]["attention_launches"],
+                   card_res["dp_tp"]["attention_backward_launches"])
+    if any(kernel_runs):
+        fail(f"the tiny dp x tp step launched attention kernels "
+             f"{kernel_runs}, want none (64 tokens, f32)")
     rel, of_part, bad = run_against(card_res["dp_tp"], cpu_res["dp_tp"])
     flips = cpu_res["dp_tp"]["relu_flips"]
     margin = cpu_res["dp_tp"]["relu_margin"]
@@ -3516,8 +3768,9 @@ def main() -> int:
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     # 1. build: one nvcc per source, all started together
-    sources = (fa.SOURCE, fa.SOURCE_F32, BASELINE_SOURCE, F32_SIMT_SOURCE,
-               k4.SOURCE, K4_DIRECT_SOURCE, q8.SOURCE, q8.EARLIER_SOURCE)
+    sources = (fa.SOURCE, fa.SOURCE_BWD, fa.SOURCE_F32, BASELINE_SOURCE,
+               F32_SIMT_SOURCE, k4.SOURCE, K4_DIRECT_SOURCE, q8.SOURCE,
+               q8.EARLIER_SOURCE)
     t0 = time.perf_counter()
     built = build.build_all(sources)
     for source in sources:
@@ -3533,6 +3786,10 @@ def main() -> int:
             elif ("registers" in line or "spill" in line
                   or "Performance Loss" in line):
                 print(f"      {line.strip()}")
+    # the backward kernel's instantiations must not spill
+    spills = re.findall(r"(\d+) bytes spill stores", built[fa.SOURCE_BWD][1])
+    if not spills or any(int(x) for x in spills):
+        fail(f"{fa.SOURCE_BWD}: spill stores {spills} in its ptxas report")
 
     # the main path's row count fixes K1's batch dimension
     rows = shape_row_capacity(synthetic_batch(), multiple=1)
@@ -3576,20 +3833,44 @@ def main() -> int:
           f"{tp_entry['bound_by']}); sdpa {tp_entry['library_ms']:.4f} ms, "
           f"plain {tp_entry['plain_ms']:.3f} ms; max abs err "
           f"{tp_entry['max_abs_err']:.3e} [{card}]")
-    # K1 / K2 at the training shapes, through the differentiable Function
-    for e, shape in zip(entries, (TRAIN_K1_SHAPE, TRAIN_K2_SHAPE)):
-        wrapper = getattr(fa, e["name"])
-        e.update(check_kernel_backward(e["name"], wrapper, shape))
-        print(f"kernel {e['name']} {shape} forward + backward (kernel forward,"
-              f" plain recompute backward): {e['fwd_bwd_ms']:.4f} ms, bound "
-              f"{e['fwd_bwd_bound_ms']:.4f} ms (by {e['fwd_bwd_bound_by']}); "
-              f"plain "
-              f"forward + backward {e['plain_fwd_bwd_ms']:.4f} ms; sdpa "
-              f"forward + backward {e['library_fwd_bwd_ms']:.4f} ms; dq, dk, "
-              f"dv vs plain autograd: bit-equal {e['grad_bit_equal']}, max "
-              f"diff {e['grad_max_diff_of_peak']:.3e} of the peak; forward "
-              f"max / mean err at {e['train_err_of_limit'][0]:.3f} / "
-              f"{e['train_err_of_limit'][1]:.3f} of their limits [{card}]")
+    # K1 / K2 at the training shapes, through the differentiable Function:
+    # the bf16 backward kernel
+    t0 = time.perf_counter()
+    bwd_entries = []
+    for e in entries:
+        fields, bwd = check_kernel_backward(
+            e["name"], getattr(fa, e["name"]), BWD_SHAPES[e["name"]], clock)
+        e.update(fields)
+        bwd_entries.append(bwd)
+        for c in bwd["checks"]:
+            r = c["grad_err_of_limit"]
+            print(f"kernel {bwd['name']} {c['shape']}: dq / dk / dv max err "
+                  f"at {r['dq'][0]:.3f} / {r['dk'][0]:.3f} / "
+                  f"{r['dv'][0]:.3f} and mean err at {r['dq'][1]:.3f} / "
+                  f"{r['dk'][1]:.3f} / {r['dv'][1]:.3f} of the bf16 limits "
+                  f"against plain autograd; max err against float64 "
+                  f"{json.dumps(c['grad_f64_max_err_vs_plain'])} x plain "
+                  f"autograd's; dq with 32 keys left out at "
+                  f"{c['dq_keys_dropped_err_of_limit'][0]:.1f} / "
+                  f"{c['dq_keys_dropped_err_of_limit'][1]:.1f}; two runs "
+                  f"bit-equal; lse within {c['lse_max_diff']:.2e} [{card}]")
+        d = bwd["bound_detail"]
+        print(f"kernel {e['name']} {e['train_shape']} forward + backward: "
+              f"{e['fwd_bwd_ms']:.4f} ms (backward kernel alone "
+              f"{bwd['ms']:.4f} ms, {bwd['tflops']:.1f} TFLOP/s, "
+              f"{bwd['share_of_bound']:.3f} of its bound {bwd['bound_ms']:.4f}"
+              f" ms by {d['by']}: tensor cores {d['tensor_core_ms']:.4f}, "
+              f"exp2 {d['exp2_ms']:.4f}, bytes {d['bytes_ms']:.4f}); bound "
+              f"of forward + backward {e['fwd_bwd_bound_ms']:.4f} ms (by "
+              f"{e['fwd_bwd_bound_by']}); earlier design (plain recompute "
+              f"backward) {e['earlier_fwd_bwd_ms']:.4f} ms "
+              f"({e['earlier_over_kernel_fwd_bwd']:.2f} x this); sdpa forward"
+              f" + backward {e['library_fwd_bwd_ms']:.4f} ms "
+              f"({e['fwd_bwd_vs_library']:.3f} x its time), its backward "
+              f"alone {bwd['library_ms']:.4f} ms; plain forward + backward "
+              f"{e['plain_fwd_bwd_ms']:.4f} ms, plain backward alone "
+              f"{bwd['plain_ms']:.4f} ms [{card}]")
+    print(f"backward kernel checks took {time.perf_counter() - t0:.1f} s")
     # K1 / K2 on f32 inputs (f32 sampling and training), the f32 kernel
     f32_entries = [
         check_kernel_f32("onepass_attention", fa.onepass_attention,
@@ -3755,6 +4036,17 @@ def main() -> int:
     for e in entries[:2]:
         e["train_launches"] = tr["launches"][e["name"]]
         e["train_launches_per_step"] = tr["launches"][e["name"]] // tr["steps"]
+    # the backward kernel's main path: phase 7's K1 (5 a step), phase 9's
+    # bf16 VQ-VAE step for K2 (2 a step, set below)
+    bwd_entries[0]["launches"] = tr["backward_launches_per_step"] * tr["steps"]
+    bwd_entries[0]["train_launches_per_step"] = tr[
+        "backward_launches_per_step"]
+    ea = tr["earlier_backward_step"]
+    print(f"training step with the earlier design's backward (plain "
+          f"recompute): {ea['wall_ms']:.3f} ms wall, device "
+          f"{ea['device_ms']} ms against {tr['step_device_ms']} ms with the "
+          f"backward kernel, peak memory {ea['peak_gib']:.2f} GiB, "
+          f"{ea['kernel_launches']} kernel launches [{card}]")
     print(f"training: {tr['scenes_per_sec']:.4f} train scenes/sec, "
           f"{tr['ms_per_step']:.3f} ms per step (8 scenes, diffusion_bs 8, "
           f"bf16, remat; 1 warm + 8 timed steps), peak memory "
@@ -3792,6 +4084,9 @@ def main() -> int:
     # background checkpoint saves at full width
     t0 = time.perf_counter()
     vq, vq_trainer, vq_state = vq_train_path(card)
+    bwd_entries[1]["launches"] = 3 * vq["bf16_backward_launches_per_step"]
+    bwd_entries[1]["vq_bf16_launches_per_step"] = vq[
+        "bf16_backward_launches_per_step"]
     k2_train = check_k2_f32_backward(clock)
     k2_train["launches"] = 3 * vq["f32_launches_per_step"]
     k2_train.update(launches_per_vq_step=vq["f32_launches_per_step"],
@@ -3868,6 +4163,11 @@ def main() -> int:
     # width over one NCCL rank, tiny ranks on gloo sharing the card, the
     # service over two shards of the card, the dry run
     dp = dp_path(sg, card, sv)
+    for e, b in zip(entries[:2], bwd_entries):
+        b["dp_train_launches_per_rank_step"] = dp["train"]["runs"]["dp"][
+            "backward_launches"].get(f"{e['name']}/bfloat16", 0)
+        b["zero1_train_launches_per_rank_step"] = dp["train"]["runs"][
+            "zero1"]["backward_launches"].get(f"{e['name']}/bfloat16", 0)
     for e in entries[:2]:
         e["dp_train_launches_per_rank_step"] = dp["train"]["runs"]["dp"][
             "launches"][e["name"]]
@@ -3899,6 +4199,7 @@ def main() -> int:
           f"{i8['phase_s']:.1f} s")
     entries.append(tp_entry)
     entries[2:2] = f32_entries + [k2_train]
+    entries[2:2] = bwd_entries
     for e in entries:
         e["status"] = "ported: built, matches its plain version, on the path"
     entries += int8_kernel_entries

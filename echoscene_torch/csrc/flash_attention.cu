@@ -48,7 +48,10 @@
 //     warpgroup's softmax overlaps the other's products.
 //   * Epilogue: O / l is packed to bf16 into the warpgroup's own half of the
 //     Q tile (same swizzle) and written by TMA stores, which skip rows past
-//     L and columns past D.
+//     L and columns past D.  When the caller passes an lse pointer (the
+//     training forward), each row's log-sum-exp in the log2 domain,
+//     m + log2(l) (m the scaled running max), is stored as f32 (B, H, L):
+//     the backward (csrc/flash_attention_bwd.cu) recomputes P from it.
 // Instantiated for D_pad = 64 (BLOCK_N 128, two Q buffers, 96 KB of shared
 // memory), 128 (BLOCK_N 128, two Q buffers, 192 KB) and 256 (BLOCK_N 80, one
 // Q buffer, 224 KB).  TMA needs 16-byte global strides, so D % 8 == 0; the
@@ -443,7 +446,8 @@ attention_kernel(const __grid_constant__ CUtensorMap tm_q,
                  const __grid_constant__ CUtensorMap tm_k,
                  const __grid_constant__ CUtensorMap tm_v,
                  const __grid_constant__ CUtensorMap tm_o, int H, int S,
-                 int n_q, int n_work, float scale_log2) {
+                 int n_q, int n_work, float scale_log2, int L,
+                 float* __restrict__ lse) {
   using T = Tiles<D_PAD, BLOCK_N, QBUF>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
@@ -664,8 +668,15 @@ attention_kernel(const __grid_constant__ CUtensorMap tm_q,
       for (int r = 0; r < 2; ++r) {
         l[r] += __shfl_xor_sync(0xffffffff, l[r], 1);
         l[r] += __shfl_xor_sync(0xffffffff, l[r], 2);
+        // every lane computes the value, one lane stores it: no divergent
+        // branch ahead of the aligned barriers and wgmmas that follow
+        const int row = q0 + 64 * wg + warp * 16 + g + 8 * r;
+        const float row_lse = m[r] + log2f(l[r]);
+        if (lse != nullptr && t == 0 && row < L)
+          lse[(static_cast<long>(b) * H + h) * L + row] = row_lse;
         l[r] = 1.0f / l[r];
       }
+      __syncwarp();
 #pragma unroll
       for (int j = 0; j < D_PAD / 8; ++j) {
 #pragma unroll
@@ -753,8 +764,9 @@ int num_sms(int dev) {
 }
 
 template <int D_PAD, int BLOCK_N, int QBUF>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
-           int L, int S, int D, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int H, int L, int S, int D, float scale,
+           cudaStream_t stream) {
   using T = Tiles<D_PAD, BLOCK_N, QBUF>;
   auto kernel = attention_kernel<D_PAD, BLOCK_N, QBUF>;
   int dev = 0;
@@ -781,21 +793,21 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
   const int grid = static_cast<int>(n_work < sms ? n_work : sms);
   kernel<<<grid, kThreads, T::kSmemAlloc, stream>>>(
       tq, tk, tv, to, H, S, n_q, static_cast<int>(n_work),
-      scale * 1.4426950408889634f);
+      scale * 1.4426950408889634f, L, lse);
   return static_cast<int>(cudaGetLastError());
 }
 
-int dispatch(const void* q, const void* k, const void* v, void* o, int B, int H,
-             int L, int S, int D, float scale, void* stream) {
+int dispatch(const void* q, const void* k, const void* v, void* o, float* lse,
+             int B, int H, int L, int S, int D, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D <= 0 || D % 8 != 0 || S <= 0 || L <= 0 || B <= 0 || H <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (D <= 64)
-    return launch<64, 128, 2>(q, k, v, o, B, H, L, S, D, scale, st);
+    return launch<64, 128, 2>(q, k, v, o, lse, B, H, L, S, D, scale, st);
   if (D <= 128)
-    return launch<128, 128, 2>(q, k, v, o, B, H, L, S, D, scale, st);
+    return launch<128, 128, 2>(q, k, v, o, lse, B, H, L, S, D, scale, st);
   if (D <= 256)
-    return launch<256, 80, 1>(q, k, v, o, B, H, L, S, D, scale, st);
+    return launch<256, 80, 1>(q, k, v, o, lse, B, H, L, S, D, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -807,14 +819,32 @@ extern "C" {
 int echoscene_onepass_attention(const void* q, const void* k, const void* v,
                                 void* o, int B, int H, int L, int S, int D,
                                 float scale, void* stream) {
-  return dispatch(q, k, v, o, B, H, L, S, D, scale, stream);
+  return dispatch(q, k, v, o, nullptr, B, H, L, S, D, scale, stream);
 }
 
 // Replaces _stream_kernel: the VQ-VAE's 4096-token single-head site.
 int echoscene_stream_attention(const void* q, const void* k, const void* v,
                                void* o, int B, int H, int L, int S, int D,
                                float scale, void* stream) {
-  return dispatch(q, k, v, o, B, H, L, S, D, scale, stream);
+  return dispatch(q, k, v, o, nullptr, B, H, L, S, D, scale, stream);
+}
+
+// The same two entries, with each row's log-sum-exp (log2 domain) written
+// to lse, f32 (B, H, L): the forward of a training step.
+int echoscene_onepass_attention_lse(const void* q, const void* k,
+                                    const void* v, void* o, void* lse, int B,
+                                    int H, int L, int S, int D, float scale,
+                                    void* stream) {
+  return dispatch(q, k, v, o, static_cast<float*>(lse), B, H, L, S, D, scale,
+                  stream);
+}
+
+int echoscene_stream_attention_lse(const void* q, const void* k,
+                                   const void* v, void* o, void* lse, int B,
+                                   int H, int L, int S, int D, float scale,
+                                   void* stream) {
+  return dispatch(q, k, v, o, static_cast<float*>(lse), B, H, L, S, D, scale,
+                  stream);
 }
 
 }  // extern "C"

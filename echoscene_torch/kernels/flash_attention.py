@@ -18,9 +18,14 @@ a_hi b_lo + a_hi b_hi) and is held to the f32 limits of `TOLERANCES`
 (see each source's header for the design and what bounds it on the H100).
 The f32 wrapper also allocates the kernel's scratch (`f32_scratch_floats`),
 where a pre-pass of the same call writes the split operands.
-They are differentiable as in JAX: the forward is the kernel, the backward
-recomputes the plain version and differentiates it (`KernelAttention`; JAX
-has no backward Pallas kernel either).
+They are differentiable through `KernelAttention`.  In bf16 the forward is
+the kernel with each row's log-sum-exp as a second output and the backward
+is the hand-written kernel of `csrc/flash_attention_bwd.cu`
+(`attention_backward`): dq, dk, dv of JAX's `_fa_bwd` (jax.vjp of the
+einsum reference; JAX has no backward Pallas kernel, XLA computes it),
+FlashAttention-2's algorithm, plain version `attention_backward_plain`.  In
+f32 the backward recomputes the plain version and differentiates it, the
+earlier design that bf16 also took before the backward kernel.
 On a CUDA tensor each wrapper launches its hand-written sm_90a kernel and
 raises on inputs the kernels do not take: a dtype other than bf16 or f32,
 q, k, v of different dtypes, layout, alignment, D > 256, D % 8 != 0 (the
@@ -33,12 +38,14 @@ time the H100 could take for a call, the yardstick chip_smoke.py holds the
 kernels to.
 
 `LAUNCHES` counts kernel launches per wrapper and `LAUNCHES_BY_DTYPE` the
-same launches by (wrapper, dtype name); a run resets both to read which
-kernels its main path went through.
+same launches by (wrapper, dtype name); `BACKWARD_LAUNCHES` counts the
+backward kernel's launches by (wrapper, dtype name); a run resets all three
+to read which kernels its main path went through.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 from typing import Dict, Optional, Tuple
 
@@ -48,10 +55,13 @@ from . import build
 
 SOURCE = "flash_attention.cu"            # bf16: TMA + wgmma
 SOURCE_F32 = "flash_attention_tf32x3.cu"  # f32: 3xTF32, TMA + wgmma
+SOURCE_BWD = "flash_attention_bwd.cu"     # bf16 backward: TMA + wgmma
 # the source and C-entry suffix of each dtype the kernels take
 KERNELS = {torch.bfloat16: (SOURCE, ""), torch.float32: (SOURCE_F32, "_f32")}
 LAUNCHES: Dict[str, int] = {"onepass_attention": 0, "stream_attention": 0}
 LAUNCHES_BY_DTYPE: Dict[Tuple[str, str], int] = {}
+BACKWARD_LAUNCHES: Dict[Tuple[str, str], int] = {}
+LOG2E = 1.4426950408889634
 MAX_HEAD_DIM = 256
 # error_ratios' limits by output dtype: (max err of the peak, mean err of
 # the mean magnitude)
@@ -113,11 +123,37 @@ def attention_bound(b: int, l: int, h: int, d: int, s: Optional[int] = None,
     return out
 
 
+def attention_backward_bound(b: int, l: int, h: int, d: int,
+                             s: Optional[int] = None,
+                             sm_clock_hz: float = MAX_SM_CLOCK_HZ) -> Dict:
+    """The least time one H100 could take for the bf16 backward (dq, dk, dv
+    from q, k, v, o, lse and do): the largest of its 5 products' 10 b h l s
+    d flops on the tensor cores (S recomputed, dP, dV, dQ, dK), its b h l s
+    exponentials on the SFU, and the bytes of reading q, k, v, o, do (bf16)
+    and lse (f32) once and writing dq, dk, dv (bf16) once.  Returns the
+    same keys as `attention_bound`."""
+    s = l if s is None else s
+    flops = 10 * b * h * l * s * d
+    exps = b * h * l * s
+    nbytes = 2 * (3 * b * l * h * d + 2 * b * s * h * d) + 4 * b * h * l + \
+        2 * (b * l * h * d + 2 * b * s * h * d)
+    times = {"tensor_core": flops / PEAK_BF16_FLOPS * 1e3,
+             "exp2": exps / (NUM_SMS * EXP2_PER_SM_CLOCK * sm_clock_hz) * 1e3,
+             "bytes": nbytes / PEAK_BYTES * 1e3}
+    by = max(times, key=times.get)
+    out = {"ms": times[by], "by": by,
+           "bound_by": "bytes" if by == "bytes" else "operations",
+           "flops": flops, "exps": exps, "bytes": nbytes}
+    out.update({f"{name}_ms": t for name, t in times.items()})
+    return out
+
+
 def reset_launches() -> None:
     with _lock:
         for name in LAUNCHES:
             LAUNCHES[name] = 0
         LAUNCHES_BY_DTYPE.clear()
+        BACKWARD_LAUNCHES.clear()
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -132,6 +168,54 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         scores = torch.where(mask, scores, torch.finfo(scores.dtype).min)
     p = torch.softmax(scores, dim=-1).to(v.dtype)
     return torch.einsum("bhls,bshd->blhd", p.float(), v.float()).to(q.dtype)
+
+
+def attention_plain_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`attention_plain` and each query row's log-sum-exp of the scaled
+    scores in the log2 domain, f32 (B, H, L): log2 sum_s 2^(s D^-1/2 log2 e),
+    what the bf16 forward kernel writes for the backward."""
+    d = q.shape[-1]
+    scores = torch.einsum("blhd,bshd->bhls", q.float(), k.float()) * d ** -0.5
+    return attention_plain(q, k, v), torch.logsumexp(scores, dim=-1) * LOG2E
+
+
+def attention_backward_plain(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, o: torch.Tensor,
+                             lse: torch.Tensor, do: torch.Tensor
+                             ) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """dq, dk, dv of attention for the upstream gradient `do`, by the
+    backward kernel's algorithm in f32: P = exp2(q k^T c - lse) with c =
+    D^-1/2 log2 e rounded to f32 as the kernel does, delta = rowsum(do * o),
+    dV = P^T do, dS = P (do v^T - delta), dq = dS k D^-1/2, dk = dS^T q
+    D^-1/2; P and dS are rounded to q's dtype as the operands of their
+    products, where the kernel rounds them to bf16.  o and lse are the
+    forward's (`attention_plain_lse`)."""
+    d = q.shape[-1]
+    scale = torch.tensor(d ** -0.5, dtype=torch.float32)
+    scale_log2 = (scale * torch.tensor(LOG2E, dtype=torch.float32)).item()
+    s = torch.einsum("blhd,bshd->bhls", q.float(), k.float())
+    p = torch.exp2(s * scale_log2 - lse.float()[..., None])
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2)
+    dv = torch.einsum("bhls,blhd->bshd", p.to(q.dtype).float(), do.float())
+    dp = torch.einsum("blhd,bshd->bhls", do.float(), v.float())
+    ds = (p * (dp - delta[..., None])).to(q.dtype).float()
+    dq = torch.einsum("bhls,bshd->blhd", ds, k.float()) * scale
+    dk = torch.einsum("bhls,blhd->bshd", ds, q.float()) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def attention_grads_float64(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, do: torch.Tensor):
+    """dq, dk, dv of softmax(q k^T D^-1/2) v in float64 from the same input
+    values, nothing rounded: the yardstick both the kernel's and the plain
+    path's gradient errors are measured against."""
+    leaves = [x.detach().double().requires_grad_(True) for x in (q, k, v)]
+    qd, kd, vd = leaves
+    scores = torch.einsum("blhd,bshd->bhls", qd, kd) * q.shape[-1] ** -0.5
+    out = torch.einsum("bhls,bshd->blhd", torch.softmax(scores, dim=-1), vd)
+    return torch.autograd.grad(out, leaves, do.double())
 
 
 def error_ratios(out: torch.Tensor, ref: torch.Tensor):
@@ -182,12 +266,15 @@ def f32_scratch_floats(b: int, h: int, d: int, s: int) -> int:
     return 2 * b * h * d * (s + s8)
 
 
-def _entry(entry: str, dtype: torch.dtype):
+def _entry(entry: str, dtype: torch.dtype, lse: bool = False):
     """The C function of `entry` for `dtype`, its ctypes signature bound
     once when its library loads: (q, k, v, o, B, H, L, S, D, scale,
-    stream), and for f32 a last pointer, the scratch."""
+    stream), and for f32 a last pointer, the scratch; with `lse` (bf16
+    only) the entry that also writes each row's log-sum-exp, (q, k, v, o,
+    lse, B, H, L, S, D, scale, stream)."""
+    key = (f"{entry}_lse" if lse else entry, dtype)
     with _lock:
-        fn = _entries.get((entry, dtype))
+        fn = _entries.get(key)
         if fn is None:
             source, suffix = KERNELS[dtype]
             lib = build.load(source)
@@ -198,14 +285,24 @@ def _entry(entry: str, dtype: torch.dtype):
                     ctypes.c_float, ctypes.c_void_p] + extra
                 f.restype = ctypes.c_int
                 _entries[(name, dtype)] = f
-            fn = _entries[(entry, dtype)]
+                if dtype == torch.bfloat16:
+                    f = getattr(lib, f"echoscene_{name}_lse")
+                    f.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+                        ctypes.c_float, ctypes.c_void_p]
+                    f.restype = ctypes.c_int
+                    _entries[(f"{name}_lse", dtype)] = f
+            fn = _entries[key]
         return fn
 
 
 def _launch(entry: str, q: torch.Tensor, k: torch.Tensor,
-            v: torch.Tensor) -> torch.Tensor:
+            v: torch.Tensor, lse: bool = False):
+    """o = the forward kernel of `entry` on q, k, v; with `lse` (bf16
+    only) (o, lse), lse each row's log-sum-exp, f32 (B, H, L)."""
     _check(q, k, v)
-    fn = _entry(entry, q.dtype)
+    if lse and q.dtype != torch.bfloat16:
+        raise TypeError(f"the log-sum-exp output is bf16 only, got {q.dtype}")
+    fn = _entry(entry, q.dtype, lse)
     b, l, h, d = q.shape
     o = torch.empty_like(q)
     extra = []
@@ -213,14 +310,79 @@ def _launch(entry: str, q: torch.Tensor, k: torch.Tensor,
         scratch = torch.empty(f32_scratch_floats(b, h, d, k.shape[1]),
                               dtype=torch.float32, device=q.device)
         extra = [scratch.data_ptr()]
+    lse_out = (torch.empty((b, h, l), dtype=torch.float32, device=q.device)
+               if lse else None)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 b, h, l, k.shape[1], d, d ** -0.5, stream, *extra)
+                 *([lse_out.data_ptr()] if lse else []), b, h, l,
+                 k.shape[1], d, d ** -0.5, stream, *extra)
     if err != 0:
         raise RuntimeError(f"{entry} kernel launch failed: CUDA error {err}")
     _count(entry, q.dtype)
-    return o
+    return (o, lse_out) if lse else o
+
+
+def _backward_entry():
+    """The backward kernel's C function, its ctypes signature bound once:
+    (q, k, v, o, do, lse, delta, dq, dk, dv, B, H, L, S, D, scale,
+    stream)."""
+    key = ("attention_backward", torch.bfloat16)
+    with _lock:
+        fn = _entries.get(key)
+        if fn is None:
+            fn = build.load(SOURCE_BWD).echoscene_attention_backward
+            fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [
+                ctypes.c_float, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            _entries[key] = fn
+        return fn
+
+
+def attention_backward(entry: str, q: torch.Tensor, k: torch.Tensor,
+                       v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
+                       do: torch.Tensor):
+    """dq, dk, dv of the bf16 attention whose forward (`entry`'s kernel)
+    gave o and lse, for the upstream gradient `do`.  CUDA: the sm_90a
+    backward kernel of `csrc/flash_attention_bwd.cu` (three launches: the
+    delta pre-pass, the key-parallel dK / dV pass, the query-parallel dQ
+    pass; no atomics), counted once in `BACKWARD_LAUNCHES`; it takes what
+    the forward takes and raises on anything else (do is made contiguous
+    first: autograd may hand it strided).  CPU: `attention_backward_plain`."""
+    if q.device.type == "cpu":
+        return attention_backward_plain(q, k, v, o, lse, do)
+    _check(q, k, v)
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"the backward kernel takes bfloat16, got {q.dtype}")
+    if not do.is_contiguous() or do.data_ptr() % 16:
+        do = do.clone(memory_format=torch.contiguous_format)
+    b, l, h, d = q.shape
+    for name, x, shape, dtype in (("o", o, q.shape, q.dtype),
+                                  ("do", do, q.shape, q.dtype),
+                                  ("lse", lse, (b, h, l), torch.float32)):
+        if (x.shape != shape or x.dtype != dtype or x.device != q.device
+                or not x.is_contiguous() or x.data_ptr() % 16):
+            raise ValueError(f"{name} must be a contiguous, 16-byte aligned "
+                             f"{dtype} {tuple(shape)} tensor on {q.device}, "
+                             f"got {x.dtype} {tuple(x.shape)} on {x.device}")
+    if b * h > 65535:
+        raise ValueError(f"B * H = {b * h} exceeds the backward kernel's "
+                         f"grid (65535)")
+    fn = _backward_entry()
+    delta = torch.empty((b, h, l), dtype=torch.float32, device=q.device)
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        err = fn(*(x.data_ptr() for x in (q, k, v, o, do, lse, delta, dq, dk,
+                                          dv)),
+                 b, h, l, k.shape[1], d, d ** -0.5, stream)
+    if err != 0:
+        raise RuntimeError(f"attention backward kernel launch failed: CUDA "
+                           f"error {err}")
+    key = (entry, str(q.dtype).removeprefix("torch."))
+    with _lock:
+        BACKWARD_LAUNCHES[key] = BACKWARD_LAUNCHES.get(key, 0) + 1
+    return dq, dk, dv
 
 
 def _count(entry: str, dtype: torch.dtype) -> None:
@@ -232,44 +394,66 @@ def _count(entry: str, dtype: torch.dtype) -> None:
 
 
 class KernelAttention(torch.autograd.Function):
-    """A forward-only attention kernel made differentiable, as JAX's
-    `custom_vjp` does (`_fa_fwd` / `_fa_bwd`, flash_attention.py:226-243):
-    the forward is `fwd(q, k, v)`, the kernel; the backward recomputes
-    `attention_plain` from the saved q, k, v and differentiates it.  `fwd`
-    is a parameter so that a CPU test can run the wiring with
-    `attention_plain` standing in for the kernel."""
+    """An attention kernel made differentiable, as JAX's `custom_vjp` does
+    (`_fa_fwd` / `_fa_bwd`, flash_attention.py:226-243).
+    `apply(fwd, q, k, v, bwd)`: the forward is `fwd(q, k, v) -> (o, lse)`,
+    the backward `bwd(q, k, v, o, lse, do) -> (dq, dk, dv)` from the saved
+    q, k, v, o and lse (the bf16 kernels).  `apply(fwd, q, k, v)`: the
+    forward is `fwd(q, k, v) -> o` and the backward recomputes
+    `attention_plain` from the saved q, k, v and differentiates it (f32, and
+    the earlier design of bf16).  `fwd` and `bwd` are parameters so that a
+    CPU test can run the wiring with the plain versions standing in for the
+    kernels, and chip_smoke.py can time the earlier design."""
 
     @staticmethod
-    def forward(ctx, fwd, q, k, v):
-        ctx.save_for_backward(q, k, v)
-        return fwd(q, k, v)
+    def forward(ctx, fwd, q, k, v, bwd=None):
+        ctx.bwd = bwd
+        if bwd is None:
+            ctx.save_for_backward(q, k, v)
+            return fwd(q, k, v)
+        o, lse = fwd(q, k, v)
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
 
     @staticmethod
     def backward(ctx, grad_out):
+        needs = ctx.needs_input_grad[1:4]
+        rest = (None,) * (len(ctx.needs_input_grad) - 4)
+        if ctx.bwd is not None:
+            grads = ctx.bwd(*ctx.saved_tensors, grad_out)
+            return (None, *(g if need else None
+                            for g, need in zip(grads, needs)), *rest)
         inputs = [x.detach().requires_grad_(need) for x, need in
-                  zip(ctx.saved_tensors, ctx.needs_input_grad[1:])]
+                  zip(ctx.saved_tensors, needs)]
         with torch.enable_grad():
             out = attention_plain(*inputs)
             wanted = [x for x in inputs if x.requires_grad]
             grads = iter(torch.autograd.grad(out, wanted, grad_out))
-        return (None,) + tuple(next(grads) if x.requires_grad else None
-                               for x in inputs)
+        return (None, *(next(grads) if x.requires_grad else None
+                        for x in inputs), *rest)
 
 
-def _differentiable(fwd, q, k, v) -> torch.Tensor:
-    """fwd(q, k, v), through `KernelAttention` when autograd records: no
-    Function (and no saved q, k, v) under torch.no_grad()."""
+def _differentiable(fwd, q, k, v, fwd_lse=None, bwd=None) -> torch.Tensor:
+    """fwd(q, k, v), through `KernelAttention` when autograd records: with
+    `bwd`, the Function of `fwd_lse` and `bwd`, else of `fwd` and the plain
+    recompute.  No Function (and nothing saved) under torch.no_grad()."""
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
-        return KernelAttention.apply(fwd, q, k, v)
+        if bwd is None:
+            return KernelAttention.apply(fwd, q, k, v)
+        return KernelAttention.apply(fwd_lse, q, k, v, bwd)
     return fwd(q, k, v)
 
 
-def _onepass_kernel(q, k, v):
-    return _launch("onepass_attention", q, k, v)
-
-
-def _stream_kernel(q, k, v):
-    return _launch("stream_attention", q, k, v)
+def _kernel_attention(entry: str, q, k, v) -> torch.Tensor:
+    """`entry`'s forward kernel, differentiable: bf16 through the
+    lse-writing forward and the backward kernel, other dtypes through the
+    plain recompute."""
+    fwd = functools.partial(_launch, entry)
+    if q.dtype != torch.bfloat16:
+        return _differentiable(fwd, q, k, v)
+    return _differentiable(fwd, q, k, v,
+                           functools.partial(_launch, entry, lse=True),
+                           functools.partial(attention_backward, entry))
 
 
 def onepass_attention(q: torch.Tensor, k: torch.Tensor,
@@ -279,7 +463,7 @@ def onepass_attention(q: torch.Tensor, k: torch.Tensor,
     `KernelAttention`); CPU: `attention_plain`."""
     if q.device.type == "cpu":
         return attention_plain(q, k, v)
-    return _differentiable(_onepass_kernel, q, k, v)
+    return _kernel_attention("onepass_attention", q, k, v)
 
 
 def stream_attention(q: torch.Tensor, k: torch.Tensor,
@@ -289,7 +473,7 @@ def stream_attention(q: torch.Tensor, k: torch.Tensor,
     `KernelAttention`); CPU: `attention_plain`."""
     if q.device.type == "cpu":
         return attention_plain(q, k, v)
-    return _differentiable(_stream_kernel, q, k, v)
+    return _kernel_attention("stream_attention", q, k, v)
 
 
 def kv_fits_onepass(s: int, d: int) -> bool:

@@ -35,8 +35,10 @@ deterministic algorithms; with
 with "relu" = {run name: those of every rank}, those branches forced
 (`ReluBranches`) — and rank 0 writes the parameters, batch-norm
 statistics, moments and metrics of every run (with the ReLU masks of
-every rank, and under forcing the flipped elements' count and margin),
-and the collectives gloo ran through host memory, to `out_path`.
+every rank, and under forcing the flipped elements' count and margin;
+and its own attention kernel launches over the run, forward and backward,
+by wrapper and dtype), and the collectives gloo ran through host memory,
+to `out_path`.
 `update_job` drives `zero1_update_shard` alone on a flat vector, as JAX's
 toy-tree harness does.
 """
@@ -189,6 +191,7 @@ def _snapshot(sg: SGDiff, state) -> dict:
 
 def train_job(rank: int, world: int, job_path: str, out_path: str) -> None:
     """Run a job's training runs on this rank (see the module docstring)."""
+    from ..kernels import flash_attention as fa
     from ..train.checkpoint import restore_checkpoint, save_checkpoint
 
     from .mesh import HOST_HOPS
@@ -222,6 +225,7 @@ def train_job(rank: int, world: int, job_path: str, out_path: str) -> None:
             branches = ReluBranches(sg.module,
                                     None if forced is None else forced[rank])
         at = run.get("resume_at")
+        fa.reset_launches()
         t0 = time.perf_counter()
         metrics = steps(sg, state, mode, shards[:at])
         res = {"first_s": time.perf_counter() - t0}
@@ -258,6 +262,12 @@ def train_job(rank: int, world: int, job_path: str, out_path: str) -> None:
         if branches is not None:
             branches.remove()
             _gather_branches(branches, res)
+        # this rank's attention kernel launches over the run's steps, by
+        # (wrapper, dtype): forward, and the bf16 backward kernel's
+        res["attention_launches"] = {
+            f"{n}/{d}": c for (n, d), c in fa.LAUNCHES_BY_DTYPE.items()}
+        res["attention_backward_launches"] = {
+            f"{n}/{d}": c for (n, d), c in fa.BACKWARD_LAUNCHES.items()}
         res.update(_snapshot(sg, state), metrics=metrics, step=state.step)
         results[run["name"]] = res
     results["host_hops"] = dict(HOST_HOPS)

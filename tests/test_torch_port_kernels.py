@@ -213,14 +213,21 @@ def test_cuda_attention_raises_on_inputs_it_does_not_take(entry):
 @pytest.mark.parametrize("entry,shape", [
     ("onepass_attention", (2, 333, 8, 56)),
     ("onepass_attention", (8, 1024, 8, 56)),    # the training step's K1
+    ("onepass_attention", (8, 1024, 4, 56)),    # ... at a tp rank's 4 heads
+    ("onepass_attention", (1, 200, 2, 128)),    # the D_pad 128 kernels
     ("stream_attention", (2, 77, 3, 200)),
     ("stream_attention", (8, 4096, 1, 256)),    # the VQ encoder's K2
 ])
 def test_cuda_kernel_gradients_match_plain_autograd(entry, shape):
     """The kernel's output carries the differentiable Function; its dq, dk,
-    dv (the plain version recomputed and differentiated) equal plain
-    autograd's from the same inputs and upstream gradient, and the backward
-    launches no kernel.  An f16 input raises."""
+    dv (the backward kernel of csrc/flash_attention_bwd.cu, one count in
+    BACKWARD_LAUNCHES) meet the bf16 limits of `error_ratios` against plain
+    autograd through `attention_plain` from the same inputs and upstream
+    gradient, their max error against float64 is within twice plain
+    autograd's, the same backward with the last 32 keys left out fails the
+    limits, and two runs are bit-equal.  The forward's lse matches
+    `attention_plain_lse`, and its output is bit-equal to the forward
+    without lse.  An f16 input raises."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -233,12 +240,29 @@ def test_cuda_kernel_gradients_match_plain_autograd(entry, shape):
     assert type(out.grad_fn).__name__ == "KernelAttentionBackward"
     got = torch.autograd.grad(out, leaves, g)
     assert port_fa.LAUNCHES[entry] == 1
+    assert port_fa.BACKWARD_LAUNCHES == {(entry, "bfloat16"): 1}
     plain = [x.clone().requires_grad_(True) for x in (q, k, v)]
     want = torch.autograd.grad(port_fa.attention_plain(*plain), plain, g)
-    for a, b in zip(got, want):
-        assert a.dtype == torch.bfloat16
-        assert ((a.float() - b.float()).abs().max()
-                <= 1e-6 * b.float().abs().max())
+    exact = port_fa.attention_grads_float64(q, k, v, g)
+    for a, b, e in zip(got, want, exact):
+        assert a.dtype == torch.bfloat16 and a.shape == b.shape
+        assert max(port_fa.error_ratios(a, b)) <= 1.0
+        assert ((a.double() - e).abs().max()
+                <= 2 * (b.double() - e).abs().max())
+    s = k.shape[1]
+    cut = [x.clone().requires_grad_(True) for x in (q, k[:, :s - 32],
+                                                    v[:, :s - 32])]
+    dropped = torch.autograd.grad(port_fa.attention_plain(*cut), cut, g)
+    ratios = [port_fa.error_ratios(x, y) for x, y in zip(
+        dropped, (want[0], want[1][:, :s - 32], want[2][:, :s - 32]))]
+    assert min(ratios[0]) > 1.0
+    again = torch.autograd.grad(fn(*leaves), leaves, g)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    o, lse = port_fa._launch(entry, q, k, v, lse=True)
+    ref_o, ref_lse = port_fa.attention_plain_lse(q, k, v)
+    assert lse.shape == ref_lse.shape and lse.dtype == torch.float32
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-4)
+    assert torch.equal(o, port_fa._launch(entry, q, k, v))
     with torch.no_grad():
         assert fn(q, k, v).grad_fn is None
     with pytest.raises(TypeError):
