@@ -48,8 +48,11 @@ result line):
        same inputs, same tolerance), SDPA in f32 with TF32 off, the plain
        version and the host time of one wrapper call;
      * K1 / K2 at the training step's shapes ((8, 1024, 8, 56), the VQ
-       encoder's (8, 4096, 1, 256)), a tp rank's (8, 1024, 4, 56) and the
-       ragged (2, 333, 8, 56) and (2, 77, 3, 200) through the
+       encoder's (8, 4096, 1, 256)), a tp rank's (8, 1024, 4, 56), the
+       ragged (2, 333, 8, 56) and (2, 77, 3, 200), a D_pad 128 shape
+       (1, 200, 2, 128), one with fewer backward tiles than SMs
+       (3, 301, 2, 256) and one whose tiles lie a few past a multiple of
+       132 (1, 250, 67, 56) through the
        differentiable Function, whose bf16 backward is the hand kernel of
        `csrc/flash_attention_bwd.cu` (no TPU counterpart: JAX's `_fa_bwd`
        is XLA): one forward and one backward launch; dq, dk, dv within the
@@ -61,9 +64,12 @@ result line):
        `attention_plain_lse` and its output bit-equal to the forward
        without lse; phase 1 fails if the backward's ptxas report shows a
        spill; times the kernel forward + backward, the backward kernel
-       alone, the earlier design (forward kernel + the plain recompute
-       differentiated), the plain forward + backward and backward alone,
-       SDPA's forward + backward and its backward alone, beside the bounds
+       alone beside its earlier design (`csrc/flash_attention_bwd_fa2.cu`,
+       `earlier_attention_backward`, in turns) and the host time of one
+       `attention_backward` call, the design before the backward kernel
+       (forward kernel + the plain recompute differentiated), the plain
+       forward + backward and backward alone, SDPA's forward + backward
+       and its backward alone, beside the bounds
        (`attention_backward_bound` for the backward alone);
      * Q1 / Q2 (the int8 W8A8 convolution, `csrc/int8_conv.cu`, hand
        kernels with no TPU counterpart) at each of the 33 distinct
@@ -302,10 +308,16 @@ RELU_MARGIN = 1e-4
 TRAIN_K1_SHAPE = (8, 1024, 8, 56)
 TRAIN_K2_SHAPE = (8, 4096, 1, 256)
 # the backward kernel's phase-2 shapes: the training shapes first, a tensor
-# parallel rank's 4 heads, ragged ones
+# parallel rank's 4 heads, ragged ones, then (backward_plan's tiles):
+# (1, 200, 2, 128) the D_pad 128 instantiation (8 tiles); (1, 250, 67, 56)
+# 67 (2 + 2) = 268 tiles = 2 x 132 + 4, so the persistent D_pad 64 launch's
+# first 4 CTAs take a third tile; (3, 301, 2, 256) 6 (5 + 5) = 60 tiles,
+# fewer than the SMs (L % 4 != 0 as well)
 BWD_SHAPES = {"onepass_attention": [TRAIN_K1_SHAPE, (8, 1024, 4, 56),
-                                    (2, 333, 8, 56)],
-              "stream_attention": [TRAIN_K2_SHAPE, (2, 77, 3, 200)]}
+                                    (2, 333, 8, 56), (1, 200, 2, 128),
+                                    (1, 250, 67, 56)],
+              "stream_attention": [TRAIN_K2_SHAPE, (2, 77, 3, 200),
+                                   (3, 301, 2, 256)]}
 VQ_BATCH = 8                 # VQ-VAE training batch (scripts/train_vqvae.py)
 VQ_GRAD_SHAPE = (8, 4096, 1, 256)   # K2 at the VQ-VAE's mid attention
 VQ_LEAF_RTOL = 1e-3          # tiny VQ-VAE step, each leaf of its own peak
@@ -857,9 +869,12 @@ def check_backward_at(name, wrapper, shape, seed):
 def check_kernel_backward(name, wrapper, shapes, sm_clock_hz):
     """Phase 2, training: `check_backward_at` at each of `shapes` (the
     training shape first), then at the training shape the times of the
-    kernel's forward + backward, the backward kernel alone, the earlier
-    design (the forward kernel, then KernelAttention's plain recompute
-    differentiated, as every bf16 backward ran before the backward kernel),
+    kernel's forward + backward, the backward kernel alone and its earlier
+    design (`earlier_attention_backward`, in turns: kernel, earlier,
+    earlier, kernel), the host time of one `attention_backward` call, the
+    design before the backward kernel (the forward kernel, then
+    KernelAttention's plain recompute differentiated, as every bf16
+    backward ran before the backward kernel),
     plain autograd's forward + backward, the plain backward alone
     (`attention_backward_plain`), SDPA's forward + backward and its backward
     alone, beside the bounds of forward + backward (three times the
@@ -893,8 +908,29 @@ def check_kernel_backward(name, wrapper, shapes, sm_clock_hz):
     long_sleep = 60_000_000
     kernel_ms = cuda_ms(fwd_bwd(wrapper, leaves, g), iters=10,
                         sleep_cycles=long_sleep)
-    backward_ms = cuda_ms(lambda: fa.attention_backward(
-        name, q, k, v, o, lse, g), iters=10, sleep_cycles=long_sleep)
+    designs = {"kernel": lambda: fa.attention_backward(
+        name, q, k, v, o, lse, g),
+               "earlier": lambda: fa.earlier_attention_backward(
+                   q, k, v, o, lse, g)}
+    got = designs["earlier"]()
+    want = fa.attention_backward(name, q, k, v, o, lse, g)
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        fail(f"{name} at {shape}: the earlier backward design's dq, dk, dv "
+             "differ from the kernel's (the same arithmetic in another "
+             "order of launches)")
+    turns = {"kernel": [], "earlier": []}
+    for design in ("kernel", "earlier", "earlier", "kernel"):
+        turns[design].append(cuda_ms(designs[design], iters=10,
+                                     sleep_cycles=long_sleep))
+    backward_ms, earlier_bwd_ms = (sum(turns[d]) / 2
+                                   for d in ("kernel", "earlier"))
+    # host time of one backward call: enqueue 10 calls without waiting
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        designs["kernel"]()
+    host_us = (time.perf_counter() - t0) / 10 * 1e6
+    torch.cuda.synchronize()
     earlier_ms = cuda_ms(fwd_bwd(earlier, leaves, g), iters=3, warmup=1)
     plain = [x.clone().requires_grad_(True) for x in (q, k, v)]
     plain_ms = cuda_ms(fwd_bwd(fa.attention_plain, plain, g), iters=3,
@@ -928,18 +964,28 @@ def check_kernel_backward(name, wrapper, shapes, sm_clock_hz):
              "max_abs_err": checks[0]["max_abs_err"], "ms": backward_ms,
              "plain_ms": plain_bwd_ms, "bound_ms": bwd["ms"],
              "bound_by": bwd["bound_by"], "library_ms": library_bwd_ms,
-             "earlier_ms": earlier_ms, "shape": list(shape),
+             "earlier_ms": earlier_ms, "earlier_backward_ms": earlier_bwd_ms,
+             "earlier_backward_source":
+                 f"echoscene_torch/csrc/{fa.SOURCE_BWD_EARLIER}",
+             "times_in_turns": turns, "host_us_per_call": host_us,
+             "shape": list(shape),
              "bound_detail": {key: bwd[key] for key in (
                  "by", "tensor_core_ms", "exp2_ms", "bytes_ms")},
              "tflops": bwd["flops"] / backward_ms * 1e-9,
              "share_of_bound": bwd["ms"] / backward_ms,
              "vs_library": backward_ms / library_bwd_ms,
+             "backward_vs_library": backward_ms / library_bwd_ms,
+             "plan": fa.backward_plan(*shape,
+                                      sms=fa._sm_count(q.device.index)),
              "checks": checks,
-             "what": f"dq, dk, dv of {name} (bf16): the delta pre-pass, the "
-                     "key-parallel dK / dV pass and the query-parallel dQ "
-                     "pass; earlier_ms is the earlier design's backward, "
-                     "the plain recompute differentiated (its forward "
-                     "included)"}
+             "what": f"dq, dk, dv of {name} (bf16): the delta pre-pass, then "
+                     "one launch of the key tiles' dK / dV and the query "
+                     "tiles' dQ (persistent at D_pad 64); "
+                     "earlier_backward_ms is the earlier design of the "
+                     "kernel (two launches, no turns), timed in turns with "
+                     "it; earlier_ms is the design before the backward "
+                     "kernel, the plain recompute differentiated (its "
+                     "forward included)"}
     return fields, entry
 
 
@@ -3768,9 +3814,9 @@ def main() -> int:
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     # 1. build: one nvcc per source, all started together
-    sources = (fa.SOURCE, fa.SOURCE_BWD, fa.SOURCE_F32, BASELINE_SOURCE,
-               F32_SIMT_SOURCE, k4.SOURCE, K4_DIRECT_SOURCE, q8.SOURCE,
-               q8.EARLIER_SOURCE)
+    sources = (fa.SOURCE, fa.SOURCE_BWD, fa.SOURCE_BWD_EARLIER, fa.SOURCE_F32,
+               BASELINE_SOURCE, F32_SIMT_SOURCE, k4.SOURCE, K4_DIRECT_SOURCE,
+               q8.SOURCE, q8.EARLIER_SOURCE)
     t0 = time.perf_counter()
     built = build.build_all(sources)
     for source in sources:
@@ -3867,7 +3913,13 @@ def main() -> int:
               f"({e['earlier_over_kernel_fwd_bwd']:.2f} x this); sdpa forward"
               f" + backward {e['library_fwd_bwd_ms']:.4f} ms "
               f"({e['fwd_bwd_vs_library']:.3f} x its time), its backward "
-              f"alone {bwd['library_ms']:.4f} ms; plain forward + backward "
+              f"alone {bwd['library_ms']:.4f} ms (the backward kernel "
+              f"{bwd['backward_vs_library']:.3f} x its time); the earlier "
+              f"backward kernel (two launches) {bwd['earlier_backward_ms']:.4f}"
+              f" ms ({bwd['earlier_backward_ms'] / bwd['ms']:.3f} x this), "
+              f"in turns {json.dumps(bwd['times_in_turns'])}; host "
+              f"{bwd['host_us_per_call']:.1f} us per attention_backward call;"
+              f" plain forward + backward "
               f"{e['plain_fwd_bwd_ms']:.4f} ms, plain backward alone "
               f"{bwd['plain_ms']:.4f} ms [{card}]")
     print(f"backward kernel checks took {time.perf_counter() - t0:.1f} s")

@@ -23,7 +23,8 @@ the kernel with each row's log-sum-exp as a second output and the backward
 is the hand-written kernel of `csrc/flash_attention_bwd.cu`
 (`attention_backward`): dq, dk, dv of JAX's `_fa_bwd` (jax.vjp of the
 einsum reference; JAX has no backward Pallas kernel, XLA computes it),
-FlashAttention-2's algorithm, plain version `attention_backward_plain`.  In
+FlashAttention-2's algorithm, plain version `attention_backward_plain`
+(`earlier_attention_backward` is its earlier design, which no path calls).  In
 f32 the backward recomputes the plain version and differentiates it, the
 earlier design that bf16 also took before the backward kernel.
 On a CUDA tensor each wrapper launches its hand-written sm_90a kernel and
@@ -56,6 +57,8 @@ from . import build
 SOURCE = "flash_attention.cu"            # bf16: TMA + wgmma
 SOURCE_F32 = "flash_attention_tf32x3.cu"  # f32: 3xTF32, TMA + wgmma
 SOURCE_BWD = "flash_attention_bwd.cu"     # bf16 backward: TMA + wgmma
+# the backward's earlier design (two launches, no turns), timed beside it
+SOURCE_BWD_EARLIER = "flash_attention_bwd_fa2.cu"
 # the source and C-entry suffix of each dtype the kernels take
 KERNELS = {torch.bfloat16: (SOURCE, ""), torch.float32: (SOURCE_F32, "_f32")}
 LAUNCHES: Dict[str, int] = {"onepass_attention": 0, "stream_attention": 0}
@@ -323,34 +326,84 @@ def _launch(entry: str, q: torch.Tensor, k: torch.Tensor,
     return (o, lse_out) if lse else o
 
 
-def _backward_entry():
+# the backward kernel's tiles: streamed rows a stage, and the resident rows
+# a CTA holds by padded head dim (csrc/flash_attention_bwd.cu, BwdTiles);
+# persistent at D_pad 64 only
+BWD_STREAMED_ROWS = 64
+BWD_RESIDENT_ROWS = {64: 128, 128: 128, 256: 64}
+BWD_PERSISTENT = (64,)
+
+
+def backward_plan(b: int, l: int, h: int, d: int, s: Optional[int] = None,
+                  sms: int = NUM_SMS) -> Dict:
+    """The backward kernel's launch for q (b, l, h, d) and k, v (b, s, h,
+    d) on a card of `sms` SMs: `tiles` = b h (kv_tiles + q_tiles), the key
+    tiles of every (b, h) first (the dK / dV pass: `rows` keys each, the
+    queries streamed `streamed_rows` at a time), then the query tiles (the
+    dQ pass, `rows` queries each, the keys streamed); one launch of `ctas`
+    CTAs, CTA c taking tiles c, c + ctas, ... (`backward_tile_order`):
+    min(tiles, sms) at D_pad 64, where the kernel is persistent, else one
+    a tile.  The C entry point rejects a plan whose `rows` or `ctas` do not
+    fit its source."""
+    s = l if s is None else s
+    d_pad = next(p for p in sorted(BWD_RESIDENT_ROWS) if d <= p)
+    rows = BWD_RESIDENT_ROWS[d_pad]
+    kv_tiles, q_tiles = -(-s // rows), -(-l // rows)
+    tiles = b * h * (kv_tiles + q_tiles)
+    return {"b": b, "h": h, "l": l, "s": s, "d_pad": d_pad, "rows": rows,
+            "streamed_rows": BWD_STREAMED_ROWS, "kv_tiles": kv_tiles,
+            "q_tiles": q_tiles, "tiles": tiles,
+            "ctas": min(tiles, sms) if d_pad in BWD_PERSISTENT else tiles}
+
+
+def backward_tile_order(plan: Dict):
+    """Each CTA's tiles of `plan`'s launch, in the order it takes them, as
+    (pass, b, h, tile): pass "kv" (tile t holds keys [t rows, (t + 1)
+    rows)) or "q" (queries), as the kernel decodes its tile index."""
+    b, h, kv_tiles = plan["b"], plan["h"], plan["kv_tiles"]
+
+    def tile(x):
+        if x < b * h * kv_tiles:
+            name, tiles = "kv", kv_tiles
+        else:
+            name, tiles, x = "q", plan["q_tiles"], x - b * h * kv_tiles
+        return name, x // tiles // h, x // tiles % h, x % tiles
+
+    return [[tile(x) for x in range(c, plan["tiles"], plan["ctas"])]
+            for c in range(plan["ctas"])]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _backward_entry(earlier: bool = False):
     """The backward kernel's C function, its ctypes signature bound once:
-    (q, k, v, o, do, lse, delta, dq, dk, dv, B, H, L, S, D, scale,
-    stream)."""
-    key = ("attention_backward", torch.bfloat16)
+    (q, k, v, o, do, lse, delta, dq, dk, dv, B, H, L, S, D, scale, rows,
+    ctas, stream); with `earlier`, the earlier design's (no rows, ctas)."""
+    key = ("attention_backward_fa2" if earlier else "attention_backward",
+           torch.bfloat16)
     with _lock:
         fn = _entries.get(key)
         if fn is None:
-            fn = build.load(SOURCE_BWD).echoscene_attention_backward
+            if earlier:
+                fn = build.load(SOURCE_BWD_EARLIER).\
+                    echoscene_attention_backward_fa2
+                plan_args = []
+            else:
+                fn = build.load(SOURCE_BWD).echoscene_attention_backward
+                plan_args = [ctypes.c_int, ctypes.c_long]
             fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [
-                ctypes.c_float, ctypes.c_void_p]
+                ctypes.c_float] + plan_args + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
             _entries[key] = fn
         return fn
 
 
-def attention_backward(entry: str, q: torch.Tensor, k: torch.Tensor,
-                       v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
-                       do: torch.Tensor):
-    """dq, dk, dv of the bf16 attention whose forward (`entry`'s kernel)
-    gave o and lse, for the upstream gradient `do`.  CUDA: the sm_90a
-    backward kernel of `csrc/flash_attention_bwd.cu` (three launches: the
-    delta pre-pass, the key-parallel dK / dV pass, the query-parallel dQ
-    pass; no atomics), counted once in `BACKWARD_LAUNCHES`; it takes what
-    the forward takes and raises on anything else (do is made contiguous
-    first: autograd may hand it strided).  CPU: `attention_backward_plain`."""
-    if q.device.type == "cpu":
-        return attention_backward_plain(q, k, v, o, lse, do)
+def _backward_launch(q, k, v, o, lse, do, earlier: bool = False):
+    """dq, dk, dv by the backward kernel (or its earlier design) after the
+    checks `attention_backward` documents."""
     _check(q, k, v)
     if q.dtype != torch.bfloat16:
         raise TypeError(f"the backward kernel takes bfloat16, got {q.dtype}")
@@ -367,22 +420,57 @@ def attention_backward(entry: str, q: torch.Tensor, k: torch.Tensor,
                              f"got {x.dtype} {tuple(x.shape)} on {x.device}")
     if b * h > 65535:
         raise ValueError(f"B * H = {b * h} exceeds the backward kernel's "
-                         f"grid (65535)")
-    fn = _backward_entry()
+                         f"limit (65535)")
+    fn = _backward_entry(earlier)
+    plan = []
+    if not earlier:
+        p = backward_plan(b, l, h, d, k.shape[1], _sm_count(q.device.index))
+        plan = [p["rows"], p["ctas"]]
     delta = torch.empty((b, h, l), dtype=torch.float32, device=q.device)
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         err = fn(*(x.data_ptr() for x in (q, k, v, o, do, lse, delta, dq, dk,
                                           dv)),
-                 b, h, l, k.shape[1], d, d ** -0.5, stream)
+                 b, h, l, k.shape[1], d, d ** -0.5, *plan, stream)
     if err != 0:
         raise RuntimeError(f"attention backward kernel launch failed: CUDA "
                            f"error {err}")
+    return dq, dk, dv
+
+
+def attention_backward(entry: str, q: torch.Tensor, k: torch.Tensor,
+                       v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
+                       do: torch.Tensor):
+    """dq, dk, dv of the bf16 attention whose forward (`entry`'s kernel)
+    gave o and lse, for the upstream gradient `do`.  CUDA: the sm_90a
+    backward kernel of `csrc/flash_attention_bwd.cu` (two launches: the
+    delta pre-pass, then one grid over the key tiles' dK / dV and the
+    query tiles' dQ, `backward_plan`; no atomics), counted once in
+    `BACKWARD_LAUNCHES`; it takes what the forward takes and raises on
+    anything else (do is made contiguous first: autograd may hand it
+    strided).  CPU: `attention_backward_plain`."""
+    if q.device.type == "cpu":
+        return attention_backward_plain(q, k, v, o, lse, do)
+    grads = _backward_launch(q, k, v, o, lse, do)
     key = (entry, str(q.dtype).removeprefix("torch."))
     with _lock:
         BACKWARD_LAUNCHES[key] = BACKWARD_LAUNCHES.get(key, 0) + 1
-    return dq, dk, dv
+    return grads
+
+
+def earlier_attention_backward(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, o: torch.Tensor,
+                               lse: torch.Tensor, do: torch.Tensor):
+    """`attention_backward` by the earlier design of
+    `csrc/flash_attention_bwd_fa2.cu` (three launches: the delta pre-pass,
+    a key-parallel dK / dV kernel, a query-parallel dQ kernel; 11 products
+    at D_pad 256), the same checks and raises, no launch count; CPU:
+    `attention_backward_plain`.  No path of the port calls it: chip_smoke.py
+    times it beside the kernel."""
+    if q.device.type == "cpu":
+        return attention_backward_plain(q, k, v, o, lse, do)
+    return _backward_launch(q, k, v, o, lse, do, earlier=True)
 
 
 def _count(entry: str, dtype: torch.dtype) -> None:

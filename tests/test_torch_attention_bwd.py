@@ -245,6 +245,88 @@ def test_cpu_backward_is_plain_and_counts_nothing():
     assert port_fa.LAUNCHES == {"onepass_attention": 0, "stream_attention": 0}
 
 
+def test_cpu_earlier_backward_is_plain_and_counts_nothing():
+    """The earlier design's wrapper takes the plain version on CPU tensors
+    and counts no launch, as `attention_backward` does."""
+    q, k, v, g = _torch(_inputs((1, 80, 3, 56), 48), torch.bfloat16)
+    o, lse = port_fa.attention_plain_lse(q, k, v)
+    port_fa.reset_launches()
+    got = port_fa.earlier_attention_backward(q, k, v, o, lse, g)
+    for x, y in zip(got, port_fa.attention_backward_plain(q, k, v, o, lse,
+                                                          g)):
+        assert torch.equal(x, y)
+    assert port_fa.BACKWARD_LAUNCHES == {}
+    assert port_fa.LAUNCHES == {"onepass_attention": 0, "stream_attention": 0}
+
+
+# (B, L, H, D) of chip_smoke.py's phase-2 backward shapes: the training
+# shapes, a tp rank's, the ragged ones, D_pad 128, 2 x 132 + 4 tiles, fewer
+# tiles than SMs; and L != S
+PLAN_SHAPES = [((8, 1024, 8, 56), None), ((8, 4096, 1, 256), None),
+               ((8, 1024, 4, 56), None), ((2, 333, 8, 56), None),
+               ((2, 77, 3, 200), None), ((1, 200, 2, 128), None),
+               ((1, 250, 67, 56), None), ((3, 301, 2, 256), None),
+               ((2, 64, 2, 24), 80), ((2, 72, 1, 200), 104)]
+
+
+@pytest.mark.parametrize("shape,s", PLAN_SHAPES)
+def test_backward_tile_order_takes_every_tile_once(shape, s):
+    """The backward launch's tiles: every (pass, b, h, tile) of the key
+    tiles (covering S) and query tiles (covering L) exactly once over the
+    CTAs, each CTA's walk strided by the grid, the key tiles first; one
+    CTA an SM (at most one a tile) where the kernel is persistent (D_pad
+    64), else one a tile."""
+    b, l, h, d = shape
+    s = l if s is None else s
+    plan = port_fa.backward_plan(b, l, h, d, s)
+    rows = plan["rows"]
+    assert rows == {64: 128, 128: 128, 256: 64}[plan["d_pad"]]
+    assert plan["d_pad"] >= d and plan["d_pad"] - d < 128
+    assert plan["kv_tiles"] * rows >= s > (plan["kv_tiles"] - 1) * rows
+    assert plan["q_tiles"] * rows >= l > (plan["q_tiles"] - 1) * rows
+    assert plan["ctas"] == (min(plan["tiles"], 132) if plan["d_pad"] == 64
+                            else plan["tiles"])
+    walks = port_fa.backward_tile_order(plan)
+    assert len(walks) == plan["ctas"]
+    flat = [x for walk in walks for x in walk]
+    want = {("kv", i, j, t) for i in range(b) for j in range(h)
+            for t in range(plan["kv_tiles"])} | {
+        ("q", i, j, t) for i in range(b) for j in range(h)
+        for t in range(plan["q_tiles"])}
+    assert len(flat) == len(set(flat)) == plan["tiles"] == len(want)
+    assert set(flat) == want
+    for walk in walks:
+        passes = [x[0] for x in walk]
+        assert passes == sorted(passes)   # "kv" before "q"
+    sizes = [len(w) for w in walks]
+    assert max(sizes) - min(sizes) <= 1
+
+
+def test_backward_plan_matches_the_kernel_source():
+    """`backward_plan`'s tile rows, streamed rows and persistent D_pad are
+    those of csrc/flash_attention_bwd.cu (the C entry point rejects a plan
+    that does not fit; this catches a drift on the CPU)."""
+    import os
+    import re
+
+    from echoscene_torch.kernels import build
+
+    with open(os.path.join(build.CSRC_DIR, port_fa.SOURCE_BWD)) as f:
+        src = f.read()
+    assert "constexpr int kBlockC = %d;" % port_fa.BWD_STREAMED_ROWS in src
+    assert re.search(r"kSplit = D_PAD == 256;", src)
+    assert re.search(r"kRows = kSplit \? 64 : 128;", src)
+    assert port_fa.BWD_RESIDENT_ROWS == {64: 128, 128: 128, 256: 64}
+    assert "kPersistent = D_PAD == 64;" in src
+    assert port_fa.BWD_PERSISTENT == (64,)
+    k1 = port_fa.backward_plan(8, 1024, 8, 56)
+    assert (k1["tiles"], k1["ctas"]) == (1024, 132)
+    k2 = port_fa.backward_plan(8, 4096, 1, 256)
+    assert (k2["tiles"], k2["ctas"]) == (1024, 1024)
+    assert port_fa.backward_plan(1, 250, 67, 56)["tiles"] == 2 * 132 + 4
+    assert port_fa.backward_plan(3, 301, 2, 256)["tiles"] == 60
+
+
 def test_attention_backward_bound_at_the_training_shapes():
     """The backward's bound: 5 products on the tensor cores at K1's and
     K2's training shapes (operations bind both), the exponentials and the

@@ -215,8 +215,12 @@ def test_cuda_attention_raises_on_inputs_it_does_not_take(entry):
     ("onepass_attention", (8, 1024, 8, 56)),    # the training step's K1
     ("onepass_attention", (8, 1024, 4, 56)),    # ... at a tp rank's 4 heads
     ("onepass_attention", (1, 200, 2, 128)),    # the D_pad 128 kernels
+    # the backward's tiles 2 x 132 + 4: the persistent CTAs take 2 or 3
+    ("onepass_attention", (1, 250, 67, 56)),
     ("stream_attention", (2, 77, 3, 200)),
     ("stream_attention", (8, 4096, 1, 256)),    # the VQ encoder's K2
+    # fewer backward tiles (60) than SMs, L % 4 != 0
+    ("stream_attention", (3, 301, 2, 256)),
 ])
 def test_cuda_kernel_gradients_match_plain_autograd(entry, shape):
     """The kernel's output carries the differentiable Function; its dq, dk,
@@ -267,6 +271,31 @@ def test_cuda_kernel_gradients_match_plain_autograd(entry, shape):
         assert fn(q, k, v).grad_fn is None
     with pytest.raises(TypeError):
         fn(*(x.half().requires_grad_(True) for x in (q, k, v)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 333, 8, 56), (1, 200, 2, 128),
+                                   (3, 301, 2, 256)])
+def test_cuda_earlier_backward_design_gives_the_kernels_bits(shape):
+    """`earlier_attention_backward` (csrc/flash_attention_bwd_fa2.cu, the
+    kernel's earlier design: the same arithmetic in other launches) gives
+    the backward kernel's dq, dk, dv bit for bit and counts no launch; a
+    raise on f16 as the kernel's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v, g = (torch.randn(shape, generator=gen, device="cuda").to(
+        torch.bfloat16) for _ in range(4))
+    o, lse = port_fa._launch("onepass_attention", q, k, v, lse=True)
+    want = port_fa.attention_backward("onepass_attention", q, k, v, o, lse,
+                                      g)
+    port_fa.reset_launches()
+    got = port_fa.earlier_attention_backward(q, k, v, o, lse, g)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert port_fa.BACKWARD_LAUNCHES == {}
+    with pytest.raises(TypeError):
+        port_fa.earlier_attention_backward(
+            *(x.half() for x in (q, k, v, o)), lse, g.half())
 
 
 @pytest.mark.cuda
