@@ -89,6 +89,24 @@ result line):
        library route of the same function, an im2col then torch._int_mm
        (cuBLASLt's int8 GEMM) timed together and _int_mm alone, none of
        which the port calls;
+     * Q1's two passes as two calls (`quantize_amax`, `quantize_with_amax`,
+       the form a tensor-parallel rank's row-split convolution takes) at
+       every torso input shape: the word equal to the plain one and the
+       int8 values and scale bit-equal to the fused Q1 and the plain
+       version; at each row-split site of the flagship (a ResBlock's
+       `out_layers.3`, 224, 448 and 672 channels), a tp rank's channel
+       shard (112 padded to 128, 224, 336 padded to 352) quantized with
+       the whole tensor's word, bit-equal to the plain version and to its
+       slice of the whole tensor's Q1; Q2's int32 epilogue
+       (`int8_conv3d_acc`) at that shard, the accumulators exactly equal to
+       the plain version's, and `dequantize` of them (torch ops) bit-equal
+       to Q2's fused epilogue; times of each of the split Q1's passes
+       alone (inputs from memory, not L2) and of both together, and of the
+       int32 Q2, beside their bounds, the plain versions (and
+       `quantize_amax` beside torch.linalg.vector_norm(x, inf)), the bf16 Q2 at the same
+       shape, the bf16 cuDNN F.conv3d and the im2col + _int_mm route (the
+       same int32 function); and a rank's column-split Q2 at K = 112 (half
+       of the 224-wide tile empty) beside the whole K = 224;
   3. check the port on the card against the port on the CPU: the tiny
      test configuration in f32 (same weights, same injected noise; max abs
      error <= 1e-4 on boxes and SDFs), one tiny-config f32 training step
@@ -224,19 +242,28 @@ result line):
      one call bit-equal to a single-device service's, K1 = 100 and K2 = 6
      a shard a call, 8 concurrent clients' p50 / p95 and requests/sec
      beside phase 8's; (d) `python -m echoscene_torch.parallel.dryrun
-     --n 1` on NCCL;
+     --n 1` on NCCL, in its own process beside (b);
  12. drive tensor parallelism on the one card: (a) one shape-denoiser
-     forward at full width on the flagship's step inputs, sampling twin
-     and f32 module, sharded over 2 gloo ranks sharing cuda:0, against the
-     single-device forward of a freshly seeded flagship (bf16 within 2^-4
-     of the peak and 2^-5 of the mean magnitude, f32 within 1e-4 of the
-     peak), 4 heads and K1 = 5 launches a forward per rank, ms per forward
-     per rank beside one device's (one card through host memory: not a
-     scaling number); (b) `python -m echoscene_torch.parallel.dryrun --n 4
-     --devices cuda:0,cuda:0,cuda:0,cuda:0` (a (2, 2) mesh), in its own
-     process beside (c); (c) the tiny
-     dp x tp step over 4 gloo ranks on cuda:0 against the same ranks on the
-     CPU forced down the card's ReLU branches (phase 3's limits on the loss
+     forward at full width on the flagship's step inputs, sampling twin,
+     f32 module and the int8 twin of `sample_dtype: int8`, sharded over 2
+     gloo ranks sharing cuda:0, against the single-device forward of a
+     freshly seeded flagship (bf16 within 2^-4 of the peak and 2^-5 of the
+     mean magnitude, f32 within 1e-4 of the peak, int8 within twice one
+     device's int8 twin's distance from its bf16 twin, in the max of the
+     peak and the mean of the mean magnitude: the int8 rule of
+     tests/test_torch_quant.py), 4 heads and K1 = 5 launches a forward
+     per rank, under int8 Q2 = 57 a forward per rank (the bf16 epilogue
+     and the int32 one together) with the split Q1 and the int32 Q2 once
+     per row-split site (`int8_conv.torso_conv_sites`' `row_split_calls`,
+     17), the int8 twin's first row-split `Int8Conv3d` (224 channels at
+     16^3) on each rank bit-equal to the unsharded one on the gathered
+     input and to the other rank's, ms per forward per rank beside one
+     device's (one card through host memory: not a scaling number); (b)
+     `python -m
+     echoscene_torch.parallel.dryrun --n 4 --devices
+     cuda:0,cuda:0,cuda:0,cuda:0` (a (2, 2) mesh), in its own process
+     beside (c); (c) the tiny dp x tp step over 4 gloo ranks on cuda:0
+     against the same ranks on the CPU forced down the card's ReLU branches (phase 3's limits on the loss
      and the first moments);
  13. drive bench.py's fast profile at full width: `build_flagship(
      fast_profile=True)`, int8 torso convolutions with DPM++ 50 layout / 20
@@ -269,7 +296,10 @@ end; `onepass_attention_tp_shard` is K1 at a tensor-parallel rank's 4
 heads, its launches phase 12 (a)'s per rank and forward; Q1 / Q2
 `quantize_act` / `int8_conv3d`, hand kernels with no TPU counterpart,
 their launches phase 13's generation, each with every torso shape and
-the per-step totals), the card's name
+the per-step totals; Q1's passes `quantize_amax` / `quantize_with_amax`
+and Q2's int32 form `int8_conv3d_acc` at a tp rank's row-split shapes,
+their launches phase 12 (a)'s int8 form per rank and forward), the card's
+name
 and power limit (nvidia-smi), and as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Needs one card; exits 2 without CUDA or without the repository beside it.
@@ -278,6 +308,7 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+import itertools
 import json
 import math
 import os
@@ -576,6 +607,16 @@ def check_int8_kernels(rows: int) -> dict:
         torch.cuda.synchronize()
         pq, ps = q8.quantize_plain(x)
         eq, es = q8.earlier_quantize_act(x)
+        word = q8.quantize_amax(x)
+        if not torch.equal(word, q8.quantize_amax_plain(x)):
+            fail(f"Q1's abs-max pass at {shape}: word "
+                 f"{word.view(torch.float32).item()!r}, plain "
+                 f"{q8.quantize_amax_plain(x).view(torch.float32).item()!r}")
+        sq, ss = q8.quantize_with_amax(x, word)
+        if not (torch.equal(sq, xq) and torch.equal(ss, xs)):
+            fail(f"Q1's two passes as two calls at {shape}: not bit-equal "
+                 f"to the fused Q1")
+        del word, sq, ss
         for design, (gq, gs) in (("", (xq, xs)), (" (earlier design)",
                                                   (eq, es))):
             if not (torch.equal(gq, pq) and torch.equal(gs, ps)):
@@ -714,6 +755,222 @@ def int8_entries(chk: dict) -> list:
             "shape": main["shape"], "per_step_totals": step,
             "per_shape": rows,
             "status": "hand kernel of the port, no TPU counterpart"})
+    return out
+
+
+def l2_rotation(t):
+    """A function that returns, call after call, the next of copies of `t`
+    that fill twice the card's L2 (at least two copies)."""
+    import torch
+    l2 = torch.cuda.get_device_properties(t.device).L2_cache_size
+    n = max(2, -(-2 * l2 // (t.numel() * t.element_size())) + 1)
+    copies = itertools.cycle([t.clone() for _ in range(n)])
+    return lambda: next(copies)
+
+
+def check_tp_int8_kernels(rows: int) -> dict:
+    """Phase 2 for tensor parallelism's int8 kernels at the flagship's
+    row-split sites (each ResBlock's `out_layers.3`, from
+    `int8_conv.torso_conv_sites`), on a rank's half of the input channels:
+    the split Q1 (`quantize_amax` of the whole tensor, then
+    `quantize_with_amax` of the shard, as the MAX over the group gives it)
+    bit-equal to the plain passes and to its slice of the whole tensor's
+    Q1; the int32 Q2 (`int8_conv3d_acc`) exactly equal to the plain
+    accumulators; `dequantize` of them bit-equal to the fused Q2; times of
+    each of the split Q1's passes alone (its input from memory, not L2:
+    `l2_rotation`) beside its own bound (`quantize_amax` also beside
+    `torch.linalg.vector_norm(x, inf)`, the same word in one PyTorch call)
+    and of both together, the int32 Q2 beside `int8_conv_bound`, the plain
+    versions, the bf16 Q2 at the same shape, the bf16 cuDNN F.conv3d and
+    the im2col + _int_mm route (the same int32 function, which the port
+    does not call).  Then a rank's column-split Q2 at K = 112 beside the
+    whole K = 224."""
+    import torch
+    import torch.nn.functional as F
+    from echoscene_torch.kernels import int8_conv as q8
+    from echoscene_torch.models.config import ShapeDenoiserConfig
+    from echoscene_torch.nn.quant import quantize_weight, weight_amax
+
+    sites, _ = q8.torso_conv_sites(ShapeDenoiserConfig(), rows)
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    q1_rows, q2_rows = [], []
+    for site in [s for s in sites if s["row_split_calls"]]:
+        full_shape, k, taps = site["x_shape"], site["k"], site["taps"]
+        c = full_shape[1]
+        half = c // 2
+        shape = (full_shape[0], half) + tuple(full_shape[2:])
+        x = (2 * torch.randn(full_shape, generator=gen,
+                             device="cuda")).to(torch.bfloat16)
+        shard = x[:, :half].contiguous()
+        own = q8.quantize_amax(shard)       # this rank's word, before the MAX
+        own_plain = q8.quantize_amax_plain(shard)
+        # max |x| in one PyTorch call (exact in any dtype)
+        library = torch.linalg.vector_norm(shard, float("inf"),
+                                           dtype=torch.float32).reshape(1)
+        word = q8.quantize_amax(x)          # the MAX over both shards
+        sq, ss = q8.quantize_with_amax(shard, word)
+        fq, fs = q8.quantize_plain(x)
+        pq, ps = q8.quantize_with_amax_plain(shard, word)
+        torch.cuda.synchronize()
+        if not (torch.equal(own, own_plain)
+                and torch.equal(library.view(torch.int32), own_plain)):
+            fail(f"Q1's abs-max pass at a rank's shard {shape}: word "
+                 f"{own.view(torch.float32).item()!r}, plain "
+                 f"{own_plain.view(torch.float32).item()!r}, vector_norm "
+                 f"{library.item()!r}")
+        if not (torch.equal(sq, pq) and torch.equal(ss, ps)
+                and torch.equal(ss, fs)
+                and torch.equal(sq[..., :half], fq[..., :half])):
+            fail(f"split Q1 at a rank's shard {shape} of {full_shape}: not "
+                 f"bit-equal to the plain passes or to the whole tensor's "
+                 f"slice")
+        # each pass alone, with its own bound: the abs-max reads x and
+        # writes one word; the quantize reads x and the word and writes q
+        # and the scale (`quantize_bound` counts the scale's 4 bytes).
+        # A shard (7-39 MB) fits in the card's L2, so each timed call
+        # takes the next of copies that fill twice the L2: its input comes
+        # from memory, as the bound assumes
+        nxt = l2_rotation(shard)
+        b_amax = q8.quantize_bound(shard.numel(), shard.element_size(), 0)
+        b_with = q8.quantize_bound(shard.numel(), shard.element_size(),
+                                   sq.numel() + 4)
+        both_b = q8.quantize_bound(2 * shard.numel(), shard.element_size(),
+                                   sq.numel() + 8)
+        q1_rows.append({
+            "shape": list(shape), "dtype": "bfloat16",
+            "whole_tensor": list(full_shape),
+            "calls_per_rank_step": site["row_split_calls"],
+            "amax": {
+                "ms": cuda_ms(lambda: q8.quantize_amax(nxt()), iters=10),
+                "plain_ms": cuda_ms(lambda: q8.quantize_amax_plain(nxt()),
+                                    iters=3, warmup=1),
+                "library_ms": cuda_ms(lambda: torch.linalg.vector_norm(
+                    nxt(), float("inf"), dtype=torch.float32), iters=10),
+                "bound_ms": b_amax["ms"], "bound_by": b_amax["bound_by"],
+                "max_abs_err": (own.view(torch.float32)
+                                - own_plain.view(torch.float32)
+                                ).abs().max().item()},
+            "with_amax": {
+                "ms": cuda_ms(lambda: q8.quantize_with_amax(nxt(), word),
+                              iters=10),
+                "plain_ms": cuda_ms(lambda: q8.quantize_with_amax_plain(
+                    nxt(), word), iters=3, warmup=1),
+                "bound_ms": b_with["ms"], "bound_by": b_with["bound_by"],
+                "max_abs_err": max((sq.int() - pq.int()).abs().max().item(),
+                                   (ss - ps).abs().max().item())},
+            "both_ms": cuda_ms(lambda: (lambda t: q8.quantize_with_amax(
+                t, q8.quantize_amax(t)))(nxt()), iters=10),
+            "both_bound_ms": both_b["ms"],
+            "fused_ms": cuda_ms(lambda: q8.quantize_act(nxt()), iters=10)})
+        del nxt
+        del x, fq
+        w_full = torch.randn((k, c) + taps, generator=gen,
+                             device="cuda") / math.sqrt(c * math.prod(taps))
+        w = w_full[:, :half].contiguous()
+        wq, ws = quantize_weight(w, weight_amax(w_full))
+        bias = 0.1 * torch.randn(k, generator=gen, device="cuda")
+        stride, pads = site["stride"], site["pads"]
+        acc = q8.int8_conv3d_acc(sq, wq, stride, pads)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = q8.int8_conv3d_acc_plain(sq, wq, stride, pads)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        if not torch.equal(acc, ref):
+            fail(f"int32 Q2 at a rank's shard {shape} -> {k}: "
+                 f"{int((acc != ref).sum())} accumulators differ from the "
+                 f"plain version")
+        fused = q8.int8_conv3d(sq, wq, ss, ws, bias, stride, pads)
+        deq = q8.dequantize(acc, ss, ws, bias)
+        torch.cuda.synchronize()
+        if not torch.equal(deq, fused):
+            fail(f"dequantize of the int32 Q2 at {shape} -> {k}: "
+                 f"{int((deq != fused).sum())} values differ from Q2's "
+                 f"fused epilogue")
+        ms = cuda_ms(lambda: q8.int8_conv3d_acc(sq, wq, stride, pads),
+                     iters=10)
+        bf16_q2_ms = cuda_ms(lambda: q8.int8_conv3d(sq, wq, ss, ws, bias,
+                                                    stride, pads), iters=10)
+        b2 = q8.int8_conv_bound(shape[0], shape[2:], half, sq.shape[-1], k,
+                                taps, tuple(acc.shape[2:]), False,
+                                out_bytes=4)
+        (pd0, pd1), (ph0, ph1), (pw0, pw1) = pads
+        xpad = F.pad(shard, (pw0, pw1, ph0, ph1, pd0, pd1))
+        wb = w.to(torch.bfloat16)
+        cudnn_ms = cuda_ms(lambda: F.conv3d(xpad, wb, stride=stride),
+                           iters=10)
+        del xpad
+        bmat = torch.zeros((math.prod(taps) * sq.shape[-1], k),
+                           dtype=torch.int8, device="cuda")
+        bmat[:] = wq.reshape(k, -1).t()
+        int_mm_route_ms = cuda_ms(lambda: torch._int_mm(im2col_int8(
+            sq, taps, stride, pads), bmat), iters=5)
+        del bmat
+        q2_rows.append({
+            "name": site["name"] + " (row split)", "shape": list(shape),
+            "cp": sq.shape[-1], "k": k, "taps": list(taps),
+            "calls_per_rank_step": site["row_split_calls"], "ms": ms,
+            "plain_ms": plain_s * 1e3, "bound_ms": b2["ms"],
+            "bound_by": b2["bound_by"], "share_of_bound": b2["ms"] / ms,
+            "bf16_q2_ms": bf16_q2_ms, "cudnn_bf16_ms": cudnn_ms,
+            "int_mm_route_ms": int_mm_route_ms,
+            "max_abs_err": (acc - ref).abs().max().item()})
+        del shard, sq, acc, ref, fused, deq
+    # a rank's column-split in_layers.2 at 224 -> 112: the N tile of 224
+    # half empty, beside the whole 224 -> 224 convolution
+    x = (2 * torch.randn((rows, 224, 16, 16, 16), generator=gen,
+                         device="cuda")).to(torch.bfloat16)
+    xq, xs = q8.quantize_act(x)
+    col = {}
+    for k in (112, 224):
+        wq, ws = quantize_weight(torch.randn((k, 224, 3, 3, 3),
+                                             generator=gen, device="cuda"))
+        bias = torch.zeros(k, device="cuda")
+        ms = cuda_ms(lambda: q8.int8_conv3d(xq, wq, xs, ws, bias), iters=10)
+        b = q8.int8_conv_bound(rows, (16, 16, 16), 224, 224, k, (3, 3, 3),
+                               (16, 16, 16), True)
+        col[k] = {"ms": ms, "bound_ms": b["ms"],
+                  "share_of_bound": b["ms"] / ms}
+    del x, xq
+    torch.cuda.empty_cache()
+    return {"q1": q1_rows, "q2": q2_rows, "column_split": col}
+
+
+def tp_int8_entries(chk: dict) -> list:
+    """The `kernels` entries of the split Q1's two passes and of the int32
+    Q2 at a tp rank's row-split shapes: the numbers of the 224-channel
+    site (16^3, a rank's 112 channels), every row-split shape under
+    `per_shape`; `launches` is filled from phase 12 (a)."""
+    q1 = chk["q1"][0]
+    q2 = chk["q2"][0]
+    base = {"route": "cuda", "dtype": "int8",
+            "source": "echoscene_torch/csrc/int8_conv.cu",
+            "replaces": INT8_REPLACES, "launches": None,
+            "status": "hand kernel of the port, no TPU counterpart"}
+    out = []
+    for name, key, what, lib in (
+            ("quantize_amax", "amax", "Q1's abs-max pass",
+             "torch.linalg.vector_norm(x, inf, dtype=float32)"),
+            ("quantize_with_amax", "with_amax", "Q1's quantize pass",
+             "none: no single PyTorch call computes it")):
+        p = q1[key]
+        out.append(dict(
+            base, name=name, max_abs_err=max(r[key]["max_abs_err"]
+                                             for r in chk["q1"]),
+            ms=p["ms"], plain_ms=p["plain_ms"], bound_ms=p["bound_ms"],
+            bound_by=p["bound_by"], library_ms=p.get("library_ms"),
+            library=lib, part=what, shape=q1["shape"],
+            both_passes_ms=q1["both_ms"],
+            both_passes_bound_ms=q1["both_bound_ms"],
+            fused_ms=q1["fused_ms"],
+            per_shape=[dict(r[key], shape=r["shape"]) for r in chk["q1"]]))
+    out.append(dict(
+        base, name="int8_conv3d_acc", max_abs_err=q2["max_abs_err"],
+        ms=q2["ms"], plain_ms=q2["plain_ms"], bound_ms=q2["bound_ms"],
+        bound_by=q2["bound_by"], library_ms=q2["int_mm_route_ms"],
+        library="im2col + torch._int_mm", bf16_q2_ms=q2["bf16_q2_ms"],
+        cudnn_bf16_ms=q2["cudnn_bf16_ms"], shape=q2["shape"],
+        per_shape=chk["q2"], column_split_k112=chk["column_split"]))
     return out
 
 
@@ -3257,37 +3514,63 @@ def dp_serve_path(sg, card: str, phase8: dict) -> dict:
     return res
 
 
-def dp_dryrun(card: str) -> dict:
-    """Phase 11 (d): `python -m echoscene_torch.parallel.dryrun --n 1` on
-    the card (NCCL), as a user runs it."""
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m",
-                           "echoscene_torch.parallel.dryrun", "--n", "1"],
-                          cwd=ROOT, capture_output=True, text=True,
-                          timeout=600)
+def dryrun_start(*args: str):
+    """`python -m echoscene_torch.parallel.dryrun` with `args`, as a user
+    runs it, started in the background beside a phase's tiny step (phase
+    11 (d): `--n 1` on NCCL; phase 12 (b): `--n 4 --devices
+    cuda:0,cuda:0,cuda:0,cuda:0`, 4 gloo ranks, a (2, 2) mesh), its output
+    in temporary files: (start time, process, args, stdout, stderr)."""
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen([sys.executable, "-m",
+                             "echoscene_torch.parallel.dryrun", *args],
+                            cwd=ROOT, stdout=out, stderr=err, text=True)
+    return time.perf_counter(), proc, args, out, err
+
+
+def dryrun_wait(started, card: str) -> dict:
+    """A dry run of `dryrun_start`, awaited: its exit code and its stage
+    lines."""
+    t0, proc, args, out, err = started
+    proc.wait(timeout=600)
     seconds = time.perf_counter() - t0
-    lines = [ln for ln in proc.stdout.splitlines()
+    out.seek(0)
+    err.seek(0)
+    lines = [ln for ln in out.read().splitlines()
              if ln.startswith("[dryrun]")]
+    cmd = " ".join(args)
     if proc.returncode != 0:
-        fail(f"parallel.dryrun --n 1 exited {proc.returncode}: "
-             f"{proc.stderr[-2000:]}")
+        fail(f"parallel.dryrun {cmd} exited {proc.returncode}: "
+             f"{err.read()[-2000:]}")
     for ln in lines:
         print(f"  {ln}")
-    print(f"parallel.dryrun --n 1 on NCCL: {seconds:.1f} s [{card}]")
+    print(f"parallel.dryrun {cmd}: {seconds:.1f} s, beside the phase's tiny "
+          f"step [{card}]")
     return {"seconds": seconds, "lines": lines}
 
 
+def stop(started) -> None:
+    """Stop a dry run of `dryrun_start` that is still running."""
+    if started[1].poll() is None:
+        started[1].kill()
+        started[1].wait()
+
+
 def dp_path(sg, card: str, phase8: dict) -> dict:
-    """Phase 11: data parallelism on the one card, (a) to (d); K4's count
+    """Phase 11: data parallelism on the one card, (a) to (d), (d) in its
+    own process beside (b) (the timed (a) and (c) run alone); K4's count
     over the whole phase (set to 0 before it, read after it)."""
     from echoscene_torch.kernels import chamfer as k4
 
     t0 = time.perf_counter()
     k4.reset_launches()
     out = {"train": dp_train_path(sg, card)}
-    out["gloo"] = dp_tiny_gloo(card)
+    started = dryrun_start("--n", "1")
+    try:
+        out["gloo"] = dp_tiny_gloo(card)
+        out["dryrun"] = dryrun_wait(started, card)
+    finally:
+        stop(started)
     out["serve"] = dp_serve_path(sg, card, phase8)
-    out["dryrun"] = dp_dryrun(card)
     out["k4_launches"] = k4.LAUNCHES["nn_distance"]
     out["phase_s"] = time.perf_counter() - t0
     return out
@@ -3296,6 +3579,13 @@ def dp_path(sg, card: str, phase8: dict) -> dict:
 BF16_TP_MAX = 2.0 ** -4       # phase 12 (a): bf16 tp vs one device, of peak
 BF16_TP_MEAN = 2.0 ** -5      # ... mean err of the mean magnitude
 F32_TP_MAX = 1e-4             # ... f32, of the peak
+# ... int8 vs one device's int8 twin, in units of that twin's own distance
+# from its bf16 twin: the repo's int8 rule (tests/test_torch_quant.py's
+# INT8_DRIFTS).  The tp path's bf16 rounding differs from one device's by
+# ~1% (the head split, the f32 sums of bf16 partials), and the per-tensor
+# int8 scales turn that into int8 noise of the int8 error's own size, as
+# they do between the port and JAX; the row split itself is exact (phase 2)
+INT8_TP_DRIFTS = 2.0
 
 
 def upsample_sites(rows: int, card: str) -> list:
@@ -3391,17 +3681,31 @@ def factored_twin_path(sg, batch, rows: int, card: str) -> dict:
 
 def tp_forward(sg, batch, rows: int, card: str) -> dict:
     """Phase 12 (a): one shape-denoiser forward at full width on the
-    flagship's step inputs, sampling twin and f32 module, over 2 gloo
-    ranks sharing cuda:0 (`dryrun.tp_forward_job`: each rank builds the
-    seeded flagship and shards it), against the single-device forward of
-    the phase-4 model: bf16 within BF16_TP_MAX of the peak and
-    BF16_TP_MEAN of the mean magnitude, f32 within F32_TP_MAX of the peak;
+    flagship's step inputs, sampling twin, f32 module and int8 twin, over
+    2 gloo ranks sharing cuda:0 (`dryrun.tp_forward_job`: each rank builds
+    the seeded flagship and shards it), against the single-device forward
+    of the same seeded flagship: bf16 within BF16_TP_MAX of the peak and
+    BF16_TP_MEAN of the mean magnitude, f32 within F32_TP_MAX of the peak,
+    int8 within INT8_TP_DRIFTS times the single-device int8 twin's distance
+    from the single-device bf16 twin (max of the peak, mean of the mean
+    magnitude; the ranks' own int8 twin's distance from their bf16 twin
+    printed beside it);
     each rank runs 4 heads a site and launches K1 5 times a forward (at
-    (rows, 1024, 4, 56)); ms per forward per rank beside one device's,
-    through host memory on one card: not a scaling number."""
+    (rows, 1024, 4, 56)); under int8, Q2 57 times a forward per rank (the
+    bf16 and the int32 epilogue together), the split Q1 and the int32 Q2
+    once per row-split site (`torso_conv_sites`' `row_split_calls`) and
+    the fused Q1 at the other Q1 sites; on each rank the int8 twin's first
+    row-split convolution (`dryrun.row_split_check`, on the input the
+    forward gave it) bit-equal to the unsharded Int8Conv3d on the gathered
+    input, and the ranks' outputs bit-equal (the collectives of the row
+    split held exact on the card, beside the end-to-end limit); ms per
+    forward per rank beside one device's, through host memory on one card:
+    not a scaling number."""
     import torch
     from echoscene_torch.benchmarks import part_calls
     from echoscene_torch.kernels import flash_attention as fa
+    from echoscene_torch.kernels import int8_conv as q8
+    from echoscene_torch.models.config import ShapeDenoiserConfig
     from echoscene_torch.parallel.dryrun import run_job, tp_forward_job
 
     single = {}
@@ -3410,20 +3714,25 @@ def tp_forward(sg, batch, rows: int, card: str) -> dict:
         x = calls["inputs"]
         args = [x[k] for k in ("z", "t", "obj_embed", "triples", "obj_mask",
                                "triple_mask")]
+        sg.cfg.sample_dtype = "int8"
+        int8_twin = sg.inference_module()
+        sg.cfg.sample_dtype = "bfloat16"
         for form, fn in (("bf16", calls["shape_step"]),
-                         ("f32", lambda: sg.module.eval().shape_eps(*args))):
+                         ("f32", lambda: sg.module.eval().shape_eps(*args)),
+                         ("int8", lambda: int8_twin.shape_eps(*args))):
             torch.cuda.synchronize()
             fa.reset_launches()
+            q8.reset_launches()
             y = fn()
             torch.cuda.synchronize()
-            launches = dict(fa.LAUNCHES)
+            launches = dict(fa.LAUNCHES, **q8.LAUNCHES)
             t0 = time.perf_counter()
             for _ in range(3):
                 fn()
             torch.cuda.synchronize()
             single[form] = {"out": y.float().cpu(), "launches": launches,
                             "ms": (time.perf_counter() - t0) * 1e3 / 3}
-    del calls
+    del calls, int8_twin
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     res = run_job({"devices": ["cuda:0", "cuda:0"], "iters": 1,
@@ -3433,14 +3742,40 @@ def tp_forward(sg, batch, rows: int, card: str) -> dict:
     out = {"seconds": seconds, "ranks": res["ranks"], "errors": {},
            "single_ms": {f: single[f]["ms"] for f in single},
            "single_launches": {f: single[f]["launches"] for f in single}}
+    sites, q1_calls = q8.torso_conv_sites(ShapeDenoiserConfig(), rows)
+    q2_calls = sum(s["calls"] for s in sites)
+    split = sum(s["row_split_calls"] for s in sites)
+    first_split = next(s for s in sites if s["row_split_calls"])
+    want_int8 = {"int8_conv3d": q2_calls - split, "int8_conv3d_acc": split,
+                 "quantize_act": q1_calls - split, "quantize_amax": split,
+                 "quantize_with_amax": split}
+    out["int8_launches_wanted_per_rank"] = want_int8
+    if single["int8"]["launches"]["int8_conv3d"] != q2_calls:
+        fail(f"the single-device int8 twin launched Q2 "
+             f"{single['int8']['launches']['int8_conv3d']} times, want "
+             f"{q2_calls}")
     for rank in res["ranks"]:
         if rank["heads"] != [4]:
             fail(f"a tp rank's attention runs {rank['heads']} heads, want 4")
-        for form in ("bf16", "f32"):
+        for form in ("bf16", "f32", "int8"):
             got = rank[f"{form}_launches"]["onepass_attention"]
             if got != 5:
                 fail(f"K1 launched {got} times in a tp rank's {form} "
                      f"forward, want 5")
+        got = {k: rank["int8_launches"][k] for k in want_int8}
+        q2 = got["int8_conv3d"] + got["int8_conv3d_acc"]
+        if got != want_int8 or q2 != q2_calls:
+            fail(f"a tp rank's int8 forward launched {got} (Q2 {q2}), want "
+                 f"{want_int8} (Q2 {q2_calls}, {split} row-split sites)")
+        chk = rank["row_split_check"]
+        if chk["whole_x_shape"] != list(first_split["x_shape"]):
+            fail(f"the row-split check ran at {chk}, want the first "
+                 f"row-split site {first_split['x_shape']}")
+        if not (chk["bit_equal_to_unsharded"] and chk["ranks_bit_equal"]):
+            fail(f"the row-split Int8Conv3d at {chk['site']} on the card: "
+                 f"{chk['differing']} outputs differ from the unsharded "
+                 f"Int8Conv3d on the gathered input, ranks bit-equal "
+                 f"{chk['ranks_bit_equal']}")
     for form, (lim_max, lim_mean) in (("bf16", (BF16_TP_MAX, BF16_TP_MEAN)),
                                       ("f32", (F32_TP_MAX, None))):
         a, b = res["outputs"][form], single[form]["out"]
@@ -3453,50 +3788,41 @@ def tp_forward(sg, batch, rows: int, card: str) -> dict:
             fail(f"tp {form} shape step vs one device: max err {err:.3e} of "
                  f"the peak (limit {lim_max}), mean err {mean:.3e} of the "
                  f"mean magnitude (limit {lim_mean})")
+    # int8: the tp ranks' distance from one device's int8 twin against one
+    # device's int8 twin's own distance from its bf16 twin
+    dist = lambda a, b: {"max_of_peak": ((a - b).abs().max()
+                                         / b.abs().max()).item(),
+                         "mean_of_mean": ((a - b).abs().mean()
+                                          / b.abs().mean()).item()}
+    a, b = res["outputs"]["int8"], single["int8"]["out"]
+    if not bool(torch.isfinite(a).all()):
+        fail("the tp int8 forward is not finite")
+    out["errors"]["int8"] = dist(a, b)
+    out["errors"]["int8_single_vs_bf16_single"] = drift = dist(
+        b, single["bf16"]["out"])
+    out["errors"]["int8_tp_vs_bf16_tp"] = dist(a, res["outputs"]["bf16"])
+    if not all(out["errors"]["int8"][m] <= INT8_TP_DRIFTS * drift[m]
+               for m in drift):
+        fail(f"tp int8 shape step vs one device's int8 twin "
+             f"{out['errors']['int8']}: farther than {INT8_TP_DRIFTS} times "
+             f"one device's int8 twin's distance from its bf16 twin {drift}")
     r0 = res["ranks"][0]
     print(f"tp shape step at full width, 2 gloo ranks sharing cuda:0 (one "
           f"card through host memory, not a scaling number): bf16 "
           f"{r0['bf16_ms']:.3f} / {res['ranks'][1]['bf16_ms']:.3f} ms a "
           f"forward per rank against {single['bf16']['ms']:.3f} ms on one "
           f"device; f32 {r0['f32_ms']:.3f} / {res['ranks'][1]['f32_ms']:.3f}"
-          f" against {single['f32']['ms']:.3f}; K1 5 a forward per rank at "
-          f"({rows}, 1024, 4, 56); vs one device {json.dumps(out['errors'])};"
-          f" {seconds:.1f} s with the ranks' start [{card}]")
+          f" against {single['f32']['ms']:.3f}; int8 {r0['int8_ms']:.3f} / "
+          f"{res['ranks'][1]['int8_ms']:.3f} against "
+          f"{single['int8']['ms']:.3f}; K1 5 a forward per rank at "
+          f"({rows}, 1024, 4, 56); int8 launches a forward per rank "
+          f"{json.dumps(want_int8)}; the row-split Int8Conv3d at "
+          f"{r0['row_split_check']['site']} (a rank's "
+          f"{r0['row_split_check']['x_shape']}) bit-equal to the unsharded "
+          f"one and between the ranks; vs one device "
+          f"{json.dumps(out['errors'])}; {seconds:.1f} s with the ranks' "
+          f"start [{card}]")
     return out
-
-
-def tp_dryrun_start():
-    """Phase 12 (b), started: `python -m echoscene_torch.parallel.dryrun
-    --n 4 --devices cuda:0,cuda:0,cuda:0,cuda:0` (4 gloo ranks on the card,
-    a (2, 2) mesh, as a user runs it) in the background, its output in
-    temporary files; (start time, process, stdout file, stderr file)."""
-    import tempfile
-    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
-    proc = subprocess.Popen([sys.executable, "-m",
-                             "echoscene_torch.parallel.dryrun", "--n", "4",
-                             "--devices", ",".join(["cuda:0"] * 4)],
-                            cwd=ROOT, stdout=out, stderr=err, text=True)
-    return time.perf_counter(), proc, out, err
-
-
-def tp_dryrun(started, card: str) -> dict:
-    """Phase 12 (b), awaited: the dry run's exit code and its stage
-    lines."""
-    t0, proc, out, err = started
-    proc.wait(timeout=600)
-    seconds = time.perf_counter() - t0
-    out.seek(0)
-    err.seek(0)
-    lines = [ln for ln in out.read().splitlines()
-             if ln.startswith("[dryrun]")]
-    if proc.returncode != 0:
-        fail(f"parallel.dryrun --n 4 on cuda:0 exited {proc.returncode}: "
-             f"{err.read()[-2000:]}")
-    for ln in lines:
-        print(f"  {ln}")
-    print(f"parallel.dryrun --n 4, 4 gloo ranks on cuda:0 (mesh 2 x 2): "
-          f"{seconds:.1f} s, beside (c) [{card}]")
-    return {"seconds": seconds, "lines": lines}
 
 
 def tp_tiny_gloo(card: str) -> dict:
@@ -3565,14 +3891,13 @@ def tp_path(rows: int, card: str) -> dict:
     out = {"forward": tp_forward(ref, batch, rows, card)}
     del ref
     torch.cuda.empty_cache()
-    started = tp_dryrun_start()
+    started = dryrun_start("--n", "4", "--devices",
+                           ",".join(["cuda:0"] * 4))
     try:
         out["tiny"] = tp_tiny_gloo(card)
-        out["dryrun"] = tp_dryrun(started, card)
+        out["dryrun"] = dryrun_wait(started, card)
     finally:
-        if started[1].poll() is None:
-            started[1].kill()
-            started[1].wait()
+        stop(started)
     out["phase_s"] = time.perf_counter() - t0
     return out
 
@@ -3634,7 +3959,10 @@ def int8_path(card: str, sites: dict) -> dict:
     want = {"onepass_attention": 5 * steps,
             "stream_attention": math.ceil(rows / 8),
             "quantize_act": sites["q1_calls_per_step"] * steps,
-            "int8_conv3d": sites["q2_calls_per_step"] * steps}
+            "int8_conv3d": sites["q2_calls_per_step"] * steps,
+            # one device: no row-split convolution
+            "quantize_amax": 0, "quantize_with_amax": 0,
+            "int8_conv3d_acc": 0}
     if got != want:
         fail(f"int8 fast profile launched {got}, want {want}")
     n = batch.num_nodes
@@ -3736,7 +4064,9 @@ def int8_path(card: str, sites: dict) -> dict:
     want = {"onepass_attention": 5 * steps * nd,
             "stream_attention": sum(math.ceil(r / 8) for r in dispatch_rows),
             "quantize_act": sites["q1_calls_per_step"] * steps * nd,
-            "int8_conv3d": sites["q2_calls_per_step"] * steps * nd}
+            "int8_conv3d": sites["q2_calls_per_step"] * steps * nd,
+            "quantize_amax": 0, "quantize_with_amax": 0,
+            "int8_conv3d_acc": 0}
     results = stream["results"]
     if not nd or got != want:
         fail(f"int8 service: {nd} dispatches at rows {dispatch_rows} "
@@ -3999,6 +4329,38 @@ def main() -> int:
     for e in int8_kernel_entries:
         print(f"kernel {e['name']} per shape step (the torso's shapes x "
               f"their calls): {json.dumps(e['per_step_totals'])} [{card}]")
+    tpchk = check_tp_int8_kernels(rows)
+    tp_int8_kernel_entries = tp_int8_entries(tpchk)
+    for r in tpchk["q1"]:
+        a, w = r["amax"], r["with_amax"]
+        print(f"kernel quantize_amax at a tp rank's shard {r['shape']} of "
+              f"{r['whole_tensor']}: {a['ms']:.4f} ms, bound "
+              f"{a['bound_ms']:.4f} ms (bytes), share "
+              f"{a['bound_ms'] / a['ms']:.3f}; vector_norm(inf) "
+              f"{a['library_ms']:.4f} ms; plain {a['plain_ms']:.3f} ms; "
+              f"quantize_with_amax {w['ms']:.4f} ms, bound "
+              f"{w['bound_ms']:.4f} ms, share {w['bound_ms'] / w['ms']:.3f}; "
+              f"plain {w['plain_ms']:.3f} ms; both passes {r['both_ms']:.4f}"
+              f" ms (fused Q1 on the shard {r['fused_ms']:.4f}); "
+              f"{r['calls_per_rank_step']} a rank's shape step; bit-equal "
+              f"[{card}]")
+    for r in tpchk["q2"]:
+        print(f"kernel int8_conv3d_acc {r['name']} {r['shape']} (Cp "
+              f"{r['cp']}) -> {r['k']}: {r['ms']:.4f} ms, "
+              f"{r['share_of_bound']:.3f} of the bound {r['bound_ms']:.4f} "
+              f"ms (by {r['bound_by']}); bf16 Q2 at the same shape "
+              f"{r['bf16_q2_ms']:.4f} ms; cuDNN bf16 {r['cudnn_bf16_ms']:.4f}"
+              f" ms; im2col + _int_mm {r['int_mm_route_ms']:.4f} ms; plain "
+              f"{r['plain_ms']:.2f} ms; {r['calls_per_rank_step']} a rank's "
+              f"shape step; exact, dequantize bit-equal to the fused "
+              f"epilogue [{card}]")
+    col = tpchk["column_split"]
+    print(f"kernel int8_conv3d, a tp rank's column split 224 -> 112 at "
+          f"16^3: {col[112]['ms']:.4f} ms ({col[112]['share_of_bound']:.3f}"
+          f" of its bound) against the whole 224 -> 224 "
+          f"{col[224]['ms']:.4f} ms ({col[224]['share_of_bound']:.3f}): "
+          f"{col[112]['ms'] / col[224]['ms']:.3f} of the time for half the "
+          f"work [{card}]")
     print(f"int8 kernel checks took {time.perf_counter() - t0:.1f} s")
 
     # 3. the rest of the port on the card vs on the CPU
@@ -4238,6 +4600,10 @@ def main() -> int:
     tp_entry["launches_per_rank"] = [
         r["bf16_launches"]["onepass_attention"]
         for r in tp["forward"]["ranks"]]
+    for e in tp_int8_kernel_entries:
+        e["launches"] = tp["forward"]["ranks"][0]["int8_launches"][e["name"]]
+        e["launches_per_rank"] = [r["int8_launches"][e["name"]]
+                                  for r in tp["forward"]["ranks"]]
     print(f"tp details: {json.dumps(tp)}; phase 12 took "
           f"{tp['phase_s']:.1f} s")
     # 13. bench.py's fast profile: int8 torso, DPM++ 50 / 20, at full width
@@ -4254,7 +4620,7 @@ def main() -> int:
     entries[2:2] = bwd_entries
     for e in entries:
         e["status"] = "ported: built, matches its plain version, on the path"
-    entries += int8_kernel_entries
+    entries += int8_kernel_entries + tp_int8_kernel_entries
 
     print(f"chip_smoke: {time.perf_counter() - T_START:.1f} s in all")
     print(json.dumps({"kernels": entries}))

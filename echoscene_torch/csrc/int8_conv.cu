@@ -10,7 +10,10 @@
 // The first design of both kernels (mma.sync, cp.async, partial maxima)
 // lives on unchanged in int8_conv_mma.cu, on no path of the port.
 //
-// Q1, echoscene_quantize_act.  The per-tensor symmetric quantize of JAX's
+// Q1, echoscene_quantize_act (both passes), or its two passes as
+// echoscene_quantize_amax and echoscene_quantize_with_amax, so that a caller
+// can fold the amax word of several ranks' channel shards together (a MAX
+// all-reduce) before the quantize.  The per-tensor symmetric quantize of JAX's
 // quantize_symmetric(x, axes=None): amax = max |x| over the whole tensor,
 // scale = max(amax, eps) / 127, q = clip(round(x / scale), -127, 127), in
 // f32 with IEEE division and round-half-to-even (__fdiv_rn,
@@ -37,7 +40,11 @@
 // Q2, echoscene_int8_conv3d.  out[n, k, o] = f32(acc) * (x_scale *
 // w_scale[k]) (+ bias[k]) rounded to bf16, acc = the int32 sum over taps t
 // and channels c of xq[n, o * stride - pad_front + t, c] * wq[k, t, c]
-// (taps outside the input read zero).  Bound: operations, 2 M K taps C_in at
+// (taps outside the input read zero).  echoscene_int8_conv3d_acc writes acc
+// itself as int32 (the template flag kRaw), with no dequantize and no bias:
+// the partial sums of a convolution split on its input channels over the
+// ranks of a model group, summed exactly as int32 before one dequantize (they
+// reach ~2.9e8 at the flagship's widths, past f32's exact integers).  Bound: operations, 2 M K taps C_in at
 // 1,979 TOP/s (dense int8), or bytes on the small-channel convolutions.
 // Implicit GEMM on wgmma, warp-specialised, one CTA of three warpgroups an
 // output tile:
@@ -63,12 +70,13 @@
 //     group in flight while the previous stage is released.
 //   * Epilogue: the accumulators are dequantized exactly as the plain
 //     version does (__fmul_rn of the f32 accumulator by x_scale * w_scale[k],
-//     then __fadd_rn of the bias, then bf16 round-to-nearest; no FMA) into a
-//     channel-major bf16 tile in shared memory (the ring's), the output
-//     positions of the 128 rows decoded once a tile; then each 8-row run of a
-//     channel goes out as one 16-byte store where the output is dense along
-//     those rows (W innermost, channel-first), else element by element
-//     through the output's strides (the factored upsample's parity views).
+//     then __fadd_rn of the bias, then bf16 round-to-nearest; no FMA), or
+//     kept as int32 (kRaw), into a channel-major tile in shared memory (the
+//     ring's), the output positions of the 128 rows decoded once a tile; then
+//     each run of 16 bytes of a channel (8 bf16 or 4 int32 rows) goes out as
+//     one 16-byte store where the output is dense along those rows (W
+//     innermost, channel-first), else element by element through the
+//     output's strides (the factored upsample's parity views).
 // Int32 accumulation is exact, so the result does not depend on the order
 // of the sum.  Built by kernels/build.py (nvcc -gencode
 // arch=compute_90a,code=sm_90a, plain C interface); cuTensorMapEncodeTiled
@@ -78,6 +86,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -287,6 +297,55 @@ __global__ void __launch_bounds__(kQuantThreads)
   }
 }
 
+// Pass 1 on the host: zero the amax word, then fold |x| into it.
+cudaError_t launch_amax(const void* x, int is_bf16, long long n,
+                        unsigned int* amax, cudaStream_t stream) {
+  const int elem = is_bf16 ? 2 : 4;
+  const long long per_block = (long long)(16 / elem) * kAmaxThreads *
+                              kAmaxUnroll;
+  const long long blocks = (n + per_block - 1) / per_block;
+  const int amax_blocks = (int)(blocks < kAmaxBlocks ? blocks : kAmaxBlocks);
+  cudaError_t err = cudaMemsetAsync(amax, 0, sizeof(unsigned int), stream);
+  if (err != cudaSuccess) return err;
+  if (is_bf16)
+    absmax_pass<__nv_bfloat16><<<amax_blocks, kAmaxThreads, 0, stream>>>(
+        static_cast<const __nv_bfloat16*>(x), n, amax);
+  else
+    absmax_pass<float><<<amax_blocks, kAmaxThreads, 0, stream>>>(
+        static_cast<const float*>(x), n, amax);
+  return cudaGetLastError();
+}
+
+// Pass 2 on the host: quantize x (N, C, S) from the amax word.
+cudaError_t launch_quantize(const void* x, int is_bf16, int N, int C,
+                            long long S, int Cp, const unsigned int* amax,
+                            float eps, void* q, void* scale,
+                            cudaStream_t stream) {
+  const int elem = is_bf16 ? 2 : 4;
+  const int tiles_s = (int)((S + kQuantS - 1) / kQuantS);
+  const int tiles_c = Cp / kQuantC;
+  const long long n_tiles = (long long)tiles_s * tiles_c * N;
+  if (n_tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const int vec_ok = (reinterpret_cast<uintptr_t>(x) & 15) == 0 &&
+                     S % (16 / elem) == 0;
+  if (is_bf16)
+    quantize_pass<__nv_bfloat16><<<(unsigned)n_tiles, kQuantThreads, 0,
+                                   stream>>>(
+        static_cast<const __nv_bfloat16*>(x), C, S, Cp, tiles_s, tiles_c,
+        n_tiles, vec_ok, amax, eps, static_cast<int8_t*>(q),
+        static_cast<float*>(scale));
+  else
+    quantize_pass<float><<<(unsigned)n_tiles, kQuantThreads, 0, stream>>>(
+        static_cast<const float*>(x), C, S, Cp, tiles_s, tiles_c, n_tiles,
+        vec_ok, amax, eps, static_cast<int8_t*>(q),
+        static_cast<float*>(scale));
+  return cudaGetLastError();
+}
+
+bool act_shape_ok(int N, int C, long long S, int Cp) {
+  return N >= 1 && C >= 1 && S >= 1 && Cp >= C && Cp % kQuantC == 0;
+}
+
 // ---- Q2: shared memory, barriers, TMA -------------------------------------
 
 constexpr int kBM = 128;            // output positions a CTA (2 x 64 rows)
@@ -472,7 +531,7 @@ struct ConvArgs {
   const float* x_scale;
   const float* w_scale;
   const float* bias;    // null: no bias
-  __nv_bfloat16* out;
+  void* out;            // bf16, or int32 under kRaw
   long long osN, osK, osD, osH, osW;   // output strides (elements)
   int N, Do, Ho, Wo, K;
   int nb, db, hb, wb;                   // the M tile's box, product kBM
@@ -493,8 +552,10 @@ struct ConvTiles {
                                      ? kRingBudget / kStage
                                      : kMaxStages;
   static constexpr int kRing = kStages * kStage;
-  static constexpr int kEpiRow = kBM + 8;  // bf16 a channel of the epilogue
-  static constexpr int kEpi = BN * kEpiRow * 2;
+  // a channel of the epilogue tile: kBM + 8 elements of 2 (bf16) or 4
+  // (int32, kRaw) bytes; the ring holds the larger
+  static constexpr int kEpiRow = kBM + 8;
+  static constexpr int kEpi = BN * kEpiRow * 4;
   static constexpr int kDeq = kRing;                  // BN floats
   static constexpr int kBias = kDeq + 4 * BN;         // BN floats
   static constexpr int kRowOff = kBias + 4 * BN;      // kBM long longs
@@ -505,7 +566,7 @@ struct ConvTiles {
   static_assert(kA % 1024 == 0, "swizzle atoms start 1024-byte aligned");
 };
 
-template <int CW, int BN>
+template <int CW, int BN, bool kRaw>
 __global__ void __launch_bounds__(kConvThreads, 1)
     int8_conv3d_wgmma(const __grid_constant__ CUtensorMap tm_x,
                       const __grid_constant__ CUtensorMap tm_w,
@@ -571,7 +632,7 @@ __global__ void __launch_bounds__(kConvThreads, 1)
     float* bias = reinterpret_cast<float*>(gbase + T::kBias);
     long long* row_off = reinterpret_cast<long long*>(gbase + T::kRowOff);
     // epilogue constants, set while the first stages load
-    if (ctid < BN) {
+    if (!kRaw && ctid < BN) {
       const int k = k0 + ctid;
       deq[ctid] = k < a.K ? __fmul_rn(*a.x_scale, a.w_scale[k]) : 0.f;
       bias[ctid] = (a.bias != nullptr && k < a.K) ? a.bias[k] : 0.f;
@@ -619,8 +680,11 @@ __global__ void __launch_bounds__(kConvThreads, 1)
     // both warpgroups are done with the ring, and the constants are set
     named_sync(1, 256);
 
-    // dequantize into a channel-major bf16 tile over the ring
-    __nv_bfloat16* epi = reinterpret_cast<__nv_bfloat16*>(gbase);
+    // dequantize (or keep the int32 sums) into a channel-major tile over
+    // the ring
+    using Out = typename std::conditional<kRaw, int, __nv_bfloat16>::type;
+    constexpr int kRun = 16 / (int)sizeof(Out);   // rows a 16-byte store
+    Out* epi = reinterpret_cast<Out*>(gbase);
     const int warp = tid / 32, lane = tid % 32;
     const int g = lane / 4, t4 = lane % 4;
     const bool has_bias = a.bias != nullptr;
@@ -630,31 +694,36 @@ __global__ void __launch_bounds__(kConvThreads, 1)
       for (int e = 0; e < 4; ++e) {
         const int row = wg * 64 + warp * 16 + g + 8 * (e >> 1);
         const int col = 8 * j + 2 * t4 + (e & 1);
-        float v = __fmul_rn(__int2float_rn(acc[4 * j + e]), deq[col]);
-        if (has_bias) v = __fadd_rn(v, bias[col]);
-        epi[col * T::kEpiRow + row] = __float2bfloat16_rn(v);
+        if constexpr (kRaw) {
+          epi[col * T::kEpiRow + row] = acc[4 * j + e];
+        } else {
+          float v = __fmul_rn(__int2float_rn(acc[4 * j + e]), deq[col]);
+          if (has_bias) v = __fadd_rn(v, bias[col]);
+          epi[col * T::kEpiRow + row] = __float2bfloat16_rn(v);
+        }
       }
     named_sync(1, 256);
 
-    // store: unit u is channel u / 16, rows 8 (u % 16) .. + 7
-    for (int u = ctid; u < BN * (kBM / 8); u += 256) {
-      const int col = u / (kBM / 8), seg = u % (kBM / 8);
+    // store: unit u is channel u / (kBM / kRun), rows kRun (u % (kBM /
+    // kRun)) .. + kRun - 1
+    for (int u = ctid; u < BN * (kBM / kRun); u += 256) {
+      const int col = u / (kBM / kRun), seg = u % (kBM / kRun);
       const int k = k0 + col;
       if (k >= a.K) continue;
-      const long long* ro = row_off + 8 * seg;
-      const __nv_bfloat16* src = epi + col * T::kEpiRow + 8 * seg;
-      __nv_bfloat16* dst = a.out + k * a.osK;
+      const long long* ro = row_off + kRun * seg;
+      const Out* src = epi + col * T::kEpiRow + kRun * seg;
+      Out* dst = static_cast<Out*>(a.out) + k * a.osK;
       const long long o0 = ro[0];
       bool dense = o0 >= 0 &&
                    (reinterpret_cast<uintptr_t>(dst + o0) & 15) == 0;
 #pragma unroll
-      for (int r = 1; r < 8; ++r) dense = dense && ro[r] == o0 + r;
+      for (int r = 1; r < kRun; ++r) dense = dense && ro[r] == o0 + r;
       if (dense) {
         *reinterpret_cast<uint4*>(dst + o0) =
             *reinterpret_cast<const uint4*>(src);
       } else {
 #pragma unroll
-        for (int r = 0; r < 8; ++r)
+        for (int r = 0; r < kRun; ++r)
           if (ro[r] >= 0) dst[ro[r]] = src[r];
       }
     }
@@ -689,12 +758,13 @@ enum PlanField {
   kPN, kPDi, kPHi, kPWi, kPCp, kPK, kPTaps, kPDo, kPHo, kPWo, kPSd, kPSh,
   kPSw, kPNb, kPDb, kPHb, kPWb, kPCw, kPBn, kPTilesN, kPTilesD, kPTilesH,
   kPTilesW, kPNTiles, kPChunks, kPOsN, kPOsK, kPOsD, kPOsH, kPOsW,
-  kPlanHead
+  kPOutBytes, kPlanHead
 };
 
-bool plan_ok(const long long* p, int len) {
+// a plan for an output of out_bytes a element (2: bf16, 4: int32)
+bool plan_ok(const long long* p, int len, int out_bytes) {
   if (len < kPlanHead || p[kPTaps] < 1 || p[kPTaps] > kMaxTaps ||
-      len != kPlanHead + 3 * p[kPTaps])
+      len != kPlanHead + 3 * p[kPTaps] || p[kPOutBytes] != out_bytes)
     return false;
   for (int f = kPN; f <= kPChunks; ++f)
     if (p[f] < 1 || p[f] > 0x7fffffffLL) return false;
@@ -713,12 +783,12 @@ bool plan_ok(const long long* p, int len) {
 
 constexpr int kMaxDevices = 64;
 
-template <int CW, int BN>
+template <int CW, int BN, bool kRaw>
 int launch(const void* x, const void* w, const float* x_scale,
            const float* w_scale, const float* bias, void* out,
            const long long* p, cudaStream_t stream) {
   using T = ConvTiles<CW, BN>;
-  auto kernel = int8_conv3d_wgmma<CW, BN>;
+  auto kernel = int8_conv3d_wgmma<CW, BN, kRaw>;
   int dev = 0;
   if (cudaGetDevice(&dev) != cudaSuccess || dev >= kMaxDevices)
     return static_cast<int>(cudaErrorInvalidDevice);
@@ -771,7 +841,7 @@ int launch(const void* x, const void* w, const float* x_scale,
   a.x_scale = x_scale;
   a.w_scale = w_scale;
   a.bias = bias;
-  a.out = static_cast<__nv_bfloat16*>(out);
+  a.out = out;
   a.osN = p[kPOsN];
   a.osK = p[kPOsK];
   a.osD = p[kPOsD];
@@ -810,43 +880,44 @@ int launch(const void* x, const void* w, const float* x_scale,
 extern "C" {
 
 // Q1: x (N, C, S) bf16 (is_bf16 = 1) or f32 -> q (N, S, Cp) int8, scale
-// (1,) f32; amax: one 4-byte word of scratch.  Returns cudaGetLastError().
+// (1,) f32; amax: one 4-byte word of scratch.  Both passes: the same
+// launches as echoscene_quantize_amax then echoscene_quantize_with_amax.
+// Returns cudaGetLastError().
 int echoscene_quantize_act(const void* x, int is_bf16, int N, int C,
                            long long S, int Cp, void* amax, float eps,
                            void* q, void* scale, cudaStream_t stream) {
-  if (N < 1 || C < 1 || S < 1 || Cp < C || Cp % kQuantC != 0)
+  if (!act_shape_ok(N, C, S, Cp))
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long n = (long long)N * C * S;
-  const int elem = is_bf16 ? 2 : 4;
-  const long long per_block = (long long)(16 / elem) * kAmaxThreads *
-                              kAmaxUnroll;
-  const long long blocks = (n + per_block - 1) / per_block;
-  const int amax_blocks = (int)(blocks < kAmaxBlocks ? blocks : kAmaxBlocks);
-  const int tiles_s = (int)((S + kQuantS - 1) / kQuantS);
-  const int tiles_c = Cp / kQuantC;
-  const long long n_tiles = (long long)tiles_s * tiles_c * N;
-  if (n_tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  const int vec_ok = (reinterpret_cast<uintptr_t>(x) & 15) == 0 &&
-                     S % (16 / elem) == 0;
   unsigned int* am = static_cast<unsigned int*>(amax);
-  cudaError_t err = cudaMemsetAsync(am, 0, sizeof(unsigned int), stream);
+  const cudaError_t err =
+      launch_amax(x, is_bf16, (long long)N * C * S, am, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (is_bf16) {
-    const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
-    absmax_pass<__nv_bfloat16><<<amax_blocks, kAmaxThreads, 0, stream>>>(
-        xb, n, am);
-    quantize_pass<__nv_bfloat16><<<(unsigned)n_tiles, kQuantThreads, 0,
-                                   stream>>>(
-        xb, C, S, Cp, tiles_s, tiles_c, n_tiles, vec_ok, am, eps,
-        static_cast<int8_t*>(q), static_cast<float*>(scale));
-  } else {
-    const float* xf = static_cast<const float*>(x);
-    absmax_pass<float><<<amax_blocks, kAmaxThreads, 0, stream>>>(xf, n, am);
-    quantize_pass<float><<<(unsigned)n_tiles, kQuantThreads, 0, stream>>>(
-        xf, C, S, Cp, tiles_s, tiles_c, n_tiles, vec_ok, am, eps,
-        static_cast<int8_t*>(q), static_cast<float*>(scale));
-  }
-  return (int)cudaGetLastError();
+  return static_cast<int>(
+      launch_quantize(x, is_bf16, N, C, S, Cp, am, eps, q, scale, stream));
+}
+
+// Q1's pass 1 alone: amax (one 4-byte word) = the bit pattern of max |x|
+// over the n elements of x, a non-negative f32's bits.  Returns
+// cudaGetLastError().
+int echoscene_quantize_amax(const void* x, int is_bf16, long long n,
+                            void* amax, cudaStream_t stream) {
+  if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_amax(
+      x, is_bf16, n, static_cast<unsigned int*>(amax), stream));
+}
+
+// Q1's pass 2 alone: x (N, C, S) -> q (N, S, Cp) int8, scale (1,) f32, from
+// an amax word of echoscene_quantize_amax (or a MAX of several).  Returns
+// cudaGetLastError().
+int echoscene_quantize_with_amax(const void* x, int is_bf16, int N, int C,
+                                 long long S, int Cp, const void* amax,
+                                 float eps, void* q, void* scale,
+                                 cudaStream_t stream) {
+  if (!act_shape_ok(N, C, S, Cp))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_quantize(
+      x, is_bf16, N, C, S, Cp, static_cast<const unsigned int*>(amax), eps,
+      q, scale, stream));
 }
 
 // Q2: xq (N, Di, Hi, Wi, Cp) int8, wq (K, kd, kh, kw, Cp) int8, x_scale
@@ -859,16 +930,37 @@ int echoscene_int8_conv3d(const void* x, const void* w, const void* x_scale,
                           const void* w_scale, const void* bias, void* out,
                           const long long* plan, int plan_len,
                           cudaStream_t stream) {
-  if (!plan_ok(plan, plan_len)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!plan_ok(plan, plan_len, 2))
+    return static_cast<int>(cudaErrorInvalidValue);
   const float* xs = static_cast<const float*>(x_scale);
   const float* ws = static_cast<const float*>(w_scale);
   const float* b = static_cast<const float*>(bias);
   const bool wide = plan[kPCw] == 128;
   if (plan[kPBn] == 224)
-    return wide ? launch<128, 224>(x, w, xs, ws, b, out, plan, stream)
-                : launch<64, 224>(x, w, xs, ws, b, out, plan, stream);
-  return wide ? launch<128, 8>(x, w, xs, ws, b, out, plan, stream)
-              : launch<64, 8>(x, w, xs, ws, b, out, plan, stream);
+    return wide ? launch<128, 224, false>(x, w, xs, ws, b, out, plan, stream)
+                : launch<64, 224, false>(x, w, xs, ws, b, out, plan, stream);
+  return wide ? launch<128, 8, false>(x, w, xs, ws, b, out, plan, stream)
+              : launch<64, 8, false>(x, w, xs, ws, b, out, plan, stream);
+}
+
+// Q2's int32 accumulators alone: xq, wq as above -> out int32 at the plan's
+// element strides, no dequantize, no bias.  Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a plan the kernel does not take.
+int echoscene_int8_conv3d_acc(const void* x, const void* w, void* out,
+                              const long long* plan, int plan_len,
+                              cudaStream_t stream) {
+  if (!plan_ok(plan, plan_len, 4))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool wide = plan[kPCw] == 128;
+  if (plan[kPBn] == 224)
+    return wide ? launch<128, 224, true>(x, w, nullptr, nullptr, nullptr,
+                                         out, plan, stream)
+                : launch<64, 224, true>(x, w, nullptr, nullptr, nullptr, out,
+                                        plan, stream);
+  return wide ? launch<128, 8, true>(x, w, nullptr, nullptr, nullptr, out,
+                                     plan, stream)
+              : launch<64, 8, true>(x, w, nullptr, nullptr, nullptr, out,
+                                    plan, stream);
 }
 
 }  // extern "C"

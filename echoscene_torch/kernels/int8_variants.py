@@ -188,10 +188,10 @@ def _cluster_edits(multicast: bool) -> List[Tuple[str, str]]:
   }
 }"""),
         ("""  using T = ConvTiles<CW, BN>;
-  auto kernel = int8_conv3d_wgmma<CW, BN>;""",
+  auto kernel = int8_conv3d_wgmma<CW, BN, kRaw>;""",
          """  using T = ConvTiles<CW, BN>;
   constexpr int CL = BN == 224 ? 2 : 1;
-  auto kernel = int8_conv3d_wgmma<CW, BN>;"""),
+  auto kernel = int8_conv3d_wgmma<CW, BN, kRaw>;"""),
         ("const cuuint32_t box[3] = {(cuuint32_t)CW, 1, (cuuint32_t)BN};",
          f"const cuuint32_t box[3] = {{(cuuint32_t)CW, 1, (cuuint32_t)({box})}};"),
         ("""  const long long grid = p[kPTilesN] * p[kPTilesD] * p[kPTilesH] *
@@ -230,11 +230,13 @@ _CW32 = [
     ("      CW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;",
      "      CW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B\n"
      "      : CW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;"),
-    ("  const bool wide = plan[kPCw] == 128;",
+    ("  const float* b = static_cast<const float*>(bias);\n"
+     "  const bool wide = plan[kPCw] == 128;",
+     "  const float* b = static_cast<const float*>(bias);\n"
      "  if (plan[kPCw] == 32)\n"
      "    return plan[kPBn] == 224\n"
-     "               ? launch<32, 224>(x, w, xs, ws, b, out, plan, stream)\n"
-     "               : launch<32, 8>(x, w, xs, ws, b, out, plan, stream);\n"
+     "        ? launch<32, 224, false>(x, w, xs, ws, b, out, plan, stream)\n"
+     "        : launch<32, 8, false>(x, w, xs, ws, b, out, plan, stream);\n"
      "  const bool wide = plan[kPCw] == 128;"),
 ]
 

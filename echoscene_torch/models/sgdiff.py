@@ -88,13 +88,14 @@ def inference_twin(module: torch.nn.Module, dtype: torch.dtype,
     once in dtype) and turns the shape denoiser's upsamples back to
     interpolate + conv; int8 takes precedence (blocks.py:288-295).  The
     int8 twin also rounds around its quantized convolutions where JAX's
-    bf16 ops round (`nn.quant.jax_rounding_`)."""
+    bf16 ops round (`nn.quant.jax_rounding_`).
+
+    For a module sharded by `parallel.tp.shard_module_`, each tensor-parallel
+    ResBlock's `out_layers.3` becomes the row-split form of its int8 /
+    Winograd convolution (parallel/tp.py); the int8 twin's weight scales
+    are then a MAX over the model group, so every rank of the group must
+    build the twin, as every rank samples."""
     twin = copy.deepcopy(module).eval()
-    if int8 and getattr(twin, "tp_plan", None) is not None:
-        raise NotImplementedError(
-            "the int8 twin of a tensor-parallel module is not ported "
-            "(ROADMAP.md: the activation abs-max, the row-split weight "
-            "scales and the int32 partial sums need the model group)")
     sd = getattr(twin, "shape_denoiser", None)
     for name in ("shape_denoiser", "vqvae"):
         for m in getattr(twin, name, torch.nn.Module()).modules():
@@ -129,10 +130,13 @@ def _convert_torso_convs(sd: torch.nn.Module, dtype: torch.dtype,
     sites = []   # (parent, child name, conv, role)
     sites.append((sd.input_blocks[0], "0", sd.input_blocks[0][0], "edge"))
     sites.append((sd.out, "2", sd.out[2], "edge"))
+    row_splits = {}   # id(conv) -> the tensor-parallel plan of its block
     for m in sd.modules():
         if isinstance(m, ResBlock):
             sites.append((m.in_layers, "2", m.in_layers[2], "3x3"))
             sites.append((m.out_layers, "3", m.out_layers[3], "3x3"))
+            if getattr(m, "tp", None) is not None:
+                row_splits[id(m.out_layers[3])] = m.tp
             if isinstance(m.skip_connection, torch.nn.Conv3d):
                 sites.append((m, "skip_connection", m.skip_connection,
                               "edge"))
@@ -145,7 +149,8 @@ def _convert_torso_convs(sd: torch.nn.Module, dtype: torch.dtype,
         if int8:
             up = (1, 2) if role == "up" and parent.factored and not \
                 parent.winograd else None
-            new = Int8Conv3d(conv, up_axes=up)
+            new = Int8Conv3d(conv, up_axes=up,
+                             row_split=row_splits.get(id(conv)))
         elif role in ("3x3", "up"):
             if not isinstance(conv, WinogradConv3d):
                 conv = WinogradConv3d.from_conv(conv)

@@ -15,9 +15,28 @@ denoiser's torso convolutions compute in int8 with int32 accumulation:
 
 `Int8Conv3d` / `Int8Linear` hold the same `weight` / `bias` parameters as
 the Conv3d / Linear they replace (the weight bridge and state_dict keys are
-unchanged) plus the quantized weight as non-persistent buffers.  JAX's
-ECHOSCENE_INT8_FIXED_SCALE measurement hook (a constant activation scale
-whose outputs are wrong by design) is not ported.
+unchanged) plus the quantized weight as non-persistent buffers.
+
+Under tensor parallelism (parallel/tp.py) a ResBlock's `out_layers.3` holds
+a shard of the weight's input channels and sees a shard of the activation's
+channels.  Its row-split form (`Int8Conv3d(conv, row_split=plan)`) equals
+the unsharded convolution bit for bit through three collectives over the
+model group, where JAX gets the same from GSPMD:
+
+  * at construction, the per-output-channel weight abs-max of the shard
+    folded by a MAX all-reduce, so every rank quantizes its shard with the
+    scales of the whole weight (building the twin is collective);
+  * in the forward, the activation's abs-max word (Q1's first pass,
+    `quantize_amax`) folded by a MAX all-reduce before the quantize
+    (`quantize_with_amax`): each rank's int8 values are its slice of the
+    whole tensor's;
+  * Q2's int32 accumulators (`int8_conv3d_acc`) added by a SUM all-reduce
+    in int32 (exact; f32 would not be: they reach ~2.9e8), then one
+    `dequantize` with the bias, the fused epilogue's arithmetic in torch
+    ops (product rounded, then the bias, then bf16; no FMA).
+
+JAX's ECHOSCENE_INT8_FIXED_SCALE measurement hook (a constant activation
+scale whose outputs are wrong by design) is not ported.
 
 A one-ulp bf16 difference in a quantized convolution's input flips the int8
 value next to it, and at the tensor's abs-max it moves the scale and every
@@ -39,19 +58,36 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..kernels.int8_conv import (int8_conv3d, padded_channels,
-                                 quantize_act, quantize_symmetric)
+import torch.distributed as dist
+
+from ..kernels.int8_conv import (dequantize, int8_conv3d, int8_conv3d_acc,
+                                 padded_channels, quantize_act,
+                                 quantize_amax, quantize_symmetric,
+                                 quantize_with_amax, quantize_with_scale,
+                                 scale_of)
+from ..parallel.mesh import all_reduce_
 from .layers import Linear
 
 __all__ = ["quantize_symmetric", "quantize_act", "quantize_weight",
            "Int8Conv3d", "Int8Linear", "RoundedSiLU", "jax_rounding_"]
 
 
-def quantize_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def weight_amax(w: torch.Tensor) -> torch.Tensor:
+    """The per-output-channel abs-max (K,) f32 of a (K, C, ...) weight."""
+    return w.float().abs().amax(dim=tuple(range(1, w.dim())))
+
+
+def quantize_weight(w: torch.Tensor, amax: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """A (K, C, kd, kh, kw) f32 weight -> (wq (K, kd, kh, kw, Cp) int8 in
     Q2's layout, zero channels past C; w_scale (K,) f32), per output
-    channel."""
-    q, scale = quantize_symmetric(w, dims=range(1, w.dim()))
+    channel: the scales of `w`'s own abs-max, or of `amax` (K,) when given
+    (a row shard quantized with the whole weight's scales)."""
+    if amax is None:
+        q, scale = quantize_symmetric(w, dims=range(1, w.dim()))
+    else:
+        scale = scale_of(amax.float()).reshape((-1,) + (1,) * (w.dim() - 1))
+        q = quantize_with_scale(w, scale)
     c = w.shape[1]
     q = F.pad(q.movedim(1, -1), (0, padded_channels(c) - c))
     return q.contiguous(), scale.reshape(-1).contiguous()
@@ -68,20 +104,33 @@ class Int8Conv3d(nn.Module):
     Conv3d it replaces and sharing its parameters.  With `up_axes` it also
     holds the quantized 2-tap sub-kernels of the factored upsample
     (`nn.blocks.factored_upsample_conv(..., quantized=True)`), each summed
-    in f32 from the master weight, then quantized."""
+    in f32 from the master weight, then quantized.
+
+    With `row_split` (an object whose `group` is a model group, as
+    `parallel.tp.TPPlan`) it is the row-split form (module docstring): the
+    conv's weight is this rank's shard of the input channels, every rank
+    of the group must construct it together (the weight scales are a MAX
+    over the group), and each forward runs the group's collectives."""
 
     def __init__(self, conv: nn.Conv3d,
-                 up_axes: Optional[Sequence[int]] = None):
+                 up_axes: Optional[Sequence[int]] = None,
+                 row_split=None):
         super().__init__()
         if isinstance(conv.padding, str):
             raise ValueError("Int8Conv3d takes numeric padding")
+        if row_split is not None and up_axes is not None:
+            raise ValueError("the row-split form has no factored upsample")
         self.weight = conv.weight
         self.bias = conv.bias
         self.stride = tuple(conv.stride)
         self.pads = _pads(conv.padding)
         self.up_axes = None if up_axes is None else tuple(up_axes)
+        self.row_split = row_split
         with torch.no_grad():
-            wq, ws = quantize_weight(self.weight.float())
+            amax = None
+            if row_split is not None:
+                amax = _group_max(weight_amax(self.weight), row_split.group)
+            wq, ws = quantize_weight(self.weight.float(), amax)
             self.register_buffer("wq", wq, persistent=False)
             self.register_buffer("w_scale", ws, persistent=False)
             if self.up_axes is not None:
@@ -99,11 +148,35 @@ class Int8Conv3d(nn.Module):
         return [(getattr(self, f"sub{i}_wq"), getattr(self, f"sub{i}_w_scale"))
                 for i in range(n)]
 
+    def accumulate(self, x: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The row-split form's int32 accumulators, summed over the model
+        group, and the activation scale (the whole tensor's)."""
+        group = self.row_split.group
+        x = x.contiguous()
+        amax = _group_max(quantize_amax(x), group)
+        xq, xs = quantize_with_amax(x, amax)
+        acc = int8_conv3d_acc(xq, self.wq, self.stride, self.pads)
+        return all_reduce_(acc, dist.ReduceOp.SUM, group=group), xs
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xq, xs = quantize_act(x.contiguous())
         bias = None if self.bias is None else self.bias.float()
+        if self.row_split is not None:
+            acc, xs = self.accumulate(x)
+            return dequantize(acc, xs, self.w_scale, bias)
+        xq, xs = quantize_act(x.contiguous())
         return int8_conv3d(xq, self.wq, xs, self.w_scale, bias, self.stride,
                            self.pads)
+
+
+def _group_max(t: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise MAX of `t` over `group` (in place).  An f32 tensor of
+    non-negative values is reduced as its int32 bit patterns, which order
+    as the floats do: an exact MAX, the abs-max words' own order."""
+    if t.dtype == torch.float32:
+        all_reduce_(t.view(torch.int32), dist.ReduceOp.MAX, group=group)
+        return t
+    return all_reduce_(t, dist.ReduceOp.MAX, group=group)
 
 
 class Int8Linear(nn.Module):

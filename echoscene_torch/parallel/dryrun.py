@@ -314,17 +314,22 @@ def tp_forward_job(rank: int, world: int, job_path: str,
     """One shape-denoiser forward of the flagship (`benchmarks.
     build_flagship`, seeded weights; the job's "cfg" in place of
     full_mp.yaml's if it has one) sharded over all `world` ranks as one
-    model group, in its bf16 sampling twin and in f32: the job holds the
-    step's inputs ("inputs": z, t, obj_embed, triples, obj_mask,
-    triple_mask), each rank's device and "iters"; rank 0 writes each
-    form's output, every rank's K1 / K2 launches of one forward (the
-    counts set to 0 just before it and read just after), the ms per
-    forward of each rank (the mean of `iters` after one untimed call, the
-    card synchronised) and the heads each rank's attention runs."""
+    model group, in each of three forms: its bf16 sampling twin ("bf16"),
+    the f32 module ("f32") and the int8 twin of `sample_dtype: int8`
+    ("int8", built by the ranks together): the job
+    holds the step's inputs ("inputs": z, t, obj_embed, triples,
+    obj_mask, triple_mask), each rank's device and "iters"; rank 0 writes
+    each form's output, every rank's K1 / K2 and Q1 / Q2 launches of one
+    forward by wrapper (the counts set to 0 just before it and read just
+    after), the ms per forward of each rank (the mean of `iters` after one
+    untimed call, the card synchronised), the heads each rank's
+    attention runs and each rank's `row_split_check` of the int8 twin's
+    first row-split convolution."""
     import torch.distributed as dist
 
     from ..benchmarks import build_flagship
     from ..kernels import flash_attention as fa
+    from ..kernels import int8_conv as q8
     from ..nn.attention import CrossAttention
 
     job = torch.load(job_path, weights_only=False)
@@ -342,17 +347,33 @@ def tp_forward_job(rank: int, world: int, job_path: str,
     mine = {"heads": sorted({m.heads for m in sg.module.shape_denoiser.modules()
                              if isinstance(m, CrossAttention)})}
     outs = {}
-    for form, model in (("bf16", sg.inference_module()),
-                        ("f32", sg.module.eval())):
+    for form, dtype in (("bf16", "bfloat16"), ("f32", "float32"),
+                        ("int8", "int8")):
+        sg.cfg.sample_dtype = dtype
+        model = sg.inference_module()
         call = lambda: model.shape_eps(x["z"], x["t"], x["obj_embed"],
                                        x["triples"], x["obj_mask"],
                                        x["triple_mask"])
+        if form == "int8":
+            name, site = next(
+                (n, m.out_layers[3]) for n, m in model.named_modules()
+                if isinstance(m, tp.TPResBlock))
+            seen = []
+            hook = site.register_forward_pre_hook(
+                lambda _, inp: seen.append(inp[0].detach().clone()))
         sync()
         fa.reset_launches()
+        q8.reset_launches()
         out = call()
         sync()
-        mine[f"{form}_launches"] = dict(fa.LAUNCHES)
+        mine[f"{form}_launches"] = dict(fa.LAUNCHES, **q8.LAUNCHES)
         outs[form] = out.float().cpu()
+        if form == "int8":
+            hook.remove()
+            mine["row_split_check"] = dict(
+                row_split_check(site, seen[0], mesh.model_group, world),
+                site=name + ".out_layers.3")
+            del seen
         t0 = time.perf_counter()
         for _ in range(int(job.get("iters", 3))):
             call()
@@ -364,6 +385,45 @@ def tp_forward_job(rank: int, world: int, job_path: str,
     dist.all_gather_object(ranks, mine)
     if rank == 0:
         torch.save({"outputs": outs, "ranks": ranks}, out_path)
+
+
+@torch.no_grad()
+def row_split_check(conv, x: torch.Tensor, group, world: int) -> dict:
+    """A row-split `Int8Conv3d` (`conv`, this rank's shard of the input
+    channels) on `x`, this rank's channel shard of the input it was given in
+    a forward, against the unsharded `Int8Conv3d` on the whole input (the
+    shards of the weight and of `x` gathered over `group`, in rank order):
+    whether the outputs are bit-equal, how many elements differ, and
+    whether the row-split outputs of all ranks of the group are
+    bit-equal.  Every rank of the group must call it together."""
+    from ..nn.quant import Int8Conv3d
+    from .mesh import all_gather
+
+    def gather(t):     # (world,) + t.shape: every rank's t in rank order
+        out = t.new_empty((world * t.shape[0],) + tuple(t.shape[1:]))
+        return all_gather(out, t.contiguous(), group).reshape(
+            (world,) + tuple(t.shape))
+
+    whole = lambda t: torch.cat(gather(t).unbind(0), 1)   # shards on dim 1
+
+    w = whole(conv.weight.detach())
+    full = torch.nn.Conv3d(w.shape[1], w.shape[0], w.shape[2:],
+                           stride=conv.stride,
+                           padding=[p for p, _ in conv.pads],
+                           bias=conv.bias is not None, device=w.device)
+    full.weight.copy_(w)
+    if conv.bias is not None:
+        full.bias.copy_(conv.bias)
+    x_whole = whole(x)
+    want = Int8Conv3d(full)(x_whole)
+    got = conv(x)
+    outs = gather(got)
+    return {"x_shape": list(x.shape), "whole_x_shape": list(x_whole.shape),
+            "k": w.shape[0],
+            "bit_equal_to_unsharded": bool(torch.equal(got, want)),
+            "differing": int((got != want).sum()),
+            "ranks_bit_equal": all(bool(torch.equal(o, outs[0]))
+                                   for o in outs)}
 
 
 def update_job(rank: int, world: int, job_path: str, out_path: str) -> None:

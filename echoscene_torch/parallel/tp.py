@@ -23,6 +23,23 @@ Two autograd Functions mark a region: on entry the identity forward and a
 sum over the model group backward (each rank's sharded branch passes back
 its part of the input's gradient), on exit the sum forward and the
 identity backward.  The sums run in f32 whatever the activations' dtype.
+
+The sampling twins keep the split.  Under `sample_conv: winograd` the
+row-split `out_layers.3` is a WinogradConv3d whose transformed weight `u`
+is that of this rank's shard: its partial output (no bias) goes through
+`winograd_conv3d` and the exit's f32 sum, the bias added once.  Under
+`sample_dtype: int8` it is the row-split `Int8Conv3d` (nn/quant.py), equal
+to the unsharded int8 convolution bit for bit through three collectives
+over the model group, each of them GSPMD's in JAX: (1) when the twin is
+built, a MAX of the per-output-channel weight abs-max over the input
+channels (so building the twin of a sharded module is collective: every
+rank of the group builds it, in module order); in each forward (2) a MAX
+of the activation's abs-max word between Q1's two passes, and (3) a SUM of
+Q2's int32 accumulators (exact; they pass f32's exact integers), then one
+dequantize with the bias.  The column-split `in_layers.2` needs none: its
+input is replicated (every rank computes the whole tensor's scale) and
+its per-output-channel weight scales are local to the shard.
+
 A block whose channels, groups or heads the group size does not divide
 stays replicated (JAX never shards a dimension `n_model` does not divide,
 dp.py:152-159); everything outside the shape denoiser is replicated.
@@ -46,9 +63,11 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.attention import dot_product_attention
+from ..kernels.winograd import winograd_conv3d
 from ..models import sgdiff
 from ..nn.attention import CrossAttention
-from ..nn.blocks import ResBlock
+from ..nn.blocks import ResBlock, WinogradConv3d
+from ..nn.quant import Int8Conv3d
 from .mesh import Mesh, all_gather, all_reduce_
 
 # the split dimension of each sharded parameter, by its key in the block
@@ -130,9 +149,16 @@ class TPResBlock(ResBlock):
         h = self.in_layers[2](_Enter.apply(h, g))
         emb_out = self.emb_layers[1](_Enter.apply(
             self.emb_layers[0](emb), g))
-        h = F.silu(self.out_layers[0](h, shift=emb_out))
+        h = self.out_layers[1](self.out_layers[0](h, shift=emb_out))
         conv = self.out_layers[3]
-        part = conv._conv_forward(h.to(conv.weight.dtype), conv.weight, None)
+        if isinstance(conv, Int8Conv3d):    # sums over the group itself
+            return self.skip_connection(x) + conv(h)
+        if isinstance(conv, WinogradConv3d):
+            part = winograd_conv3d(h.to(conv.act_dtype or h.dtype),
+                                   conv.weight, None, u=conv.u)
+        else:
+            part = conv._conv_forward(h.to(conv.weight.dtype), conv.weight,
+                                      None)
         h = _exit_with_bias(part, conv.bias, g, 1)
         return self.skip_connection(x) + h
 
@@ -223,21 +249,10 @@ def shard_module_(module: torch.nn.Module, mesh: Mesh) -> TPPlan:
     """Shard `module`'s shape denoiser over the mesh's model group in
     place: each splitting block's parameters become this rank's slices and
     the block becomes a TPResBlock / TPCrossAttention.  Returns the plan
-    (also `module.tp_plan`).  Make the optimizer after this call.
-
-    Refuses a module configured for `sample_dtype: int8`: its twin's
-    quantized convolutions would need the model group for the activation
-    abs-max (a MAX all-reduce), for the per-output-channel scales of the
-    row-split `out_layers.3` (over all input channels, not a rank's shard)
-    and for the row-split partial sums, summed as int32 before the
-    dequantize (they reach ~2.9e8, past f32's exact integers); JAX gets all
-    three from GSPMD."""
-    cfg = getattr(module, "cfg", None)
-    if cfg is not None and cfg.sample_dtype == "int8":
-        raise NotImplementedError(
-            "tensor parallelism with sample_dtype int8 is not ported: the "
-            "activation abs-max, the row-split weight scales and the int32 "
-            "partial sums need the model group (ROADMAP.md)")
+    (also `module.tp_plan`).  Make the optimizer after this call.  The
+    sampling twin of a sharded module (`models.sgdiff.inference_twin`) is
+    built by every rank of the group together under `sample_dtype: int8`
+    (module docstring)."""
     n, rank = mesh.model, mesh.model_rank
     plan = TPPlan(n, rank, mesh.model_group, split_dims(module, n))
     for _, block, dims in _blocks(module, n):

@@ -19,7 +19,7 @@ tp.py and its users) against JAX's GSPMD placement, at tiny sizes.
 * `python -m echoscene_torch.parallel.dryrun --n 4 --device cpu` (a (2, 2)
   mesh: step, sample, checkpoint round trip, resumed step and sample);
 * the rank job of chip_smoke.py's phase 12 (a) (`dryrun.tp_forward_job`)
-  on 2 CPU ranks against one device;
+  on 2 CPU ranks against one device, its int8 form too;
 * on a card (`cuda` marker): K1 at 4 heads of D = 56, a tp rank's shard of
   the flagship's 8, against its plain version.
 """
@@ -286,8 +286,12 @@ def test_tp_forward_job_matches_one_device():
     the tiny widths (every block sharded): the shape step of the sharded
     module against one device's on the same seeded weights and inputs, f32
     within 1e-4 of the peak, the bf16 twin within 2^-4 of the peak and
-    2^-5 of the mean magnitude (phase 12's limits); each rank runs half the
-    heads."""
+    2^-5 of the mean magnitude (phase 12's limits), the int8 twin no
+    farther from one device's int8 twin than that is from one device's
+    bf16 twin, in both measures (half phase 12's int8 limit: at the tiny
+    widths the two paths' bf16 rounding differs less); each rank runs half
+    the heads; the int8 twin's first row-split convolution, on the input
+    it was given, bit-equal to the unsharded one on both ranks."""
     from echoscene_torch.benchmarks import build_flagship, part_calls
     from echoscene_torch.models.config import tiny_config
     from echoscene_torch.models.sgdiff import shape_row_capacity
@@ -298,11 +302,14 @@ def test_tp_forward_job_matches_one_device():
     sg, batch = build_flagship(24, 64, 3, device="cpu", cfg=cfg)
     calls = part_calls(sg, batch, shape_row_capacity(batch, multiple=1))
     x = calls["inputs"]
+    args = [x[k] for k in ("z", "t", "obj_embed", "triples", "obj_mask",
+                           "triple_mask")]
     with torch.no_grad():
         want = {"bf16": calls["shape_step"]().float(),
-                "f32": sg.module.shape_eps(*(x[k] for k in (
-                    "z", "t", "obj_embed", "triples", "obj_mask",
-                    "triple_mask")))}
+                "f32": sg.module.shape_eps(*args)}
+        sg.cfg.sample_dtype = "int8"
+        want["int8"] = sg.inference_module().shape_eps(*args).float()
+        sg.cfg.sample_dtype = "bfloat16"
     res = run_job({"cfg": sg.cfg, "devices": ["cpu", "cpu"], "inputs": x,
                    "iters": 1}, "gloo", fn=tp_forward_job)
     assert [r["heads"] for r in res["ranks"]] == [[heads // 2]] * 2
@@ -313,6 +320,18 @@ def test_tp_forward_job_matches_one_device():
         err = (got - w).abs()
         assert err.max() <= lim_max * w.abs().max(), form
         assert err.mean() <= lim_mean * w.abs().mean(), form
+    dist = lambda a, b: ((a - b).abs().max() / b.abs().max(),
+                         (a - b).abs().mean() / b.abs().mean())
+    got, w = res["outputs"]["int8"], want["int8"]
+    assert got.shape == w.shape and bool(torch.isfinite(got).all())
+    for e, limit in zip(dist(got, w), dist(w, want["bf16"])):
+        assert e <= limit, (dist(got, w), dist(w, want["bf16"]))
+    c = cfg.shape_branch.denoiser.model_channels
+    for r in res["ranks"]:
+        chk = r["row_split_check"]
+        assert chk["x_shape"][1] * 2 == chk["whole_x_shape"][1] == c, chk
+        assert chk["bit_equal_to_unsharded"] and chk["differing"] == 0, chk
+        assert chk["ranks_bit_equal"], chk
 
 
 @pytest.mark.cuda
