@@ -22,6 +22,7 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
+from .. import trace
 from ..core.graphbatch import GraphBatch, SceneBatch
 from ..nn.gcn import GraphTripleConvNet
 from ..nn.mlp import MLP
@@ -111,6 +112,7 @@ class EchoSceneModule(nn.Module):
                                     pred_embed], dim=1)
         return obj_embed, pred_embed
 
+    @trace.spanned("encode_context")
     def encode_context(self, batch: SceneBatch, change_noise: torch.Tensor,
                        splice_untouched: Optional[bool] = None
                        ) -> Dict[str, torch.Tensor]:
@@ -141,6 +143,7 @@ class EchoSceneModule(nn.Module):
             out["c_s"] = self.rel_s_mlp(latent, dec.obj_mask)
         return out
 
+    @trace.spanned("layout_eps")
     def layout_eps(self, box_t: torch.Tensor, t: torch.Tensor,
                    obj_embed: torch.Tensor, triples: torch.Tensor,
                    obj_mask: torch.Tensor,
@@ -150,6 +153,7 @@ class EchoSceneModule(nn.Module):
         return self.layout_denoiser(box_t, obj_embed, triples, t,
                                     obj_mask=obj_mask, triple_mask=triple_mask)
 
+    @trace.spanned("shape_eps")
     def shape_eps(self, z_t: torch.Tensor, t: torch.Tensor,
                   obj_embed: torch.Tensor, triples: torch.Tensor,
                   obj_mask: torch.Tensor,
@@ -158,6 +162,7 @@ class EchoSceneModule(nn.Module):
         return self.shape_denoiser(z_t, obj_embed, triples, t,
                                    obj_mask=obj_mask, triple_mask=triple_mask)
 
+    @trace.spanned("decode_chunk")
     def decode_latent(self, z: torch.Tensor) -> torch.Tensor:
         """Quantize + decode to a 64^3 SDF grid (decode_no_quant)."""
         return self.vqvae.decode_no_quant(z)

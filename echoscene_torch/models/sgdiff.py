@@ -14,6 +14,10 @@ EchoScene.optimizer_ini / lr_lambda, EchoScene.py:117-141):
     echo GCN inside every step, and the chunked VQ decode.  The samplers
     are read from the live config at every call, as in JAX.
 
+Both calls mark their parts with `trace.span` (sampling: the twin build,
+the chains, the decode; training: forward, backward, the gradient norm,
+the clip, AdamW), which records only while a `torch.profiler` runs.
+
 Precision: the module holds f32 master parameters; the AdamW state is f32.
 With cfg.compute_dtype == "bfloat16" (the default) each training step runs
 the module on bf16 casts of its parameters, made once per step with
@@ -38,6 +42,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import trace
 from ..core import schedules as S
 from ..core.boxes import box_vec_from_boxes
 from ..core.graphbatch import SceneBatch
@@ -109,10 +114,12 @@ def inference_twin(module: torch.nn.Module, dtype: torch.dtype,
         cfg.shape_branch.vqvae.factored_upsample = factored
         cfg.shape_branch.denoiser.winograd |= winograd
     keep = set()
-    if sd is not None and (int8 or winograd):
-        keep = _convert_torso_convs(sd, dtype, int8, winograd)
     if sd is not None and int8:
-        keep |= jax_rounding_(sd)
+        with trace.span("twin_int8"):
+            keep = _convert_torso_convs(sd, dtype, int8, winograd)
+            keep |= jax_rounding_(sd)
+    elif sd is not None and winograd:
+        keep = _convert_torso_convs(sd, dtype, int8, winograd)
     keep |= {id(m.conv.bias) for m in twin.modules()
              if isinstance(m, (Upsample, Upsample3D)) and m.factored
              and m.conv.bias is not None}
@@ -301,6 +308,7 @@ class SGDiff:
                 self.ddim_tables = self.shape_diff.make_ddim_tables(
                     sb.ddim_steps, sb.ddim_eta)
 
+    @trace.spanned("twin_build")
     def inference_module(self, device=None) -> EchoSceneModule:
         """The module sampling runs (batch norms on their running
         statistics): the bf16 twin with the factored upsamples (its shape
@@ -333,7 +341,9 @@ class SGDiff:
             module.vqvae.eval()
         if self.cfg.compute_dtype == "float32":
             return module(*args, **kwargs)
-        cast = {n: p.to(torch.bfloat16) for n, p in module.named_parameters()}
+        with trace.span("cast"):
+            cast = {n: p.to(torch.bfloat16)
+                    for n, p in module.named_parameters()}
         return torch.func.functional_call(module, cast, args, kwargs)
 
     def loss_fn(self, batch: SceneBatch,
@@ -419,8 +429,10 @@ class SGDiff:
         params = trainable_parameters(self.module)
         for _, p in params:
             p.grad = None
-        loss, metrics = self.loss_fn(batch, generator, draws)
-        loss.backward()
+        with trace.span("forward"):
+            loss, metrics = self.loss_fn(batch, generator, draws)
+        with trace.span("backward"):
+            loss.backward()
         # parameters the forward never reads (to_q / to_k of a one-token
         # cross-attention) get JAX's zero gradients, so AdamW still decays
         # them and their moments
@@ -430,6 +442,7 @@ class SGDiff:
             p.grad = None
         return loss.detach(), metrics, grads
 
+    @trace.spanned("train_step")
     def train_step(self, state: TrainState, batch: SceneBatch,
                    generator: Optional[torch.Generator] = None,
                    draws: Optional[Dict[str, torch.Tensor]] = None
@@ -440,7 +453,8 @@ class SGDiff:
         with the loss and the global pre-clip gradient norm."""
         loss, metrics, grads = self.loss_and_grads(batch, generator, draws)
         metrics["loss"] = loss
-        metrics["grad_norm"] = global_norm(grads)
+        with trace.span("grad_norm"):
+            metrics["grad_norm"] = global_norm(grads)
         self.apply_gradients(state, grads)
         return {k: v.detach() for k, v in metrics.items()}
 
@@ -462,21 +476,24 @@ class SGDiff:
             grads = state.accum
         if mini == k - 1:
             names = [n for n, _ in trainable_parameters(self.module)]
-            clip_and_sanitize_grads(names, grads, norm=norm)
+            with trace.span("clip"):
+                clip_and_sanitize_grads(names, grads, norm=norm)
             opt = state.optimizer
             lr = lr_schedule(self.cfg)(state.step // k)
-            for group in opt.param_groups:
-                group["lr"] = lr
-                for p, g in zip(group["params"], grads):
-                    p.grad = g
-            opt.step()
-            for group in opt.param_groups:
-                for p in group["params"]:
-                    p.grad = None
+            with trace.span("adamw"):
+                for group in opt.param_groups:
+                    group["lr"] = lr
+                    for p, g in zip(group["params"], grads):
+                        p.grad = g
+                opt.step()
+                for group in opt.param_groups:
+                    for p in group["params"]:
+                        p.grad = None
             state.accum = None
         state.step += 1
 
     @torch.no_grad()
+    @trace.spanned("sample_fn")
     def sample_fn(self, batch: SceneBatch,
                   generator: Optional[torch.Generator] = None,
                   gen_shape: bool = True, with_manipulation: bool = False,
@@ -531,21 +548,24 @@ class SGDiff:
 
         box_shape = (m, cfg.layout_denoiser.in_channels)
         lc = cfg.layout_diffusion
-        if lc.sampler == "ddpm":
-            vec8 = self.layout_diff.sample_chain(
-                box_denoise, box_shape, clip_denoised=False, noise_rows=n,
-                x_T=noise.get("box_x_T"), step_noise=noise.get("box_steps"),
-                generator=generator, device=dev)
-        else:
-            # drawn at n rows and sliced, as JAX draws its x_T
-            x_T = noise.get("box_x_T")
-            if x_T is None:
-                x_T = torch.randn((n, box_shape[1]), generator=generator,
-                                  device=dev)
-            vec8 = self.layout_diff.sample_chain_fast(
-                box_denoise, box_shape, self.layout_fast_tables[lc.sampler],
-                method=lc.sampler, x_T=x_T.to(dev)[:m], generator=generator,
-                device=dev)
+        with trace.span("layout_chain"):
+            if lc.sampler == "ddpm":
+                vec8 = self.layout_diff.sample_chain(
+                    box_denoise, box_shape, clip_denoised=False,
+                    noise_rows=n, x_T=noise.get("box_x_T"),
+                    step_noise=noise.get("box_steps"),
+                    generator=generator, device=dev)
+            else:
+                # drawn at n rows and sliced, as JAX draws its x_T
+                x_T = noise.get("box_x_T")
+                if x_T is None:
+                    x_T = torch.randn((n, box_shape[1]),
+                                      generator=generator, device=dev)
+                vec8 = self.layout_diff.sample_chain_fast(
+                    box_denoise, box_shape,
+                    self.layout_fast_tables[lc.sampler],
+                    method=lc.sampler, x_T=x_T.to(dev)[:m],
+                    generator=generator, device=dev)
         if m < n:
             vec8 = torch.cat([vec8, vec8.new_zeros((n - m, vec8.shape[1]))], 0)
         out = dict(self.layout_diff.split_sample(vec8))
@@ -555,23 +575,27 @@ class SGDiff:
             sb = cfg.shape_branch
             r, zc = sb.denoiser.image_size, sb.vqvae.embed_dim
             uc_s = ctx["uc_s"][:m, None, :]
-            x_T = self.shape_diff.shared_noise(
-                m, (r, r, r, zc), generator=generator, device=dev,
-                single=noise.get("shape_x_T"))
             chain = (self.shape_diff.dpmpp_sample_chain
                      if sb.sampler == "dpmpp"
                      else self.shape_diff.ddim_sample_chain)
-            z0 = chain(
-                lambda z, t: model.shape_eps(z, t, uc_s, triples, obj_mask,
-                                             tri_mask),
-                (m, r, r, r, zc), self.ddim_tables, x_T=x_T,
-                generator=generator, device=dev)
+            with trace.span("shape_chain"):
+                x_T = self.shape_diff.shared_noise(
+                    m, (r, r, r, zc), generator=generator, device=dev,
+                    single=noise.get("shape_x_T"))
+                z0 = chain(
+                    lambda z, t: model.shape_eps(z, t, uc_s, triples,
+                                                 obj_mask, tri_mask),
+                    (m, r, r, r, zc), self.ddim_tables, x_T=x_T,
+                    generator=generator, device=dev)
             # chunked decode over rows zero-padded to a chunk multiple
-            mp = -(-m // decode_chunk) * decode_chunk
-            if mp > m:
-                z0 = torch.cat([z0, z0.new_zeros((mp - m,) + z0.shape[1:])], 0)
-            sdf = torch.cat([model.decode_latent(z0[i:i + decode_chunk])
-                             for i in range(0, mp, decode_chunk)], 0)[:m]
+            with trace.span("decode"):
+                mp = -(-m // decode_chunk) * decode_chunk
+                if mp > m:
+                    z0 = torch.cat(
+                        [z0, z0.new_zeros((mp - m,) + z0.shape[1:])], 0)
+                sdf = torch.cat(
+                    [model.decode_latent(z0[i:i + decode_chunk])
+                     for i in range(0, mp, decode_chunk)], 0)[:m]
             if m < n:
                 sdf = torch.cat(
                     [sdf, sdf.new_zeros((n - m,) + sdf.shape[1:])], 0)

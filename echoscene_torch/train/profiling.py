@@ -2,7 +2,9 @@
 
 Port of echoscene_tpu/train/profiling.py:
   * `profile_trace(log_dir)`: a `torch.profiler` trace (CPU and CUDA
-    activities) around a training window, written as a Chrome trace;
+    activities) around a training window, written as a Chrome trace; the
+    program's layers appear in it as `echoscene.<name>` ranges
+    (`echoscene_torch/trace.py`), which record only while it runs;
   * `StepTimer`: rolling wall-clock step time and scenes/sec per device;
   * `enable_nan_debugging()`: `torch.autograd.set_detect_anomaly`, the
     reference's switch (train_3dfront.py:210).  The train step itself
