@@ -11,13 +11,27 @@ for training the frozen VQ encode `encode_sdf`, the shape sub-batch
 the module's `forward`.  Batch-norm layers run on batch statistics in
 `.train()` mode, as JAX's `train=True`.
 
+Inside `layout_graphs()`, the scope of one sampling chain, `layout_eps`
+replays the layout denoiser's forward from a CUDA graph where it can: on
+CUDA, without autograd, in eval mode.  The first call of an input
+signature (each input's shape, strides and dtype, and the device) runs
+eagerly, the second captures the forward over static copies of its inputs
+and replays it, and every later one copies its inputs into those copies,
+replays, and returns a copy of the output: a step's ~1,600 launches become
+one graph launch and seven copies.  Elsewhere (training, warm-ups, the
+CPU) every call runs eagerly.  Scopes are per thread: the data-parallel
+sampler runs one thread and stream a shard over one module.  A failed
+capture raises.
+
 Submodule names give the port's state_dict keys; convert/from_jax.py maps
 them to and from the reference checkpoint layout (LayoutDiff.df.model.*,
 shape_df / vqvae sub-dicts).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+import contextlib
+import threading
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -38,6 +52,69 @@ def rel_s_dims(cfg: EchoSceneConfig):
     if cfg.shape_branch.denoiser.conditioning_key == "concat":
         return [out, 1280, 4096]
     return [out, 960, 1280]
+
+
+# the device type on which `layout_eps` replays graphs
+GRAPH_DEVICE = "cuda"
+# this thread's open scopes: module -> {signature: its graph, or None after
+# the signature's first (eager) call}
+_scopes = threading.local()
+# (device, caller stream) -> (capture stream, the graph that holds the pool)
+_places: Dict[Tuple[int, int], tuple] = {}
+_places_lock = threading.Lock()
+
+
+def _open_scopes() -> dict:
+    if not hasattr(_scopes, "open"):
+        _scopes.open = {}
+    return _scopes.open
+
+
+def _capture_place(dev: torch.device) -> tuple:
+    """The side stream on which the graphs that the caller's current stream
+    replays are captured, and the memory pool they share: one pair per
+    caller stream, kept for the process.  A pool's graphs replay in turn
+    on that one stream, each on inputs copied in and with its output
+    copied out, so a chain's graphs reuse the memory of the last chain's;
+    the cuBLAS workspace of the capture stream, made at its first capture,
+    stays in it.  Graphs that share a pool keep it only while one of them
+    lives: the pool is that of a graph of one fill, kept with the stream."""
+    caller = torch.cuda.current_stream(dev)
+    key = (caller.device_index, caller.stream_id)
+    with _places_lock:
+        if key not in _places:
+            stream, holder = torch.cuda.Stream(dev), torch.cuda.CUDAGraph()
+            with torch.cuda.device(dev), torch.cuda.stream(stream):
+                holder.capture_begin(capture_error_mode="thread_local")
+                torch.zeros(1, device=dev)
+                holder.capture_end()
+            _places[key] = (stream, holder)
+        return _places[key]
+
+
+class _LayoutGraph:
+    """The layout denoiser's forward captured at one input signature."""
+
+    def __init__(self, forward, args):
+        dev = args[0].device
+        stream, holder = _capture_place(dev)
+        self.inputs = [a.clone() for a in args]
+        self.graph = torch.cuda.CUDAGraph()
+        # not `torch.cuda.graph`, whose entry synchronises and empties the
+        # allocator's cache; thread_local lets other threads' shards run
+        with torch.cuda.device(dev), torch.cuda.stream(stream):
+            self.graph.capture_begin(pool=holder.pool(),
+                                     capture_error_mode="thread_local")
+            try:
+                self.output = forward(*self.inputs)
+            finally:
+                self.graph.capture_end()
+
+    def replay(self, args) -> torch.Tensor:
+        for buf, a in zip(self.inputs, args):
+            buf.copy_(a)
+        self.graph.replay()
+        return self.output.clone()
 
 
 class EchoSceneModule(nn.Module):
@@ -143,15 +220,57 @@ class EchoSceneModule(nn.Module):
             out["c_s"] = self.rel_s_mlp(latent, dec.obj_mask)
         return out
 
+    @contextlib.contextmanager
+    def layout_graphs(self):
+        """The scope of one sampling chain on this thread, in which
+        `layout_eps` replays CUDA graphs (module docstring).  Its graphs,
+        their inputs and outputs are dropped when it closes, also when the
+        chain raises."""
+        scopes = _open_scopes()
+        scopes[self] = {}
+        try:
+            yield
+        finally:
+            scopes.pop(self, None)
+
+    def _layout_graph_key(self, args) -> Optional[tuple]:
+        """The signature a call of `layout_eps` is graphed under, or None
+        where it runs eagerly: outside a scope, with autograd recording,
+        in training mode, or off GRAPH_DEVICE."""
+        dev = args[0].device
+        if (self not in _open_scopes() or torch.is_grad_enabled()
+                or self.training or dev.type != GRAPH_DEVICE
+                or any(a.device != dev for a in args)):
+            return None
+        return (dev,) + tuple((a.shape, a.stride(), a.dtype) for a in args)
+
+    def _layout_forward(self, box_t, t, obj_embed, triples, obj_mask,
+                        triple_mask) -> torch.Tensor:
+        return self.layout_denoiser(box_t, obj_embed, triples, t,
+                                    obj_mask=obj_mask, triple_mask=triple_mask)
+
     @trace.spanned("layout_eps")
     def layout_eps(self, box_t: torch.Tensor, t: torch.Tensor,
                    obj_embed: torch.Tensor, triples: torch.Tensor,
                    obj_mask: torch.Tensor,
                    triple_mask: torch.Tensor) -> torch.Tensor:
         """One layout denoiser evaluation; obj_embed is the unconditioned
-        stream (raw embedding + CLIP)."""
-        return self.layout_denoiser(box_t, obj_embed, triples, t,
-                                    obj_mask=obj_mask, triple_mask=triple_mask)
+        stream (raw embedding + CLIP).  Inside `layout_graphs()` it may
+        capture (span `layout_capture`) and replay (`layout_graph`) a CUDA
+        graph of the denoiser."""
+        args = (box_t, t, obj_embed, triples, obj_mask, triple_mask)
+        key = self._layout_graph_key(args)
+        if key is None:
+            return self._layout_forward(*args)
+        graphs = _open_scopes()[self]
+        if key not in graphs:
+            graphs[key] = None
+            return self._layout_forward(*args)
+        if graphs[key] is None:
+            with trace.span("layout_capture"):
+                graphs[key] = _LayoutGraph(self._layout_forward, args)
+        with trace.span("layout_graph"):
+            return graphs[key].replay(args)
 
     @trace.spanned("shape_eps")
     def shape_eps(self, z_t: torch.Tensor, t: torch.Tensor,

@@ -16,7 +16,9 @@ EchoScene.optimizer_ini / lr_lambda, EchoScene.py:117-141):
 
 Both calls mark their parts with `trace.span` (sampling: the twin build,
 the chains, the decode; training: forward, backward, the gradient norm,
-the clip, AdamW), which records only while a `torch.profiler` runs.
+the clip, AdamW), which records only while a `torch.profiler` runs.  The
+layout chain runs inside its module's `layout_graphs()` scope, so that on
+the card its denoiser steps replay a CUDA graph (`models/echo_scene.py`).
 
 Precision: the module holds f32 master parameters; the AdamW state is f32.
 With cfg.compute_dtype == "bfloat16" (the default) each training step runs
@@ -548,7 +550,8 @@ class SGDiff:
 
         box_shape = (m, cfg.layout_denoiser.in_channels)
         lc = cfg.layout_diffusion
-        with trace.span("layout_chain"):
+        # the denoiser's steps replay a CUDA graph on the card
+        with trace.span("layout_chain"), model.layout_graphs():
             if lc.sampler == "ddpm":
                 vec8 = self.layout_diff.sample_chain(
                     box_denoise, box_shape, clip_denoised=False,

@@ -66,8 +66,10 @@ class LayoutDenoiser(UNetTorso):
             parts.append(self.box_time_emb(emb))
         dtype = self.box_embeddings.weight.dtype
         obj_box = torch.cat([p.to(dtype) for p in parts], dim=1)
+        # the (subject, object) columns as a view: a list index would copy
+        # it from the host and synchronise, which a CUDA graph cannot hold
         latent, _ = self.box_graph_cov(
-            obj_box, self.pred_embeddings(triples[:, 1]), triples[:, [0, 2]],
+            obj_box, self.pred_embeddings(triples[:, 1]), triples[:, ::2],
             obj_mask, triple_mask)
         return latent
 

@@ -1,8 +1,10 @@
 """Spans of the program's layers, recorded while a `torch.profiler` runs.
 
 `span(name)` (or the decorator `spanned(name)`) marks one layer's work on
-the host: the sampling call (`SGDiff.sample_fn`) and its parts, the train
-step (`SGDiff.train_step`) and its parts.  While a profiler is active (`torch.profiler.profile`, or
+the host: the sampling call (`SGDiff.sample_fn`) and its parts (inside a
+layout denoiser call, `layout_capture` and `layout_graph` where it
+captures and replays a CUDA graph), the train step (`SGDiff.train_step`)
+and its parts.  While a profiler is active (`torch.profiler.profile`, or
 `train.profiling.profile_trace`) a span
 
   * opens a profiler range named `echoscene.<name>`, so the profiler's own
