@@ -31,7 +31,7 @@ from typing import Dict, List, Set
 
 import torch
 
-from . import model_config, scenes
+from . import check, model_config, scenes
 from .trace import PREFIX, traced
 
 PARTS = ("encode_context", "layout_eps", "shape_eps", "decode_latent")
@@ -303,7 +303,6 @@ class Generation:
     def check(self) -> Dict[str, float]:
         """The kept calls against the reference (the program must be
         released first)."""
-        from . import check
         model = check.reference(self.cfg, self.seed, self.device)
         ref = check.reference_outputs(model, self.cfg, self.graphs[0],
                                       self.rec, self.rows, self.device)
@@ -312,4 +311,50 @@ class Generation:
                              ref)
 
 
+def calibration_line(workload: str, cfg: Dict, mix: Dict, seed: int, spec,
+                     also: Set[str], dev: str = "cuda:0") -> Dict:
+    """One seed's readings (`calibrate.py`): one generation call as a
+    run's window makes it and the control (the reference in float8 / int4
+    at its sites, the chains' updates in bfloat16) against the reference;
+    with "int8" in `also`, the program with its own int8 path switched on
+    (`sample_dtype: int8`) too."""
+    t0 = time.perf_counter()
+    run = Generation(cfg, mix, seed, dev, spec, False)
+    run.window(0.0)
+    graph, rows, real = run.graphs[0], run.rows, run.graphs[0]["real_nodes"]
+    sound = (run.rec, check.produced(run.rec, run.host, real))
+    own = None
+    if "int8" in also:
+        run.sg.cfg.sample_dtype = "int8"
+        run.rec, run.host = Recorder(False, run.rec.keep), {}
+        run.rec.armed = True
+        run.one_call(0)
+        own = (run.rec, check.produced(run.rec, run.host, real))
+    run.release()
+    del run
+    t1 = time.perf_counter()
+    ref = check.reference(cfg, seed, dev)
+    want = check.reference_outputs(ref, cfg, graph, sound[0], rows, dev)
+    sync(dev)
+    t2 = time.perf_counter()
+    ctl = check.reference(cfg, seed, dev, "control")
+    line = {"workload": workload, "seed": seed,
+            "program": check.numbers(sound[1], want),
+            "control": check.numbers(check.reference_outputs(
+                ctl, cfg, graph, sound[0], rows, dev, torch.bfloat16), want),
+            "program_s": t1 - t0, "reference_s": t2 - t1}
+    del ctl
+    if own is not None:
+        line["program_int8"] = check.numbers(own[1], check.reference_outputs(
+            ref, cfg, graph, own[0], rows, dev))
+    del ref
+    if dev != "cpu":
+        torch.cuda.empty_cache()
+    return line
+
+
 Driver = Generation
+weight_spec = check.weight_spec
+NUMBERS = check.NUMBERS
+CALIBRATION_SEEDS = {"int8": "also the program with its own int8 path "
+                             "switched on (sample_dtype int8)"}

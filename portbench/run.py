@@ -47,8 +47,8 @@ def forbidden_modules() -> List[str]:
                    if name.split(".")[0] in FORBIDDEN})
 
 
-def load_spec(root: str = ROOT) -> Dict:
-    with open(os.path.join(root, "BENCHMARK.json")) as f:
+def load_spec() -> Dict:
+    with open(os.path.join(ROOT, "BENCHMARK.json")) as f:
         return json.load(f)
 
 
@@ -86,9 +86,12 @@ def reader(name: str):
     return mod.read
 
 
-def driver(kind: str):
-    """The driver of a traffic kind: `Driver` of `portbench/<kind>.py`."""
-    return importlib.import_module(f"portbench.{kind}").Driver
+def kind(name: str):
+    """The module of a traffic kind, `portbench/<name>.py`, which owns all
+    that is particular to its model: `Driver`, `weight_spec(cfg)`,
+    `NUMBERS` (the names its `check()` returns), `CALIBRATION_SEEDS` and
+    `calibration_line` (`calibrate.py`)."""
+    return importlib.import_module(f"portbench.{name}")
 
 
 def run_cell(workload: str, seed: int, seconds: float, trace: bool,
@@ -115,8 +118,8 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
     cfg = cfg or model_config.load(cell["config"])
     mix = mix or scenes.load(cell["traffic"])
     limits = check.limits(workload)
-    run = driver(mix["kind"])(cfg, mix, seed, dev, check.weight_spec(cfg),
-                              trace)
+    mod = kind(mix["kind"])
+    run = mod.Driver(cfg, mix, seed, dev, mod.weight_spec(cfg), trace)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     setup_s = time.perf_counter() - T_START

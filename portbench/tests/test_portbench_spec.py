@@ -55,6 +55,10 @@ def test_names_and_units(spec):
 def test_metric_keys_and_bounds(spec):
     e2e = {m["name"]: m for m in spec["end_to_end"]}
     assert "setup_s" in e2e and e2e["setup_s"]["bound"] <= 0.25
+    cells = {w["name"] for w in spec["workloads"]}
+    for m in spec["end_to_end"] + spec["per_layer"]:
+        if "workloads" in m:
+            assert m["workloads"] and set(m["workloads"]) <= cells, m["name"]
     for m in spec["end_to_end"]:
         assert set(m) <= {"name", "unit", "better", "bound", "source",
                           "workloads"}
@@ -68,7 +72,8 @@ def test_metric_keys_and_bounds(spec):
 
 def test_every_cell_resolves(spec):
     from portbench import check, model_config, scenes
-    from portbench.run import metrics_for, metrics_for_e2e, reader
+    from portbench.run import kind as kind_module, metrics_for, \
+        metrics_for_e2e, reader
     configs = {c["name"]: c for c in spec["configs"]}
     used = set()
     pairs = set()
@@ -84,8 +89,8 @@ def test_every_cell_resolves(spec):
         assert cfg["source"] == c["source"]
         assert cfg["reduced"] == c["reduced"]
         kind = scenes.load(w["traffic"])["kind"]
-        numbers = {"generate": check.NUMBERS, "train": check.TRAIN_NUMBERS}
-        assert set(check.limits(w["name"])) == set(numbers[kind])
+        numbers = kind_module(kind).NUMBERS
+        assert set(check.limits(w["name"])) == set(numbers)
         e2e = {m["name"] for m in metrics_for_e2e(spec, w["name"])}
         assert "setup_s" in e2e and len(e2e) >= 2
         layer = metrics_for(spec, w["name"])

@@ -71,7 +71,7 @@ def test_gaps_named_by_the_launching_span():
     gaps = dict((name, s) for name, s in tr.idle_gaps())
     assert gaps["shape_eps"] == 220 / 1e9      # 180 .. 400
     assert gaps["layout_eps"] == 100 / 1e9     # 0 .. 100
-    assert gaps["sample_fn"] == 200 / 1e9      # 500 .. 700, launched outside
+    assert gaps["outside_spans"] == 200 / 1e9  # 500 .. 700, launched outside
     assert gaps["window end"] == 200 / 1e9
     top = tr.top_ops()
     assert top[0] == ["fill", 100 / 1e9] or top[0][0] in ("gemm_a", "fill")

@@ -21,6 +21,7 @@ import torch
 
 PREFIX = "portbench."
 WINDOW = "window"
+OUTSIDE = "outside_spans"
 MIN_ATTRIBUTED = 0.99
 
 
@@ -122,8 +123,9 @@ class Trace:
 
     def idle_gaps(self, n: int = 10) -> List[List]:
         """The longest idle gaps of the device, each named by the span in
-        which the host launched the activity that ended it ("window end"
-        for the last)."""
+        which the host launched the activity that ended it
+        ("outside_spans" where it was launched outside every benchmark
+        span, "window end" for the last)."""
         busy = self.busy_intervals()
         gaps = []
         edge = self.start_ns
@@ -134,7 +136,7 @@ class Trace:
             if s > edge:
                 d = starts.get(s)
                 name = (self.owner(d) if d is not None else None) \
-                    or "sample_fn"
+                    or OUTSIDE
                 gaps.append((s - edge, name))
             edge = e
         if self.end_ns > edge:

@@ -16,11 +16,11 @@ are opened in a traced run only.
 from __future__ import annotations
 
 import time
-from typing import Dict, List
+from typing import Dict, List, Set
 
 import torch
 
-from . import model_config, scenes
+from . import check, model_config, scenes
 from .generate import scene_batch, span, sync
 from .trace import traced
 from .weights import draw_
@@ -173,8 +173,77 @@ class Training:
     def check(self) -> Dict[str, float]:
         """The program's checked steps against the reference's (the program
         must be released first)."""
-        from . import check
         return check.training_numbers(self)
 
 
+class Steps:
+    """Checked steps' readings, as a training run keeps them."""
+
+    def __init__(self, r: Dict):
+        self.losses, self.first_grad, self.change = (
+            r["losses"], r["first_grad"], r["change"])
+
+
+def worst_leaves(run, ref: Dict, n: int = 4) -> Dict:
+    """Beside each training number: the largest gaps of the leaves it
+    compares (name, gap, program's and reference's norms), the median
+    leaf's gap, the relative gap of the vector of leaf norms, and every
+    step's loss gap."""
+    med = float(torch.tensor(list(ref["first_grad"].values())).median())
+    leaves = [k for k, v in ref["first_grad"].items()
+              if v >= check.ROUNDOFF_LEAF * med]
+    out = {"loss_gaps": [abs(a - b) / abs(b) for a, b in
+                         zip(run.losses, ref["losses"])]}
+    for key in ("first_grad", "change"):
+        p, q = getattr(run, key), ref[key]
+        m = float(torch.tensor([q[k] for k in leaves]).median())
+        gaps = sorted(((abs(p[k] - q[k]) / max(q[k], m), k)
+                       for k in leaves), reverse=True)
+        out[key] = [[k, g, p[k], q[k]] for g, k in gaps[:n]]
+        out[key + "_median_leaf_gap"] = gaps[len(gaps) // 2][0]
+        out[key + "_norms_gap"] = float(
+            torch.tensor([p[k] - q[k] for k in leaves]).norm()
+            / torch.tensor([q[k] for k in leaves]).norm())
+    return out
+
+
+def calibration_line(workload: str, cfg: Dict, mix: Dict, seed: int, spec,
+                     also: Set[str], dev: str = "cuda:0") -> Dict:
+    """One seed's readings (`calibrate.py`): the checked steps of a run's
+    set-up and the control (the reference in the precision below) against
+    the reference; with "fault" in `also`, the program with half of each
+    batch left out of its losses, the mean taken over the rest, too."""
+    from .calibrate import half_batch_losses
+    t0 = time.perf_counter()
+    run = Training(cfg, mix, seed, dev, spec, False)
+    run.release()
+    t1 = time.perf_counter()
+    ref = check.reference_training(run)
+    t2 = time.perf_counter()
+    ctl = Steps(check.reference_training(run, "control"))
+    line = {"workload": workload, "seed": seed,
+            "program": check.training_numbers(run, ref),
+            "control": check.training_numbers(ctl, ref),
+            "control_detail": worst_leaves(ctl, ref),
+            "program_s": t1 - t0, "reference_s": t2 - t1,
+            "losses": run.losses, "reference_losses": ref["losses"],
+            "worst_leaves": worst_leaves(run, ref)}
+    if "fault" in also:
+        restore = half_batch_losses()
+        try:
+            bad = Training(cfg, mix, seed, dev, spec, False)
+            bad.release()
+        finally:
+            restore()
+        line["program_half_batch"] = check.training_numbers(bad, ref)
+        line["half_batch_detail"] = worst_leaves(bad, ref)
+    if dev != "cpu":
+        torch.cuda.empty_cache()
+    return line
+
+
 Driver = Training
+weight_spec = check.weight_spec
+NUMBERS = check.TRAIN_NUMBERS
+CALIBRATION_SEEDS = {"fault": "also the program with half of each batch "
+                              "left out of its losses"}
