@@ -110,3 +110,21 @@ def train_ops(cfg: Dict, mix: Dict) -> Dict[str, float]:
                                 allow_unused=True)
         ops = _count(step)
     return {"bf16": float(ops), "int8": 0.0}
+
+
+def vqvae_train_ops(cfg: Dict, mix: Dict) -> Dict[str, float]:
+    """{"bf16": ops, "int8": 0} of one VQ-VAE train step at the mix's batch:
+    the reference's loss forward and its backward on the meta device,
+    nothing recomputed.  The products are float32; they are taken against
+    the bf16 peak, which no float32 arithmetic passes."""
+    from .reference import vqvae as V
+    res = mix["sdf_resolution"]
+    with torch.device("meta"):
+        model = V.VQVAE(V.model_dict(cfg))
+        x = torch.zeros(mix["batch"], res, res, res, 1)
+
+        def step():
+            total = V.loss(model, x, cfg["codebook_weight"])
+            torch.autograd.grad(total, list(model.parameters()))
+        ops = _count(step)
+    return {"bf16": float(ops), "int8": 0.0}

@@ -25,7 +25,7 @@ from portbench.weights import draw_, spec_of
 
 torch.set_num_threads(1)
 KIND, CONFIG, CELL = "grid_fit", "grid_ae_f32", "grid_fit_f32"
-METRIC, STEP_MS = "vqvae_train_grids_per_s", "grid_step_ms.fit"
+METRIC, STEP_MS = "grid_fit_grids_per_s", "grid_step_ms.fit"
 NUMBERS = ("first_loss", "change")
 
 
