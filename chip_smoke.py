@@ -107,6 +107,19 @@ result line):
        shape, the bf16 cuDNN F.conv3d and the im2col + _int_mm route (the
        same int32 function); and a rank's column-split Q2 at K = 112 (half
        of the 224-wide tile empty) beside the whole K = 224;
+     * the fused GroupNorm (+ shift) + activation (`csrc/group_norm_act.cu`,
+       a hand kernel with no TPU counterpart) at each distinct norm of the
+       flagship's shape step at 272 rows (`unet3d.torso_norm_sites`),
+       with the bf16 twin's activation and, after a ResBlock's or the
+       output's norm, the int8 twin's RoundedSiLU: the norm within 2^-20
+       of the slab's and the bias's scale of the plain path's f32 norm
+       plus half a bf16 ulp (the summation order, rounding to nearest),
+       the activation bit-equal to the plain one on the kernel's norm
+       (`group_norm.gap_to_plain`), the worst gap to the plain output in
+       bf16 ulps printed; times beside the bytes bound (2 + 2 bytes an
+       element at 3.35 TB/s), the plain path and F.group_norm + F.silu on
+       the bf16 tensor, which the port does not call; phases 4 and 13
+       require every norm of every shape step fused (its launches);
   3. check the port on the card against the port on the CPU: the tiny
      test configuration in f32 (same weights, same injected noise; max abs
      error <= 1e-4 on boxes and SDFs), one tiny-config f32 training step
@@ -756,6 +769,113 @@ def int8_entries(chk: dict) -> list:
             "per_shape": rows,
             "status": "hand kernel of the port, no TPU counterpart"})
     return out
+
+
+GN_ROWS = 272   # the generation cells' middle row count (256 / 272 / 288)
+GN_REPLACES = ("none: a hand kernel of the port; JAX's group_norm_fast "
+               "(echoscene_tpu/nn/blocks.py) + SiLU is fused by XLA")
+
+
+def check_group_norm_kernel(rows: int = GN_ROWS) -> dict:
+    """Phase 2 for the fused GroupNorm (+ shift) + activation
+    (`kernels/group_norm.py`, `csrc/group_norm_act.cu`) at every distinct
+    norm of the flagship's shape step at `rows` rows
+    (`unet3d.torso_norm_sites`), with the bf16 twin's activation and,
+    after a ResBlock's or the output's norm, the int8 twin's RoundedSiLU
+    too: the norm within its error model and the activation exact
+    (`group_norm.gap_to_plain`; fatal otherwise), the worst gap to the
+    plain path in bf16 ulps; times of the kernel, the plain path (the code
+    it replaces), F.group_norm + F.silu on the bf16 tensor (no shift),
+    beside the bytes bound; `calls_per_step`, the norms of a shape step."""
+    import torch
+    import torch.nn.functional as F
+    from echoscene_torch.kernels import group_norm as gnk
+    from echoscene_torch.models.config import ShapeDenoiserConfig
+    from echoscene_torch.nn.unet3d import torso_norm_sites
+
+    sites = torso_norm_sites(ShapeDenoiserConfig(), rows)
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    out = []
+    for site in sites:
+        shape = site["x_shape"]
+        n, c = shape[:2]
+        g, eps = site["groups"], site["eps"]
+        x = (torch.randn(shape, generator=gen, device="cuda") * 2.5
+             + 0.3).bfloat16()
+        shift = (torch.randn((n, c), generator=gen, device="cuda").bfloat16()
+                 if site["shift"] else None)
+        acts = [site["act"]] + (["rounded_silu"] if site["act"] == "silu"
+                                else [])
+        for act in acts:
+            pdt = torch.float32 if act == "rounded_silu" else torch.bfloat16
+            w = (1 + 0.3 * torch.randn(c, generator=gen, device="cuda")
+                 ).to(pdt)
+            b = (0.2 * torch.randn(c, generator=gen, device="cuda")).to(pdt)
+            got = gnk.group_norm_act(x, g, eps, w, b, shift, act)
+            gap = gnk.gap_to_plain(x, g, eps, w, b, shift, act, got)
+            if gap["norm_of_bound"] > 1 or not gap["act_exact"]:
+                fail(f"group_norm_act {site['name']} {act}: {gap}")
+            row = dict(name=site["name"], shape=list(shape), groups=g,
+                       act=act, shift=site["shift"],
+                       calls_per_step=site["calls"], **gap)
+            del got
+            row["ms"] = cuda_ms(lambda: gnk.group_norm_act(
+                x, g, eps, w, b, shift, act), 10)
+            row["plain_ms"] = cuda_ms(lambda: gnk.group_norm_act_plain(
+                x, g, eps, w, b, shift, act), 3, warmup=1)
+            row["library_ms"] = cuda_ms(lambda: F.silu(F.group_norm(
+                x, g, w.bfloat16(), b.bfloat16(), eps)), 3, warmup=1)
+            row["bound_ms"] = gnk.group_norm_bound(x.numel())["ms"]
+            row["share_of_bound"] = row["bound_ms"] / row["ms"]
+            out.append(row)
+            torch.cuda.empty_cache()
+    step = {key: sum(r[key] * r["calls_per_step"] for r in out
+                     if r["act"] != "rounded_silu")
+            for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    step_int8 = {key: sum(r[key] * r["calls_per_step"] for r in out
+                          if r["act"] != "silu")
+                 for key in ("ms", "plain_ms", "bound_ms")}
+    return {"rows": out, "per_step_bf16": step, "per_step_int8": step_int8,
+            "calls_per_step": sum(site["calls"] for site in sites)}
+
+
+def group_norm_entry(chk: dict, launches: int) -> dict:
+    """The `kernels` entry of the fused norm: its `launches` in the main
+    path's generation, the numbers of the level-0 224-channel norm (the
+    most frequent shape at 16^3), every shape under `per_shape`, the
+    per-step totals of the bf16 and int8 twins."""
+    main = next(r for r in chk["rows"] if r["shape"][1:] == [224, 16, 16, 16]
+                and r["act"] == "silu" and not r["shift"])
+    return {"name": "group_norm_act", "route": "cuda", "dtype": "bfloat16",
+            "source": "echoscene_torch/csrc/group_norm_act.cu",
+            "replaces": GN_REPLACES, "launches": launches,
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": "bytes",
+            "library_ms": main["library_ms"],
+            "library": "F.silu(F.group_norm(x)) on the bf16 tensor",
+            "max_ulps": max(r["max_ulps"] for r in chk["rows"]),
+            "norm_of_bound": max(r["norm_of_bound"] for r in chk["rows"]),
+            "shape": main["shape"],
+            "per_step_totals": chk["per_step_bf16"],
+            "per_step_totals_int8": chk["per_step_int8"],
+            "per_shape": chk["rows"],
+            "status": "hand kernel of the port, no TPU counterpart"}
+
+
+def print_group_norm(chk: dict, card: str) -> None:
+    for r in chk["rows"]:
+        print(f"kernel group_norm_act {r['name']} {r['shape']} {r['act']}"
+              f"{' + shift' if r['shift'] else ''}: {r['ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.4f} ms (bytes), share "
+              f"{r['share_of_bound']:.3f}; plain {r['plain_ms']:.4f} ms; "
+              f"F.group_norm + F.silu {r['library_ms']:.4f} ms; "
+              f"{r['calls_per_step']} a shape step; the norm at "
+              f"{r['norm_of_bound']:.6f} of its bound, the activation "
+              f"exact; worst {r['max_ulps']} bf16 ulp to the plain output, "
+              f"{r['differ']:.2e} of the outputs differ [{card}]")
+    print(f"kernel group_norm_act per shape step (bf16 twin): "
+          f"{json.dumps(chk['per_step_bf16'])}; int8 twin: "
+          f"{json.dumps(chk['per_step_int8'])} [{card}]")
 
 
 def l2_rotation(t):
@@ -3902,13 +4022,14 @@ def tp_path(rows: int, card: str) -> dict:
     return out
 
 
-def int8_path(card: str, sites: dict) -> dict:
+def int8_path(card: str, sites: dict, norms_per_step: int) -> dict:
     """Phase 13: bench.py's fast profile at full width, `build_flagship(
     fast_profile=True)`: int8 W8A8 shape-torso convolutions, DPM++ 50
     layout / 20 shape steps, on the flagship batch.  One generation with
     every count set to 0 just before and read just after (K1 = 5 a shape
     step, K2 = one a decode chunk, Q2 = `q2_calls_per_step` and Q1 =
-    `q1_calls_per_step` a shape step), finite outputs of the JAX shapes;
+    `q1_calls_per_step` a shape step, the fused norm `norms_per_step` a
+    shape step), finite outputs of the JAX shapes;
     the cost of building the int8 twin (a fresh twin per sample_fn call,
     ~57 weights quantized); one shape step of the int8 twin beside the bf16
     twin's on the same weights and inputs (ms, busy share, top kernels, the
@@ -3928,6 +4049,7 @@ def int8_path(card: str, sites: dict) -> dict:
     from echoscene_torch.data.fake import make_fake_dataset
     from echoscene_torch.data.sgfront import SGFrontDataset
     from echoscene_torch.kernels import flash_attention as fa
+    from echoscene_torch.kernels import group_norm as gnk
     from echoscene_torch.kernels import int8_conv as q8
     from echoscene_torch.models.sgdiff import (inference_twin,
                                                shape_row_capacity)
@@ -3946,10 +4068,11 @@ def int8_path(card: str, sites: dict) -> dict:
         torch.cuda.synchronize()
         fa.reset_launches()
         q8.reset_launches()
+        gnk.reset_launches()
 
     def counts():
         torch.cuda.synchronize()
-        return {**fa.LAUNCHES, **q8.LAUNCHES}
+        return {**fa.LAUNCHES, **q8.LAUNCHES, **gnk.LAUNCHES}
 
     # 1. one generation, counted
     reset()
@@ -3960,6 +4083,7 @@ def int8_path(card: str, sites: dict) -> dict:
             "stream_attention": math.ceil(rows / 8),
             "quantize_act": sites["q1_calls_per_step"] * steps,
             "int8_conv3d": sites["q2_calls_per_step"] * steps,
+            "group_norm_act": norms_per_step * steps,
             # one device: no row-split convolution
             "quantize_amax": 0, "quantize_with_amax": 0,
             "int8_conv3d_acc": 0}
@@ -4065,6 +4189,7 @@ def int8_path(card: str, sites: dict) -> dict:
             "stream_attention": sum(math.ceil(r / 8) for r in dispatch_rows),
             "quantize_act": sites["q1_calls_per_step"] * steps * nd,
             "int8_conv3d": sites["q2_calls_per_step"] * steps * nd,
+            "group_norm_act": norms_per_step * steps * nd,
             "quantize_amax": 0, "quantize_with_amax": 0,
             "int8_conv3d_acc": 0}
     results = stream["results"]
@@ -4135,6 +4260,7 @@ def main() -> int:
     from echoscene_torch import native
     from echoscene_torch.kernels import chamfer as k4
     from echoscene_torch.kernels import flash_attention as fa
+    from echoscene_torch.kernels import group_norm as gnk
     from echoscene_torch.kernels import int8_conv as q8
     from echoscene_torch.models.sgdiff import set_precision, shape_row_capacity
 
@@ -4146,7 +4272,7 @@ def main() -> int:
     # 1. build: one nvcc per source, all started together
     sources = (fa.SOURCE, fa.SOURCE_BWD, fa.SOURCE_BWD_EARLIER, fa.SOURCE_F32,
                BASELINE_SOURCE, F32_SIMT_SOURCE, k4.SOURCE, K4_DIRECT_SOURCE,
-               q8.SOURCE, q8.EARLIER_SOURCE)
+               q8.SOURCE, q8.EARLIER_SOURCE, gnk.SOURCE)
     t0 = time.perf_counter()
     built = build.build_all(sources)
     for source in sources:
@@ -4329,6 +4455,8 @@ def main() -> int:
     for e in int8_kernel_entries:
         print(f"kernel {e['name']} per shape step (the torso's shapes x "
               f"their calls): {json.dumps(e['per_step_totals'])} [{card}]")
+    gnchk = check_group_norm_kernel()
+    print_group_norm(gnchk, card)
     tpchk = check_tp_int8_kernels(rows)
     tp_int8_kernel_entries = tp_int8_entries(tpchk)
     for r in tpchk["q1"]:
@@ -4381,9 +4509,11 @@ def main() -> int:
           f"{batch.num_nodes}, built in {time.perf_counter() - t0:.2f} s")
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launches()
+    gnk.reset_launches()
     sps, wall, out = time_generation(sg, batch, batch.num_scenes, n_iters=1,
                                      warmup=False)
-    launches = dict(fa.LAUNCHES)
+    torch.cuda.synchronize()
+    launches = {**fa.LAUNCHES, **gnk.LAUNCHES}
     n = batch.num_nodes
     want_shapes = {"sizes": (n, 3), "translations": (n, 3), "angles": (n, 1),
                    "keep": (n,), "shapes": (n, 64, 64, 64, 1)}
@@ -4395,12 +4525,16 @@ def main() -> int:
     if not bool(out["shapes"][:rows].float().abs().sum() > 0):
         fail("decoded SDFs of the real rows are all zero")
     want = {"onepass_attention": 5 * sg.ddim_tables.num_steps,
-            "stream_attention": math.ceil(rows / 8)}
+            "stream_attention": math.ceil(rows / 8),
+            # every norm of every shape step fused
+            "group_norm_act": (gnchk["calls_per_step"]
+                               * sg.ddim_tables.num_steps)}
     for name, count in want.items():
         if launches[name] != count:
             fail(f"{name} launched {launches[name]} times, want {count}")
     for e in entries[:2]:
         e["launches"] = launches[e["name"]]
+    gn_launches = launches["group_norm_act"]
     print(f"generation: {wall:.3f} s wall, {sps:.4f} scenes/sec "
           f"({batch.num_scenes} scenes, first call in the process), peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
@@ -4607,12 +4741,15 @@ def main() -> int:
     print(f"tp details: {json.dumps(tp)}; phase 12 took "
           f"{tp['phase_s']:.1f} s")
     # 13. bench.py's fast profile: int8 torso, DPM++ 50 / 20, at full width
-    i8 = int8_path(card, q8chk)
+    i8 = int8_path(card, q8chk, gnchk["calls_per_step"])
     for e in int8_kernel_entries:
         e["launches"] = i8["launches"][e["name"]]
         e["service_launches"] = i8["service"]["launches"][e["name"]]
     for e in entries[:2]:
         e["int8_profile_launches"] = i8["launches"][e["name"]]
+    gn_int8_launches = {"int8_profile_launches": i8["launches"][
+        "group_norm_act"], "service_launches": i8["service"]["launches"][
+        "group_norm_act"]}
     print(f"int8 details: {json.dumps(i8)}; phase 13 took "
           f"{i8['phase_s']:.1f} s")
     entries.append(tp_entry)
@@ -4621,6 +4758,8 @@ def main() -> int:
     for e in entries:
         e["status"] = "ported: built, matches its plain version, on the path"
     entries += int8_kernel_entries + tp_int8_kernel_entries
+    entries.append(dict(group_norm_entry(gnchk, gn_launches),
+                        **gn_int8_launches))
 
     print(f"chip_smoke: {time.perf_counter() - T_START:.1f} s in all")
     print(json.dumps({"kernels": entries}))

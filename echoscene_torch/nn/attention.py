@@ -20,7 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels.attention import dot_product_attention
-from .blocks import GroupNorm32, layer_norm, zero_module
+from .blocks import GroupNorm32, group_norm_act, layer_norm, zero_module
 from .layers import Linear, conv_nd, pointwise, remat
 
 
@@ -117,10 +117,13 @@ class SpatialTransformer(nn.Module):
     def forward(self, x, context=None):
         b, c = x.shape[:2]
         spatial = x.shape[2:]
-        h = self.norm(x).reshape(b, c, -1).transpose(1, 2)
+        h = group_norm_act(x, self.norm).reshape(b, c, -1).transpose(1, 2)
         h = pointwise(self.proj_in, h)
         for block in self.transformer_blocks:
             h = (remat(block, h, context) if self.use_checkpoint
                  else block(h, context))
         h = pointwise(self.proj_out, h)
-        return h.transpose(1, 2).reshape(b, c, *spatial) + x
+        # x first: the sum takes x's memory layout, not the channels-last
+        # strides of the tokens' transposed view (the fused norm of the
+        # next block reads channel-first slabs)
+        return x + h.transpose(1, 2).reshape(b, c, *spatial)

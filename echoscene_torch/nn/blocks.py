@@ -21,8 +21,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import trace
+from ..kernels import group_norm as gn_kernel
 from .layers import Conv3d, Linear, conv_nd
-from .quant import Int8Conv3d
+from .quant import Int8Conv3d, RoundedSiLU
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int,
@@ -53,6 +55,68 @@ def group_norm(x: torch.Tensor, groups: int, eps: float, weight: torch.Tensor,
                                         *(1,) * (x.dim() - 2))
     return F.group_norm(xf, groups, weight.float(), bias.float(),
                         eps).to(x.dtype)
+
+
+def act_mode(act: Optional[nn.Module]) -> Optional[str]:
+    """The kernel's name (`kernels.group_norm.ACTS`) of the activation
+    module that follows a norm, or None for one the kernel does not
+    compute."""
+    if act is None:
+        return "none"
+    if type(act) is nn.SiLU:
+        return "silu"
+    if type(act) is RoundedSiLU:
+        return "rounded_silu"
+    return None
+
+
+def plain_reason(x: torch.Tensor, norm: nn.GroupNorm,
+                 act: Optional[nn.Module] = None,
+                 shift: Optional[torch.Tensor] = None) -> Optional[str]:
+    """Why `group_norm_act` computes these inputs by the modules, or None
+    where it launches the fused kernel.  The kernel computes the same
+    function only for a bf16 x with three spatial dims, with nothing for
+    autograd to record (it has no backward) and an activation it knows,
+    on a CUDA device (checked last, so that each other reason shows on the
+    CPU).  Nothing else keeps x from it: the kernel raises on a slab it
+    cannot take (`kernels.group_norm.unfit`)."""
+    if x.dtype != torch.bfloat16:
+        return f"dtype {x.dtype}, not bfloat16"
+    if x.dim() != 5:
+        return f"{x.dim() - 2} spatial dims, not 3"
+    tensors = (x, norm.weight, norm.bias) + (() if shift is None
+                                              else (shift,))
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return "autograd records"
+    if act_mode(act) is None:
+        return f"activation {type(act).__name__}"
+    if x.device.type != "cuda":
+        return f"on {x.device.type}, not CUDA"
+    return None
+
+
+def group_norm_act(x: torch.Tensor, norm: nn.GroupNorm,
+                   act: Optional[nn.Module] = None,
+                   shift: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """act(norm(x, shift=shift)) (just the norm where `act` is None): by
+    the fused kernel (`kernels.group_norm`, on x made contiguous) where
+    `plain_reason` finds nothing against it, else by the modules.  Each
+    call on x with three spatial dims is a `norm3d` span, and a call that
+    takes the kernel holds a `norm3d_fused` span."""
+    if x.dim() != 5:
+        return _norm_act(x, norm, act, shift)
+    with trace.span("norm3d"):
+        if plain_reason(x, norm, act, shift) is None:
+            with trace.span("norm3d_fused"):
+                return gn_kernel.group_norm_act(
+                    x.contiguous(), norm.num_groups, norm.eps, norm.weight,
+                    norm.bias, shift, act_mode(act))
+        return _norm_act(x, norm, act, shift)
+
+
+def _norm_act(x, norm, act, shift):
+    h = norm(x, shift=shift)
+    return h if act is None else act(h)
 
 
 def layer_norm(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
@@ -306,8 +370,10 @@ class ResBlock(nn.Module):
             self.skip_connection = conv_nd(dims, channels, out_channels, 1)
 
     def forward(self, x, emb):
-        h = self.in_layers(x)
+        h = self.in_layers[2](group_norm_act(x, self.in_layers[0],
+                                             self.in_layers[1]))
         emb_out = self.emb_layers(emb)
-        h = self.out_layers[0](h, shift=emb_out)
-        h = self.out_layers[3](self.out_layers[1](h))
+        h = group_norm_act(h, self.out_layers[0], self.out_layers[1],
+                           shift=emb_out)
+        h = self.out_layers[3](h)
         return self.skip_connection(x) + h

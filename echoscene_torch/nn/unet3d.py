@@ -15,12 +15,12 @@ as the JAX module does, so weights bridged from JAX give the same function.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 from torch import nn
 
-from .blocks import timestep_embedding
+from .blocks import GroupNorm32, act_mode, timestep_embedding
 from .gcn import GraphTripleConvNet
 from .layers import Conv3d, Linear
 from .unet_core import UNetTorso
@@ -119,5 +119,77 @@ class ShapeDenoiser(UNetTorso):
                 ctx = None
             elif self.conditioning_key == "crossattn":
                 ctx = latent[:, None, :]
+        # the torso runs channel-first in memory too: the permuted view's
+        # channels-last strides would otherwise carry through cuDNN into
+        # every activation up to the first upsample, and the fused norm
+        # (`blocks.group_norm_act`) reads contiguous (row, group) slabs
+        x_cf = x_cf.contiguous()
         out = super().forward(x_cf, emb, ctx)
         return out.permute(0, 2, 3, 4, 1)
+
+
+# a norm's name in `torso_norm_sites` by the end of its module's path
+_NORM_KINDS = {"in_layers.0": "ResBlock in", "out_layers.0": "ResBlock out",
+               "norm": "SpatialTransformer", "out.0": "out"}
+
+
+def torso_norm_sites(cfg, rows: int) -> List[Dict]:
+    """The GroupNorms of the torso of one call of a ShapeDenoiser of `cfg`
+    (a `ShapeDenoiserConfig`) at `rows` rows, as the model calls them: in
+    call order, merged by their arguments into dicts of `name` (kind and
+    channels), `x_shape`, `groups`, `eps`, `shift` (the norm adds the time
+    embedding), `act` (the activation after it in the bf16 model: "silu"
+    or "none"; the int8 twin computes RoundedSiLU where this reads "silu")
+    and `calls`.  The torso runs once on the meta device with hooks on its
+    norms and activations, so nothing is computed or allocated."""
+    with torch.device("meta"):
+        model = ShapeDenoiser(
+            image_size=cfg.image_size, in_channels=cfg.in_channels,
+            model_channels=cfg.model_channels,
+            out_channels=cfg.out_channels,
+            num_res_blocks=cfg.num_res_blocks,
+            attention_resolutions=tuple(cfg.attention_resolutions),
+            channel_mult=tuple(cfg.channel_mult), num_heads=cfg.num_heads,
+            transformer_depth=cfg.transformer_depth,
+            context_dim=cfg.context_dim,
+            conditioning_key=cfg.conditioning_key, message_passing=False)
+    calls: List[Dict] = []
+
+    def on_norm(name):
+        parts = name.split(".")
+        kind = _NORM_KINDS[".".join(parts[-2:]) if parts[-1] == "0"
+                           else parts[-1]]
+
+        def hook(module, args, kwargs, out):
+            x = args[0]
+            calls.append(dict(name=f"{kind} {x.shape[1]}",
+                              x_shape=tuple(x.shape), groups=module.num_groups,
+                              eps=module.eps,
+                              shift=kwargs.get("shift") is not None,
+                              act="none", out=out))
+        return hook
+
+    def on_act(module, args, out):
+        if calls and args[0] is calls[-1]["out"]:
+            calls[-1]["act"] = act_mode(module)
+
+    for name, module in model.named_modules():
+        if isinstance(module, GroupNorm32):
+            module.register_forward_hook(on_norm(name), with_kwargs=True)
+        elif act_mode(module) is not None:
+            module.register_forward_hook(on_act)
+    s = cfg.image_size
+    meta = dict(device="meta")
+    x = torch.zeros(rows, model.input_blocks[0][0].weight.shape[1], s, s, s,
+                    **meta)
+    ctx = (torch.zeros(rows, 1, cfg.context_dim, **meta)
+           if cfg.conditioning_key == "crossattn" else None)
+    with torch.no_grad():
+        UNetTorso.forward(model, x, torch.zeros(
+            rows, 4 * cfg.model_channels, **meta), ctx)
+    sites: Dict[tuple, Dict] = {}
+    for call in calls:
+        del call["out"]
+        key = tuple(v for k, v in call.items() if k != "name")
+        sites.setdefault(key, dict(call, calls=0))["calls"] += 1
+    return list(sites.values())

@@ -15,7 +15,8 @@ import torch
 from torch import nn
 
 from .attention import SpatialTransformer
-from .blocks import GroupNorm32, ResBlock, Upsample, Downsample, zero_module
+from .blocks import (GroupNorm32, ResBlock, Upsample, Downsample,
+                     group_norm_act, zero_module)
 from .layers import conv_nd, remat
 
 
@@ -111,4 +112,4 @@ class UNetTorso(nn.Module):
         h = self.middle_block(h, emb, context)
         for block in self.output_blocks:
             h = block(torch.cat([h, hs.pop()], dim=1), emb, context)
-        return self.out(h)
+        return self.out[2](group_norm_act(h, self.out[0], self.out[1]))

@@ -66,7 +66,7 @@ from ..kernels.attention import dot_product_attention
 from ..kernels.winograd import winograd_conv3d
 from ..models import sgdiff
 from ..nn.attention import CrossAttention
-from ..nn.blocks import ResBlock, WinogradConv3d
+from ..nn.blocks import ResBlock, WinogradConv3d, group_norm_act
 from ..nn.quant import Int8Conv3d
 from .mesh import Mesh, all_gather, all_reduce_
 
@@ -145,11 +145,12 @@ class TPResBlock(ResBlock):
 
     def forward(self, x, emb):
         g = self.tp.group
-        h = self.in_layers[1](self.in_layers[0](x))
+        h = group_norm_act(x, self.in_layers[0], self.in_layers[1])
         h = self.in_layers[2](_Enter.apply(h, g))
         emb_out = self.emb_layers[1](_Enter.apply(
             self.emb_layers[0](emb), g))
-        h = self.out_layers[1](self.out_layers[0](h, shift=emb_out))
+        h = group_norm_act(h, self.out_layers[0], self.out_layers[1],
+                           shift=emb_out)
         conv = self.out_layers[3]
         if isinstance(conv, Int8Conv3d):    # sums over the group itself
             return self.skip_connection(x) + conv(h)

@@ -2,11 +2,12 @@
 
 With the profiler off a sampling call and a train step record nothing;
 under `torch.profiler` they record the tree of the program's layers (one
-root per call, one denoiser span per chain step, one decode span per
-chunk, the int8 conversion only under int8, the optimizer's spans only on
-the micro-step that applies them), each span holding its
-`echoscene.<name>` profiler range within 50 us at either end; the outputs
-are bit-identical either way; the recorder keeps at most its bound.
+root per call, one denoiser span per chain step, one norm span per shape
+torso norm, one decode span per chunk, the int8 conversion only under
+int8, the optimizer's spans only on the micro-step that applies them),
+each span holding its `echoscene.<name>` profiler range within 50 us at
+either end; the outputs are bit-identical either way; the recorder keeps
+at most its bound.
 """
 import pytest
 import torch
@@ -15,6 +16,7 @@ from echoscene_torch import trace
 from echoscene_torch.benchmarks import NUM_OBJS, NUM_PREDS, synthetic_batch
 from echoscene_torch.models.config import tiny_config
 from echoscene_torch.models.sgdiff import SGDiff, shape_row_capacity
+from echoscene_torch.nn.unet3d import torso_norm_sites
 
 torch.set_num_threads(1)
 CHUNK = 4
@@ -120,7 +122,14 @@ def test_sample_fn_records_its_tree(sample_dtype):
         ["shape_eps"] * cfg.shape_branch.ddim_steps
     assert _children(spans, by_name["decode"]) == \
         ["decode_chunk"] * -(-rows // CHUNK)
-    for name in ("encode_context", "layout_eps", "shape_eps",
+    # each shape denoiser call: one `norm3d` a torso norm, none of them
+    # fused on the CPU
+    norms = sum(s["calls"] for s in torso_norm_sites(
+        cfg.shape_branch.denoiser, rows))
+    for i, sp in enumerate(spans):
+        if sp.name == "shape_eps":
+            assert _children(spans, i) == ["norm3d"] * norms
+    for name in ("encode_context", "layout_eps", "norm3d",
                  "decode_chunk", "twin_int8"):
         for i, sp in enumerate(spans):
             if sp.name == name:
