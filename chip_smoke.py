@@ -19,9 +19,7 @@ result line):
        its last 32 keys left out; yardstick scaled_dot_product_attention;
        the bound is `flash_attention.attention_bound` (tensor cores, exp2
        on the SFU at the card's max SM clock, bytes); printed beside it:
-       TFLOP/s, share of the bound, the ratio to the yardstick, the time of
-       the earlier mma.sync design (`csrc/flash_attention_mma.cu`, run here
-       on the same inputs and held to the same tolerance) and the host time
+       TFLOP/s, share of the bound, the ratio to the yardstick, the host time
        of one wrapper call;
      * K4 (nearest-neighbour distance) at the path's shapes (16, 8 and 1
        clouds of 5000 points against 5000) and a ragged one: surface-like
@@ -33,8 +31,7 @@ result line):
        float64 reference rounded to f32 (`chamfer.ulp_distance`, ulps
        counted no finer than `chamfer.ulp_floor`); yardstick cdist(a, b)^2
        min; the bound is `chamfer.nn_distance_bound`; printed beside it:
-       share of the bound, the earlier direct-form design
-       (`csrc/chamfer_direct.cu`, same inputs, same tolerance) and the host
+       share of the bound and the host
        time of one wrapper call;
      * K1 / K2 on f32 inputs (f32 sampling and training), the 3xTF32
        kernel (`csrc/flash_attention_tf32x3.cu`) at the same shapes and
@@ -44,8 +41,7 @@ result line):
        version with its last 32 keys left out; times beside the f32 bound
        (three TF32 products per product at 495 TFLOP/s, exp2, 4-byte
        elements; the f32 FMA route at 67 TFLOP/s beside it), its pre-pass
-       alone, the earlier f32 FMA design (`csrc/flash_attention_f32.cu`,
-       same inputs, same tolerance), SDPA in f32 with TF32 off, the plain
+       alone, SDPA in f32 with TF32 off, the plain
        version and the host time of one wrapper call;
      * K1 / K2 at the training step's shapes ((8, 1024, 8, 56), the VQ
        encoder's (8, 4096, 1, 256)), a tp rank's (8, 1024, 4, 56), the
@@ -64,10 +60,7 @@ result line):
        `attention_plain_lse` and its output bit-equal to the forward
        without lse; phase 1 fails if the backward's ptxas report shows a
        spill; times the kernel forward + backward, the backward kernel
-       alone beside its earlier design (`csrc/flash_attention_bwd_fa2.cu`,
-       `earlier_attention_backward`, in turns) and the host time of one
-       `attention_backward` call, the design before the backward kernel
-       (forward kernel + the plain recompute differentiated), the plain
+       alone and the host time of one `attention_backward` call, the plain
        forward + backward and backward alone, SDPA's forward + backward
        and its backward alone, beside the bounds
        (`attention_backward_bound` for the backward alone);
@@ -81,10 +74,9 @@ result line):
        version (int8 values and scale), Q2's bf16 output within 1 bf16 ulp
        of its plain version (a float64 convolution of the int8 values,
        exact) on every element of all rows, a tolerance the plain version
-       with the last input channel left out must fail; the earlier design
-       of both (`csrc/int8_conv_mma.cu`) held to the same checks; times
+       with the last input channel left out must fail; times
        beside the bound (max(2 M K taps C_in / 1,979 TOP/s, bytes / 3.35
-       TB/s)), the earlier design, the plain versions, the bf16 cuDNN
+       TB/s)), the plain versions, the bf16 cuDNN
        F.conv3d at the same shape (the call the int8 mode replaces) and the
        library route of the same function, an im2col then torch._int_mm
        (cuBLASLt's int8 GEMM) timed together and _int_mm alone, none of
@@ -136,17 +128,9 @@ result line):
      before and read just after; checks finite outputs of the JAX output
      shapes and the launch counts (K1 = 5 per DDIM step, K2 = one per
      decode chunk);
-  5. time each part of that path alone (graph context, one layout step, one
-     shape step, one decode chunk): wall clock per call, and the device busy
-     share and kernel launches of one call under torch.profiler; the shape
-     step and the decode chunk of the flagship's twin (the factored
-     upsamples), of a twin built with interpolate + conv upsamples on the
-     same weights and inputs, and of the flagship's twin again, each with
-     its 8 kernels of the most device time, and the bf16 difference of the
-     two twins' outputs; each upsample site of the flagship (the UNet's at
+  5. each upsample site of the flagship (the UNet's at
      16x4x4 x 672 and 16x8x8 x 448 channels, the decoder's 16^3 x 256 and
-     32^3 x 128) factored against interpolate + conv, in bf16, timed in
-     turns (factored, direct, direct, factored), after the two agree in
+     32^3 x 128) factored against interpolate + conv: the two agree in
      f32 within 1e-5 of the peak;
   6. drive the evaluation path: a fake SG-FRONT dataset (test split) ->
      `SceneEvaluator` generating every scene at flagship width with SDF
@@ -171,14 +155,11 @@ result line):
      step's time between the chamfers (K4) and the auction EMD;
   7. drive the training path on the phase-4 model: bf16, remat on, 8
      scenes, diffusion_bs 8, seeded analytic 64^3 SDFs through the frozen
-     encoder; one warm step and 8 timed (train scenes/sec, ms per step,
+     encoder; 9 steps (the
      peak memory; K1 / K2 counts set to 0 just before and read just after:
      K1 = 10 a step, 5 forward + 5 in the remat recompute, K2 = 1, one
      encoder chunk; K1's backward kernel 5 a step), finite losses, the
-     parts that get gradients moved, the VQ-VAE bit-unchanged; the busy
-     share and kernel launches of one step and of its forward, backward
-     and optimizer under torch.profiler, and of one step with the earlier
-     design's backward (the plain recompute); two steps through
+     parts that get gradients moved, the VQ-VAE bit-unchanged; 2 steps through
      `Trainer.train` over a fake dataset whose SDFs come from an in-memory
      loader (K1 = 20, K2 = 2, the K1 backward 10, finite logged losses); a
      `Trainer.save` -> `restore_checkpoint` round trip into a model with
@@ -186,7 +167,7 @@ result line):
      the saved model's; one step at the yaml's diffusion_bs of 64 (K1 = 10,
      K2 = 8, the K1 backward 5), its peak memory; one step with
      compute_dtype float32 (K1 = 10 and K2 = 1 launches, all f32, and no
-     backward kernel; finite loss, its ms and peak memory);
+     backward kernel; finite loss, its peak memory);
   8. drive the generation service on the phase-4 model at the fast profile
      (DPM++ with 50 layout and 20 shape steps, bf16; row buckets 16, 32,
      48): warmup; 8 concurrent clients with 16 requests of 3-6 objects
@@ -201,12 +182,10 @@ result line):
      each part and read just after;
   9. drive the training pipeline: VQ-VAE training at configs/vqvae_snet.yaml
      widths (ch 64, ch_mult 1-2-4, 8192 codes, 64^3 grids), batch 8, seeded
-     weights and analytic SDFs: 3 f32 steps (median ms, peak memory; K2 f32
-     = 2 a step, the encoder's and the decoder's mid attention), one under
-     torch.profiler (device time, busy share, launches), one warm and 3
-     timed bf16 steps (median ms, peak memory; K2 bf16 and its backward
-     kernel 2 a step, f32 masters), one under torch.profiler, and one with
-     the earlier design's backward, eval_iou over 64 grids (K2 = 2 a
+     weights and analytic SDFs: 3 f32 steps (peak memory; K2 f32
+     = 2 a step, the encoder's and the decoder's mid attention), 3
+     bf16 steps (peak memory; K2 bf16 and its backward
+     kernel 2 a step, f32 masters), eval_iou over 64 grids (K2 = 2 a
      batch); K2 in f32 with a gradient at (8, 4096, 1, 256): dq, dk, dv
      bit-equal to plain autograd's, timed beside the plain forward +
      backward, SDPA f32 forward + backward (TF32 off) and the bound of
@@ -220,7 +199,7 @@ result line):
      / 20, a yaml copy in a temporary directory; K1 = 10 a step + 100 for
      the preview, K2 = 0 a step + one per decode chunk of the preview's
      128 rows; exactly two images, gen_shape_0 / 1, once); the joint step
-     from latents on the phase-4 model, timed as phase 7's (K1 = 10, K2 =
+     from latents on the phase-4 model, as phase 7's (K1 = 10, K2 =
      0 a step); a background checkpoint save at full width (its blocking
      part and the whole write) with a parameter changed in place right after
      it returns, restored bit-exact and without that change, and a
@@ -283,19 +262,20 @@ result line):
      shape steps, on the flagship batch: one generation with every count
      set to 0 just before and read just after (K1 = 5 and Q2 = 57, Q1 = 51
      a shape step, K2 = one a decode chunk), finite outputs of the JAX
-     shapes, its wall seconds; the int8 twin's build (per sample_fn call);
-     one shape step of the int8 twin beside the bf16 twin's (ms, busy
-     share, top kernels, the outputs' difference); the service with
+     shapes; one shape step of the int8 twin and of the bf16 twin (the
+     outputs' difference); the service with
      sample_dtype int8 (warmup, 8 requests from 4 clients, the counts per
-     dispatch); one shape step of the `sample_conv: winograd` twin beside
-     the direct bf16 twin's (ms, error).
+     dispatch); one shape step of the `sample_conv: winograd` twin and of
+     the direct bf16 twin (the outputs' difference).
+
+The speed of the paths and their layers is `python3 -m portbench`'s job.
 
 Prints the total seconds, the `kernels` JSON line (K1 / K2 in bf16 and in
 f32, each entry with its dtype; K1 / K2 also carry their training launches,
 serving launches and forward + backward times;
 `attention_backward_onepass_attention` / `_stream_attention` are the bf16
 backward kernel at K1's and K2's training shapes, their launches phase 7's
-9 timed steps (5 a step) and phase 9's 3 timed bf16 VQ-VAE steps (2 a
+2 steps (5 a step) and phase 9's 3 bf16 VQ-VAE steps (2 a
 step), with the dp / ZeRO-1 counts a rank and step; the f32 entries' launches
 are phase 8's f32 request; the f32 K2 entry also carries its VQ-VAE
 launches; `stream_attention_f32_train` is K2 f32 forward + plain backward
@@ -401,60 +381,6 @@ def cuda_ms(fn, iters: int, warmup: int = 2,
     return start.elapsed_time(end) / iters
 
 
-# the earlier (mma.sync, cp.async) design of K1 / K2, timed beside the
-# TMA / wgmma kernel in the same run; no path of the port calls it
-BASELINE_SOURCE = "flash_attention_mma.cu"
-_baseline = []
-
-
-def mma_baseline(q, k, v):
-    """softmax(q k^T D^-1/2) v by the earlier design's kernel."""
-    import ctypes
-    import torch
-    from echoscene_torch.kernels import build
-    if not _baseline:
-        fn = build.load(BASELINE_SOURCE).echoscene_mma_attention
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
-            ctypes.c_float, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _baseline.append(fn)
-    b, l, h, d = q.shape
-    o = torch.empty_like(q)
-    err = _baseline[0](q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                       b, h, l, k.shape[1], d, d ** -0.5,
-                       torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        fail(f"the baseline attention kernel failed to launch: CUDA error {err}")
-    return o
-
-
-# the earlier (f32 FMA, CUDA cores) design of the f32 K1 / K2 kernel, timed
-# beside the 3xTF32 kernel in the same run; no path of the port calls it
-F32_SIMT_SOURCE = "flash_attention_f32.cu"
-_baseline_f32 = []
-
-
-def f32_simt_baseline(q, k, v):
-    """softmax(q k^T D^-1/2) v on f32 inputs by the earlier design's kernel."""
-    import ctypes
-    import torch
-    from echoscene_torch.kernels import build
-    if not _baseline_f32:
-        fn = build.load(F32_SIMT_SOURCE).echoscene_onepass_attention_f32
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
-            ctypes.c_float, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _baseline_f32.append(fn)
-    b, l, h, d = q.shape
-    o = torch.empty_like(q)
-    err = _baseline_f32[0](q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                           o.data_ptr(), b, h, l, k.shape[1], d, d ** -0.5,
-                           torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        fail(f"the earlier f32 kernel failed to launch: CUDA error {err}")
-    return o
-
-
 _prepass = []
 
 
@@ -477,32 +403,6 @@ def f32_prepass(q, k, v, scratch):
                       scratch.data_ptr())
     if err != 0:
         fail(f"the f32 pre-pass failed to launch: CUDA error {err}")
-
-
-# the earlier (direct f32 form) design of K4, timed beside the f64
-# tensor-core kernel in the same run; no path of the port calls it
-K4_DIRECT_SOURCE = "chamfer_direct.cu"
-_baseline_k4 = []
-
-
-def k4_direct(a, b):
-    """The one-way squared NN distance by the earlier design's kernel."""
-    import ctypes
-    import torch
-    from echoscene_torch.kernels import build
-    if not _baseline_k4:
-        fn = build.load(K4_DIRECT_SOURCE).echoscene_nn_distance_direct
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _baseline_k4.append(fn)
-    out = torch.empty(a.shape[:2], device=a.device)
-    err = _baseline_k4[0](a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                          a.shape[0], a.shape[1], b.shape[1],
-                          torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        fail(f"the direct-form K4 kernel failed to launch: CUDA error {err}")
-    return out
 
 
 def max_sm_clock_hz() -> float:
@@ -538,12 +438,7 @@ def check_kernel(name, wrapper, shape, ragged_shapes, replaces, sm_clock_hz):
     if not min(dropped) > 1.0:
         fail(f"{name}: the tolerance passes the plain version with 32 keys "
              f"left out ({dropped[0]:.3f} / {dropped[1]:.3f} of the limits)")
-    earlier = fa.error_ratios(mma_baseline(q, k, v), ref)
-    if not max(earlier) <= 1.0:
-        fail(f"the baseline design at {shape}: max / mean err at "
-             f"{earlier[0]:.3f} / {earlier[1]:.3f} of their limits")
     ms = cuda_ms(lambda: wrapper(q, k, v), iters=20)
-    earlier_ms = cuda_ms(lambda: mma_baseline(q, k, v), iters=20)
     # host time of one wrapper call: enqueue 20 calls without waiting
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -561,7 +456,7 @@ def check_kernel(name, wrapper, shape, ragged_shapes, replaces, sm_clock_hz):
             "replaces": replaces, "launches": None, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound["ms"],
             "bound_by": bound["bound_by"], "library_ms": library_ms,
-            "earlier_ms": earlier_ms, "shape": list(shape),
+            "shape": list(shape),
             "bound_detail": {key: bound[key] for key in (
                 "by", "tensor_core_ms", "exp2_ms", "bytes_ms")},
             "tflops": bound["flops"] / ms * 1e-9,
@@ -597,9 +492,8 @@ def check_int8_kernels(rows: int) -> dict:
     plain version (int8 values and scale), Q2's bf16 output within 1 ulp of
     its plain version (float64 convolution of the int8 values, exact) on
     every element, over all rows, a tolerance the plain version with the
-    last input channel left out must fail; the earlier design of both
-    (`csrc/int8_conv_mma.cu`) held to the same checks; times of Q1, Q2,
-    their earlier design, their plain versions, the bf16 cuDNN F.conv3d at
+    last input channel left out must fail; times of Q1, Q2,
+    their plain versions, the bf16 cuDNN F.conv3d at
     the same shape (the call the int8 mode replaces), the library route of
     the same function (an im2col then torch._int_mm, cuBLASLt's int8 GEMM,
     timed together) and torch._int_mm alone, beside the bounds."""
@@ -619,7 +513,6 @@ def check_int8_kernels(rows: int) -> dict:
         xq, xs = q8.quantize_act(x)
         torch.cuda.synchronize()
         pq, ps = q8.quantize_plain(x)
-        eq, es = q8.earlier_quantize_act(x)
         word = q8.quantize_amax(x)
         if not torch.equal(word, q8.quantize_amax_plain(x)):
             fail(f"Q1's abs-max pass at {shape}: word "
@@ -630,22 +523,16 @@ def check_int8_kernels(rows: int) -> dict:
             fail(f"Q1's two passes as two calls at {shape}: not bit-equal "
                  f"to the fused Q1")
         del word, sq, ss
-        for design, (gq, gs) in (("", (xq, xs)), (" (earlier design)",
-                                                  (eq, es))):
-            if not (torch.equal(gq, pq) and torch.equal(gs, ps)):
-                fail(f"Q1{design} at {shape} {site['x_dtype']}: not "
-                     f"bit-equal to its plain version (scale {gs.item()!r} "
-                     f"/ {ps.item()!r}, {int((gq != pq).sum())} int8 values "
-                     f"differ)")
-        del eq, es
+        if not (torch.equal(xq, pq) and torch.equal(xs, ps)):
+            fail(f"Q1 at {shape} {site['x_dtype']}: not bit-equal to its "
+                 f"plain version (scale {xs.item()!r} / {ps.item()!r}, "
+                 f"{int((xq != pq).sum())} int8 values differ)")
         if (shape, site["x_dtype"]) not in seen_q1:
             seen_q1.add((shape, site["x_dtype"]))
             b1 = q8.quantize_bound(x.numel(), x.element_size(), xq.numel())
             q1_rows.append({
                 "shape": list(shape), "dtype": site["x_dtype"],
                 "ms": cuda_ms(lambda: q8.quantize_act(x), iters=10),
-                "earlier_ms": cuda_ms(lambda: q8.earlier_quantize_act(x),
-                                      iters=10),
                 "plain_ms": cuda_ms(lambda: q8.quantize_plain(x), iters=3,
                                     warmup=1),
                 "bound_ms": b1["ms"], "bound_by": b1["bound_by"],
@@ -667,11 +554,6 @@ def check_int8_kernels(rows: int) -> dict:
         if ulps > 1:
             fail(f"Q2 {site['name']} at {shape}: {ulps} bf16 ulps from its "
                  f"plain version (limit 1)")
-        earlier_ulps = int(q8.bf16_ulps(q8.earlier_int8_conv3d(*args),
-                                        ref).max())
-        if earlier_ulps > 1:
-            fail(f"Q2's earlier design {site['name']} at {shape}: "
-                 f"{earlier_ulps} bf16 ulps from the plain version (limit 1)")
         cut = xq.clone()
         cut[..., shape[1] - 1] = 0
         cut_ulps = int(q8.bf16_ulps(q8.int8_conv3d_plain(cut, *args[1:]),
@@ -682,7 +564,6 @@ def check_int8_kernels(rows: int) -> dict:
         del cut
         max_err = (out.float() - ref.float()).abs().max().item()
         ms = cuda_ms(lambda: q8.int8_conv3d(*args), iters=10)
-        earlier_ms = cuda_ms(lambda: q8.earlier_int8_conv3d(*args), iters=10)
         osize = tuple(out.shape[2:])
         b2 = q8.int8_conv_bound(shape[0], shape[2:], shape[1], xq.shape[-1],
                                 k, taps, osize, bias is not None)
@@ -711,10 +592,9 @@ def check_int8_kernels(rows: int) -> dict:
             "calls_per_step": site["calls"], "ms": ms,
             "plain_ms": plain_s * 1e3, "bound_ms": b2["ms"],
             "bound_by": b2["bound_by"], "share_of_bound": b2["ms"] / ms,
-            "tops": b2["ops"] / ms * 1e-9, "earlier_ms": earlier_ms,
+            "tops": b2["ops"] / ms * 1e-9,
             "cudnn_bf16_ms": cudnn_ms, "int_mm_route_ms": int_mm_route_ms,
             "int_mm_ms": int_mm_ms, "max_ulps": ulps,
-            "earlier_max_ulps": earlier_ulps,
             "last_channel_cut_ulps": cut_ulps, "max_abs_err": max_err})
         del x, xq, out, ref
     torch.cuda.empty_cache()
@@ -731,7 +611,7 @@ def int8_entries(chk: dict) -> list:
     """The `kernels` entries of Q1 and Q2: the numbers of the main path's
     most frequent shape (Q1: the 16^3 x 224 bf16 input; Q2: the 3x3x3
     224 -> 224 convolution at 16^3), every shape under `per_shape`, and the
-    per-step totals of the torso's shapes (ms, earlier design, bound;
+    per-step totals of the torso's shapes (ms, bound;
     Q2: cuDNN bf16, im2col + _int_mm, _int_mm alone) weighted by their
     calls.  Q2's `library_ms` is the im2col + _int_mm route of the same
     function; Q1 has no library call."""
@@ -746,7 +626,7 @@ def int8_entries(chk: dict) -> list:
              and r["stride"] == [1, 1, 1])):
         main = next(r for r in rows if pick(r))
         step = {key: sum(r[key] * r["calls_per_step"] for r in rows)
-                for key in ("ms", "earlier_ms", "bound_ms") + (
+                for key in ("ms", "bound_ms") + (
                     ("cudnn_bf16_ms", "int_mm_route_ms", "int_mm_ms")
                     if name == "int8_conv3d" else ())}
         out.append({
@@ -761,8 +641,6 @@ def int8_entries(chk: dict) -> list:
             "library_ms": main.get("int_mm_route_ms"),
             "library": ("im2col + torch._int_mm" if name == "int8_conv3d"
                         else "none: no single PyTorch call computes it"),
-            "earlier_ms": main["earlier_ms"],
-            "earlier_source": "echoscene_torch/csrc/int8_conv_mma.cu",
             "int_mm_alone_ms": main.get("int_mm_ms"),
             "cudnn_bf16_ms": main.get("cudnn_bf16_ms"),
             "shape": main["shape"], "per_step_totals": step,
@@ -1102,10 +980,9 @@ def check_kernel_f32(name, wrapper, shape, ragged_shapes, replaces,
     2^-14 of the plain output's peak, mean abs err <= 1e-5 of its mean
     magnitude, which must reject the plain version with its last 32 keys
     left out); times beside the f32 bound (the 3xTF32 products, exp2,
-    bytes; the f32 FMA route beside it), its pre-pass alone, the earlier
-    f32 FMA design (`csrc/flash_attention_f32.cu`, same inputs, same
-    tolerance), SDPA in f32 with TF32 off, the plain version and the host
-    time of one wrapper call.  Returns its `kernels` entry."""
+    bytes; the f32 FMA route beside it), its pre-pass alone, SDPA in f32
+    with TF32 off, the plain version and the host time of one wrapper
+    call.  Returns its `kernels` entry."""
     import torch
     import torch.nn.functional as F
     from echoscene_torch.kernels import flash_attention as fa
@@ -1133,12 +1010,7 @@ def check_kernel_f32(name, wrapper, shape, ragged_shapes, replaces,
     if not min(dropped) > 1.0:
         fail(f"{name} f32: the tolerance passes the plain version with 32 "
              f"keys left out ({dropped[0]:.3f} / {dropped[1]:.3f})")
-    earlier = fa.error_ratios(f32_simt_baseline(q, k, v), ref)
-    if not max(earlier) <= 1.0:
-        fail(f"the earlier f32 design at {shape}: max / mean err at "
-             f"{earlier[0]:.3f} / {earlier[1]:.3f} of their limits")
     ms = cuda_ms(lambda: wrapper(q, k, v), iters=10)
-    earlier_ms = cuda_ms(lambda: f32_simt_baseline(q, k, v), iters=10)
     b, _, h, d = q.shape
     scratch = torch.empty(fa.f32_scratch_floats(b, h, d, k.shape[1]),
                           device="cuda")
@@ -1160,8 +1032,7 @@ def check_kernel_f32(name, wrapper, shape, ragged_shapes, replaces,
             "replaces": replaces, "launches": None, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound["ms"],
             "bound_by": bound["bound_by"], "library_ms": library_ms,
-            "earlier_ms": earlier_ms, "prepass_ms": prepass_ms,
-            "shape": list(shape),
+            "prepass_ms": prepass_ms, "shape": list(shape),
             "bound_detail": {key: bound[key] for key in (
                 "by", "fma_ms", "tf32x3_ms", "exp2_ms", "bytes_ms")},
             "tflops": bound["flops"] / ms * 1e-9,
@@ -1246,20 +1117,14 @@ def check_backward_at(name, wrapper, shape, seed):
 def check_kernel_backward(name, wrapper, shapes, sm_clock_hz):
     """Phase 2, training: `check_backward_at` at each of `shapes` (the
     training shape first), then at the training shape the times of the
-    kernel's forward + backward, the backward kernel alone and its earlier
-    design (`earlier_attention_backward`, in turns: kernel, earlier,
-    earlier, kernel), the host time of one `attention_backward` call, the
-    design before the backward kernel (the forward kernel, then
-    KernelAttention's plain recompute differentiated, as every bf16
-    backward ran before the backward kernel),
+    kernel's forward + backward, the backward kernel alone, the host time
+    of one `attention_backward` call,
     plain autograd's forward + backward, the plain backward alone
     (`attention_backward_plain`), SDPA's forward + backward and its backward
     alone, beside the bounds of forward + backward (three times the
     forward's products, its exp2, twice its bytes) and of the backward
     alone (`attention_backward_bound`).  Returns (the fields for the
     forward kernel's entry, the backward kernel's `kernels` entry)."""
-    import functools
-
     import torch
     import torch.nn.functional as F
     from echoscene_torch.kernels import flash_attention as fa
@@ -1278,37 +1143,22 @@ def check_kernel_backward(name, wrapper, shapes, sm_clock_hz):
     def fwd_bwd(fn, xs, gx):
         return lambda: torch.autograd.grad(fn(*xs), xs, gx)
 
-    earlier = functools.partial(fa.KernelAttention.apply,
-                                functools.partial(fa._launch, name))
     # autograd's host time for a forward + backward (~0.3-0.4 ms) exceeds
     # K1's device time: a ~30 ms sleep keeps all 10 calls' enqueue within it
     long_sleep = 60_000_000
     kernel_ms = cuda_ms(fwd_bwd(wrapper, leaves, g), iters=10,
                         sleep_cycles=long_sleep)
-    designs = {"kernel": lambda: fa.attention_backward(
-        name, q, k, v, o, lse, g),
-               "earlier": lambda: fa.earlier_attention_backward(
-                   q, k, v, o, lse, g)}
-    got = designs["earlier"]()
-    want = fa.attention_backward(name, q, k, v, o, lse, g)
-    if not all(torch.equal(a, b) for a, b in zip(got, want)):
-        fail(f"{name} at {shape}: the earlier backward design's dq, dk, dv "
-             "differ from the kernel's (the same arithmetic in another "
-             "order of launches)")
-    turns = {"kernel": [], "earlier": []}
-    for design in ("kernel", "earlier", "earlier", "kernel"):
-        turns[design].append(cuda_ms(designs[design], iters=10,
-                                     sleep_cycles=long_sleep))
-    backward_ms, earlier_bwd_ms = (sum(turns[d]) / 2
-                                   for d in ("kernel", "earlier"))
+    def backward():
+        return fa.attention_backward(name, q, k, v, o, lse, g)
+
+    backward_ms = cuda_ms(backward, iters=10, sleep_cycles=long_sleep)
     # host time of one backward call: enqueue 10 calls without waiting
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(10):
-        designs["kernel"]()
+        backward()
     host_us = (time.perf_counter() - t0) / 10 * 1e6
     torch.cuda.synchronize()
-    earlier_ms = cuda_ms(fwd_bwd(earlier, leaves, g), iters=3, warmup=1)
     plain = [x.clone().requires_grad_(True) for x in (q, k, v)]
     plain_ms = cuda_ms(fwd_bwd(fa.attention_plain, plain, g), iters=3,
                        warmup=1)
@@ -1328,12 +1178,11 @@ def check_kernel_backward(name, wrapper, shapes, sm_clock_hz):
              "bytes": 2 * fwd["bytes_ms"]}
     by = max(parts, key=parts.get)
     bwd = fa.attention_backward_bound(*shape, sm_clock_hz=sm_clock_hz)
-    fields = {"train_shape": list(shape), "fwd_bwd_ms": kernel_ms, "backward_ms": backward_ms,
-              "earlier_fwd_bwd_ms": earlier_ms, "plain_fwd_bwd_ms": plain_ms,
+    fields = {"train_shape": list(shape), "fwd_bwd_ms": kernel_ms,
+              "backward_ms": backward_ms, "plain_fwd_bwd_ms": plain_ms,
               "library_fwd_bwd_ms": library_ms,
               "fwd_bwd_bound_ms": parts[by], "fwd_bwd_bound_by": by,
-              "fwd_bwd_vs_library": kernel_ms / library_ms,
-              "earlier_over_kernel_fwd_bwd": earlier_ms / kernel_ms}
+              "fwd_bwd_vs_library": kernel_ms / library_ms}
     entry = {"name": f"attention_backward_{name}", "route": "cuda",
              "dtype": "bfloat16",
              "source": f"echoscene_torch/csrc/{fa.SOURCE_BWD}",
@@ -1341,10 +1190,7 @@ def check_kernel_backward(name, wrapper, shapes, sm_clock_hz):
              "max_abs_err": checks[0]["max_abs_err"], "ms": backward_ms,
              "plain_ms": plain_bwd_ms, "bound_ms": bwd["ms"],
              "bound_by": bwd["bound_by"], "library_ms": library_bwd_ms,
-             "earlier_ms": earlier_ms, "earlier_backward_ms": earlier_bwd_ms,
-             "earlier_backward_source":
-                 f"echoscene_torch/csrc/{fa.SOURCE_BWD_EARLIER}",
-             "times_in_turns": turns, "host_us_per_call": host_us,
+             "host_us_per_call": host_us,
              "shape": list(shape),
              "bound_detail": {key: bwd[key] for key in (
                  "by", "tensor_core_ms", "exp2_ms", "bytes_ms")},
@@ -1357,12 +1203,7 @@ def check_kernel_backward(name, wrapper, shapes, sm_clock_hz):
              "checks": checks,
              "what": f"dq, dk, dv of {name} (bf16): the delta pre-pass, then "
                      "one launch of the key tiles' dK / dV and the query "
-                     "tiles' dQ (persistent at D_pad 64); "
-                     "earlier_backward_ms is the earlier design of the "
-                     "kernel (two launches, no turns), timed in turns with "
-                     "it; earlier_ms is the design before the backward "
-                     "kernel, the plain recompute differentiated (its "
-                     "forward included)"}
+                     "tiles' dQ (persistent at D_pad 64)"}
     return fields, entry
 
 
@@ -1394,10 +1235,6 @@ def check_chamfer_kernel(shapes, ragged_shape):
                  f"{ratios[0]:.3f} / {ratios[1]:.3f} of their limits, "
                  f"chamfer rel err {cd_rel:.3e} (limit {CD_RTOL}), {ulps} "
                  f"ulp (limit 1, floor {floor:.3e})")
-        earlier = k4.error_ratios(k4_direct(a, t), ref, a, t)
-        if not max(earlier) <= 1.0:
-            fail(f"the direct-form design at {(b, n, m)}: max / mean err at "
-                 f"{earlier[0]:.3f} / {earlier[1]:.3f} of their limits")
         if (b, n, m) == ragged_shape:
             continue
         err = (out.double() - ref).abs().max().item()
@@ -1411,7 +1248,6 @@ def check_chamfer_kernel(shapes, ragged_shape):
                      f"{dropped[1]:.3f})")
         del ref, cd_ref
         ms = cuda_ms(lambda: k4.nn_distance_oneway(a, t), iters=30)
-        earlier_ms = cuda_ms(lambda: k4_direct(a, t), iters=30)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(20):
@@ -1427,11 +1263,10 @@ def check_chamfer_kernel(shapes, ragged_shape):
             "shape": [b, n, m], "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound["ms"],
             "bound_by": bound["bound_by"], "library_ms": library_ms,
-            "earlier_ms": earlier_ms, "share_of_bound": bound["ms"] / ms,
+            "share_of_bound": bound["ms"] / ms,
             "pair_tflops": bound["flops"] / ms * 1e-9,
             "host_us_per_call": host_us, "err_of_limit": ratios,
-            "ulp": ulps, "ulp_floor": floor, "chamfer_rel_err": cd_rel,
-            "earlier_err_of_limit": earlier})
+            "ulp": ulps, "ulp_floor": floor, "chamfer_rel_err": cd_rel})
         torch.cuda.empty_cache()
     top = per_shape[0]
     entry = {"name": "nn_distance", "route": "cuda", "dtype": "float32",
@@ -1440,7 +1275,7 @@ def check_chamfer_kernel(shapes, ragged_shape):
              "launches": None}
     entry.update({key: top[key] for key in (
         "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-        "library_ms", "earlier_ms", "shape", "share_of_bound",
+        "library_ms", "shape", "share_of_bound",
         "host_us_per_call", "err_of_limit", "ulp", "chamfer_rel_err")})
     entry["targets_dropped_err_of_limit"] = dropped
     entry["per_shape"] = per_shape
@@ -1993,54 +1828,17 @@ def trainer_steps(sg, state, card: str, steps: int = 2) -> dict:
             "backward_launches": 5 * steps, "log": lines}
 
 
-def earlier_backward_step(step, device, wall_ms: float = 1.0) -> dict:
-    """One call of `step` with the bf16 attention backward of the earlier
-    design (the forward kernel, then KernelAttention's plain recompute
-    differentiated: `_kernel_attention` routed as f32 is), one warm call and
-    one under the profiler; the route is restored after.  Returns
-    `profile_call`'s numbers, the wall ms of the timed call and the peak
-    memory of the warm one."""
-    import functools
-
-    import torch
-    from echoscene_torch.benchmarks import profile_call
-    from echoscene_torch.kernels import flash_attention as fa
-
-    route = fa._kernel_attention
-    fa._kernel_attention = lambda entry, q, k, v: fa._differentiable(
-        functools.partial(fa._launch, entry), q, k, v)
-    try:
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        fa.reset_launches()
-        step()
-        torch.cuda.synchronize()
-        peak = torch.cuda.max_memory_allocated()
-        if fa.BACKWARD_LAUNCHES:
-            fail(f"the earlier design's step launched the backward kernel "
-                 f"{fa.BACKWARD_LAUNCHES}")
-        t0 = time.perf_counter()
-        step()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-        out = profile_call(step, device, wall)
-    finally:
-        fa._kernel_attention = route
-    out.update(wall_ms=wall, peak_gib=peak / 2**30)
-    return out
-
-
 def train_path(sg, card: str) -> dict:
     """Phase 7: the joint training step at full width, bf16, remat on, on
     the phase-4 model with bench.py's train batch (8 scenes, max_nodes 48,
     max_triples 112, diffusion_bs 8, seeded analytic 64^3 SDFs through the
-    frozen encoder): one warm step then 8 timed (K1 / K2 counts set to 0
-    just before, read just after), the busy share of one step, frozen VQ-VAE
+    frozen encoder): 9 steps (K1 / K2 counts set to 0
+    just before, read just after), frozen VQ-VAE
     and moved parameters, a save -> restore round trip, and one step at the
     yaml's diffusion_bs of 64."""
     import torch
-    from echoscene_torch.benchmarks import (NUM_OBJS, NUM_PREDS, profile_call,
-                                            synthetic_batch, time_train_step)
+    from echoscene_torch.benchmarks import (NUM_OBJS, NUM_PREDS,
+                                            synthetic_batch)
     from echoscene_torch.kernels import flash_attention as fa
     from echoscene_torch.models.sgdiff import SGDiff
     from echoscene_torch.train.trainer import Trainer
@@ -2056,11 +1854,13 @@ def train_path(sg, card: str) -> dict:
     vq0 = {k: v.clone() for k, v in sg.module.vqvae.state_dict().items()}
     p0 = {n: p.detach().clone() for n, p in sg.module.named_parameters()
           if p.requires_grad}
+    gen = torch.Generator(device="cuda").manual_seed(17)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launches()
     k = 8
-    sps, step_s, losses = time_train_step(sg, state, batch, 8, k=k)
+    losses = torch.stack([sg.train_step(state, batch, gen)["loss"]
+                          for _ in range(k + 1)]).cpu()
     launches = dict(fa.LAUNCHES)
     backward = dict(fa.BACKWARD_LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
@@ -2091,51 +1891,6 @@ def train_path(sg, card: str) -> dict:
         fail("the frozen VQ-VAE changed under training")
     del vq0
     gen = torch.Generator(device="cuda").manual_seed(23)
-
-    def one_step():
-        return sg.train_step(state, batch, gen)
-    one_step()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    one_step()
-    torch.cuda.synchronize()
-    busy = profile_call(one_step, sg.device,
-                        (time.perf_counter() - t0) * 1e3)
-    # the same step with the earlier design's backward (the plain recompute
-    # differentiated, as every bf16 backward ran before the backward
-    # kernel), one warm step and one under the profiler
-    earlier = earlier_backward_step(one_step, sg.device)
-
-    # the step in its parts, as train_step runs them: the forward and the
-    # losses, the backward, the optimizer (clip, NaN zeroing, AdamW); one
-    # pass timed by the host clock, one with each part under the profiler
-    params = [p for p in sg.module.parameters() if p.requires_grad]
-    held = {}
-
-    def forward():
-        held["loss"] = sg.loss_fn(batch, gen)[0]
-
-    def backward():
-        held["loss"].backward()
-
-    def optimizer():
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                 for p in params]
-        for p in params:
-            p.grad = None
-        sg.apply_gradients(state, grads)
-    steps = (("forward", forward), ("backward", backward),
-             ("optimizer", optimizer))
-    wall = {}
-    for name, fn in steps:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall[name] = (time.perf_counter() - t0) * 1e3
-    parts = {name: profile_call(fn, sg.device, wall[name])
-             for name, fn in steps}
-    del held
 
     trainer = trainer_steps(sg, state, card)
 
@@ -2195,17 +1950,15 @@ def train_path(sg, card: str) -> dict:
     torch.cuda.empty_cache()
 
     # one step in f32 (compute_dtype float32, f32 masters used as they
-    # are): K1 / K2 launch their f32 kernels; one warm step, one timed
+    # are): K1 / K2 launch their f32 kernels; f32 takes
+    # KernelAttention's plain-recompute backward, no backward kernel
     cfg.compute_dtype = "float32"
     try:
-        sg.train_step(state, batch, gen)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         fa.reset_launches()
-        t0 = time.perf_counter()
         loss32 = sg.train_step(state, batch, gen)["loss"]
         torch.cuda.synchronize()
-        f32_ms = (time.perf_counter() - t0) * 1e3
         peak32 = torch.cuda.max_memory_allocated()
         launches32 = dict(fa.LAUNCHES_BY_DTYPE)
         backward32 = dict(fa.BACKWARD_LAUNCHES)
@@ -2218,21 +1971,15 @@ def train_path(sg, card: str) -> dict:
              "and no backward kernel (f32 takes the plain recompute)")
     if not bool(torch.isfinite(loss32)):
         fail("the f32 training step's loss is not finite")
-    return {"scenes_per_sec": sps, "ms_per_step": step_s * 1e3,
-            "losses": losses.tolist(), "launches": launches,
+    return {"losses": losses.tolist(), "launches": launches,
             "backward_launches_per_step": 5, "steps": k + 1,
             "peak_gib": peak / 2**30,
-            "busy_share": busy["busy_share"],
-            "step_device_ms": busy["device_ms"],
-            "earlier_backward_step": earlier,
-            "step_wall_ms": busy["wall_ms"],
-            "step_kernel_launches": busy["kernel_launches"],
-            "step_parts": parts, "trainer": trainer,
+            "trainer": trainer,
             "moved": moved, "checkpoint_bytes": size, "save_s": save_s,
             "load_s": load_s, "peak_gib_diffusion_bs_64": peak64 / 2**30,
             "loss_diffusion_bs_64": loss64.item(),
             "launches_diffusion_bs_64": launches64,
-            "f32_step_ms": f32_ms, "f32_peak_gib": peak32 / 2**30,
+            "f32_peak_gib": peak32 / 2**30,
             "f32_loss": loss32.item(),
             "f32_launches": {f"{k[0]}/{k[1]}": c
                              for k, c in launches32.items()}}
@@ -2526,12 +2273,11 @@ def vq_train_path(card: str) -> dict:
     """Phase 9, VQ-VAE training at configs/vqvae_snet.yaml's widths (ch 64,
     ch_mult 1-2-4, 8192 codes, 64^3), batch 8, seeded weights and analytic
     SDFs: 3 f32 steps (JAX's default precision; K2 f32 counts set to 0 just
-    before, read just after: 2 a step), one more under the profiler, 2 bf16
-    steps (the second timed), and eval_iou over 64 grids (2 K2 launches a
+    before, read just after: 2 a step), 3 bf16 steps (K2 bf16 and its
+    backward kernel 2 a step), and eval_iou over 64 grids (2 K2 launches a
     batch).  Returns the numbers and the f32 state."""
     import numpy as np
     import torch
-    from echoscene_torch.benchmarks import profile_call
     from echoscene_torch.kernels import flash_attention as fa
     from echoscene_torch.train.vqvae_trainer import VQVAETrainer
 
@@ -2545,13 +2291,8 @@ def vq_train_path(card: str) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launches()
-    step_ms, losses = [], []
-    for i in range(3):
-        t0 = time.perf_counter()
-        logs = trainer.train_step(state, batches[i])
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        losses.append(logs["loss_total"].item())
+    losses = [trainer.train_step(state, batches[i])["loss_total"].item()
+              for i in range(3)]
     launches = dict(fa.LAUNCHES_BY_DTYPE)
     peak = torch.cuda.max_memory_allocated()
     if launches != {("stream_attention", "float32"): 6} or \
@@ -2562,25 +2303,15 @@ def vq_train_path(card: str) -> dict:
              "backward kernel")
     if not all(math.isfinite(x) for x in losses):
         fail(f"VQ-VAE losses not finite: {losses}")
-    median = sorted(step_ms)[1]
-    busy = profile_call(lambda: trainer.train_step(state, batches[3]),
-                        trainer.device, median)
 
     bf16 = VQVAETrainer(cfg, compute_dtype="bfloat16", device="cuda")
     st16 = bf16.init(torch.Generator(device="cuda").manual_seed(0))
-    bf16.train_step(st16, batches[0])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launches()
-    bf16_all, losses16 = [], []
-    for i in range(3):
-        t0 = time.perf_counter()
-        losses16.append(bf16.train_step(st16, batches[1 + i])[
-            "loss_total"].item())
-        torch.cuda.synchronize()
-        bf16_all.append((time.perf_counter() - t0) * 1e3)
+    losses16 = [bf16.train_step(st16, batches[1 + i])["loss_total"].item()
+                for i in range(3)]
     peak16 = torch.cuda.max_memory_allocated()
-    bf16_ms = sorted(bf16_all)[1]
     launches16 = dict(fa.LAUNCHES_BY_DTYPE)
     backward16 = dict(fa.BACKWARD_LAUNCHES)
     if (launches16 != {("stream_attention", "bfloat16"): 6}
@@ -2591,10 +2322,6 @@ def vq_train_path(card: str) -> dict:
     loss16 = losses16[-1]
     if not all(math.isfinite(x) for x in losses16):
         fail(f"the bf16 VQ-VAE losses are not finite: {losses16}")
-    busy16 = profile_call(lambda: bf16.train_step(st16, batches[4]),
-                          bf16.device, bf16_ms)
-    earlier16 = earlier_backward_step(
-        lambda: bf16.train_step(st16, batches[5]), bf16.device)
     master = next(st16.module.parameters())
     if master.dtype != torch.float32:
         fail("bf16 VQ-VAE training must keep f32 masters")
@@ -2611,35 +2338,15 @@ def vq_train_path(card: str) -> dict:
              f"{2 * len(batches)}")
     if not (0.0 <= iou <= 1.0 and math.isfinite(iou_std)):
         fail(f"eval_iou gave {iou} +- {iou_std}")
-    res = {"params": n_params, "f32_step_ms": step_ms,
-           "f32_median_ms": median, "f32_peak_gib": peak / 2**30,
-           "f32_losses": losses, "busy_share": busy["busy_share"],
-           "step_device_ms": busy["device_ms"],
-           "step_kernel_launches": busy["kernel_launches"],
-           "f32_launches_per_step": 2, "bf16_step_ms": bf16_ms,
-           "bf16_step_ms_all": bf16_all, "bf16_peak_gib": peak16 / 2**30,
-           "bf16_step_device_ms": busy16["device_ms"],
-           "bf16_busy_share": busy16["busy_share"],
-           "bf16_step_kernel_launches": busy16["kernel_launches"],
+    res = {"params": n_params, "f32_peak_gib": peak / 2**30,
+           "f32_losses": losses, "f32_launches_per_step": 2,
+           "bf16_peak_gib": peak16 / 2**30,
            "bf16_backward_launches_per_step": 2,
-           "bf16_earlier_backward_step": earlier16,
            "bf16_loss": loss16, "eval_iou": iou, "eval_iou_std": iou_std,
            "eval_iou_s": iou_s, "eval_iou_launches": 2 * len(batches)}
-    dev = ("not measured" if busy["device_ms"] is None else
-           f"{busy['device_ms']:.1f} ms, busy share {busy['busy_share']:.3f}")
     print(f"VQ-VAE training ({n_params} parameters, batch {VQ_BATCH}, 64^3): "
-          f"f32 steps {', '.join(f'{x:.1f}' for x in step_ms)} ms (median "
-          f"{median:.1f}), peak memory {peak / 2**30:.2f} GiB; one f32 step "
-          f"under the profiler: device {dev}, {busy['kernel_launches']} "
-          f"kernel launches; K2 f32 "
-          f"{launches[('stream_attention', 'float32')] // 3}"
-          f" a step; bf16 step {bf16_ms:.3f} ms (median of "
-          f"{', '.join(f'{x:.3f}' for x in bf16_all)}; K2 bf16 2 and its "
-          f"backward kernel 2 a step), peak memory {peak16 / 2**30:.2f} GiB,"
-          f" device {busy16['device_ms']} ms (busy share "
-          f"{busy16['busy_share']}), the earlier design's backward: "
-          f"{earlier16['wall_ms']:.3f} ms, device {earlier16['device_ms']} "
-          f"ms, peak {earlier16['peak_gib']:.2f} GiB; eval_iou over "
+          f"peak memory {peak / 2**30:.2f} GiB in f32, "
+          f"{peak16 / 2**30:.2f} GiB in bf16; eval_iou over "
           f"64 grids {iou:.4f} +- {iou_std:.4f} in {iou_s:.2f} s [{card}]")
     return res, trainer, state
 
@@ -2810,12 +2517,11 @@ def pipeline_path(sg, vq_trainer, vq_state, card: str) -> dict:
     --vq_ckpt, --latent_cache and one preview (4 steps; counts set to 0
     just before, read just after: K1 = 10 a step + 5 x 20 for the preview,
     K2 = 0 a step + one per decode chunk of the preview's rows); then the
-    same step on the phase-4 model from a latent batch, timed as phase 7
-    times its step (K1 10, K2 0 a step)."""
+    same step on the phase-4 model from a latent batch, as many steps as
+    phase 7 (K1 10, K2 0 a step)."""
     import numpy as np
     import torch
-    from echoscene_torch.benchmarks import (profile_call, synthetic_batch,
-                                            time_train_step)
+    from echoscene_torch.benchmarks import synthetic_batch
     from echoscene_torch.core.graphbatch import ShapeSelection
     from echoscene_torch.data.clip_text import ClipTextEncoder
     from echoscene_torch.data.fake import make_fake_dataset
@@ -2901,9 +2607,8 @@ def pipeline_path(sg, vq_trainer, vq_state, card: str) -> dict:
         del state
     torch.cuda.empty_cache()
 
-    # the joint step from latents on the phase-4 model, as phase 7 times
-    # its step from SDFs: phase 7's batch with the frozen encoder's latents
-    # of its SDFs in place of the grids
+    # the joint step from latents on the phase-4 model: phase 7's batch
+    # with the frozen encoder's latents of its SDFs in place of the grids
     batch = synthetic_batch(8, 48, 112, seed=0, diffusion_bs=8,
                             sdf_res=64).to("cuda")
     with torch.no_grad():
@@ -2912,10 +2617,12 @@ def pipeline_path(sg, vq_trainer, vq_state, card: str) -> dict:
         sdf=None, latent=lat, num_valid=batch.shapes.num_valid,
         indices=batch.shapes.indices, mp_valid=batch.shapes.mp_valid))
     state = sg.init_train_state()
+    gen = torch.Generator(device="cuda").manual_seed(17)
     torch.cuda.synchronize()
     fa.reset_launches()
     k = 8
-    sps, step_s, losses = time_train_step(sg, state, batch, 8, k=k)
+    losses = torch.stack([sg.train_step(state, batch, gen)["loss"]
+                          for _ in range(k + 1)])
     launches = dict(fa.LAUNCHES)
     backward = dict(fa.BACKWARD_LAUNCHES)
     if launches != {"onepass_attention": 10 * (k + 1),
@@ -2926,15 +2633,8 @@ def pipeline_path(sg, vq_trainer, vq_state, card: str) -> dict:
              "0 and K1's backward 5 a step")
     if not bool(torch.isfinite(losses).all()):
         fail("the joint step from latents gave non-finite losses")
-    gen = torch.Generator(device="cuda").manual_seed(29)
-    busy = profile_call(lambda: sg.train_step(state, batch, gen), sg.device,
-                        step_s * 1e3)
-    res.update(cache_step_ms=step_s * 1e3, cache_scenes_per_sec=sps,
-               cache_step_launches={"onepass_attention": 10,
-                                    "stream_attention": 0},
-               cache_step_device_ms=busy["device_ms"],
-               cache_step_busy_share=busy["busy_share"],
-               cache_step_kernel_launches=busy["kernel_launches"])
+    res.update(cache_step_launches={"onepass_attention": 10,
+                                    "stream_attention": 0})
     print(f"pipeline: VQ checkpoint -> precompute_latents over "
           f"{res['precompute_paths']} SDFs in {res['precompute_s']:.2f} s "
           f"(K2 f32 {res['precompute_launches']}) -> train.cli with "
@@ -2942,10 +2642,7 @@ def pipeline_path(sg, vq_trainer, vq_state, card: str) -> dict:
           f"{steps} steps in {res['cli_s']:.1f} s with model build, saves "
           f"and preview, launches {json.dumps(res['cli_launches'])}, "
           f"{len(images)} preview images; the joint step from latents on the "
-          f"phase-4 model {step_s * 1e3:.3f} ms ({sps:.4f} train scenes/sec; "
-          f"K1 10, K2 0 a step; one step under the profiler: device "
-          f"{busy['device_ms']} ms, {busy['kernel_launches']} kernel "
-          f"launches) [{card}]")
+          f"phase-4 model (K1 10, K2 0 a step) [{card}]")
     return res, state
 
 
@@ -3708,12 +3405,11 @@ F32_TP_MAX = 1e-4             # ... f32, of the peak
 INT8_TP_DRIFTS = 2.0
 
 
-def upsample_sites(rows: int, card: str) -> list:
+def upsample_sites(rows: int) -> list:
     """Phase 5: each upsample site of the flagship (the shape UNet's two at
     the path's rows, the VQ decoder's two at a decode chunk of 8) in the
-    factored form against interpolate + conv: ms of each in bf16, as the
-    sampling twin runs them (bf16 weights; the factored form's bias f32),
-    after the two forms agree in f32 (TF32 off) within 1e-5 of the peak."""
+    factored form against interpolate + conv: the two forms agree in f32
+    (TF32 off) within 1e-5 of the peak."""
     import torch
     import torch.nn.functional as F
     from echoscene_torch.nn.blocks import factored_upsample_conv
@@ -3743,60 +3439,9 @@ def upsample_sites(rows: int, card: str) -> list:
             fail(f"factored upsample at {name} {shape}: f32 max err {err:.3e}"
                  f" of the peak against interpolate + conv (limit 1e-5)")
         del want
-        xb, wb, bb = x.bfloat16(), w.bfloat16(), b.bfloat16()
-        forms = {"factored": lambda: factored_upsample_conv(xb, wb, b, up),
-                 "direct": lambda: direct(xb, wb, bb)}
-        # in turns, factored, direct, direct, factored
-        ms = {"factored": [], "direct": []}
-        for form in ("factored", "direct", "direct", "factored"):
-            ms[form].append(cuda_ms(forms[form], iters=10))
-        f_ms, d_ms = (sum(ms[f]) / 2 for f in ("factored", "direct"))
-        macs = (math.prod(shape) * c * 27
-                * 2 ** len(up)) / (2.25 if len(up) == 2 else 3.375)
         out.append({"site": name, "shape": list(shape), "up_axes": list(up),
-                    "factored_ms": f_ms, "direct_ms": d_ms, "turns_ms": ms,
-                    "f32_err_of_peak": err, "factored_gmacs": macs / 1e9})
-        print(f"upsample {name} {list(shape)}: factored {f_ms:.4f} ms "
-              f"{ms['factored']}, interpolate + conv {d_ms:.4f} ms "
-              f"{ms['direct']} ({d_ms / f_ms:.2f} x), bf16; f32 forms within "
-              f"{err:.2e} of the peak [{card}]")
+                    "f32_err_of_peak": err})
     return out
-
-
-def factored_twin_path(sg, batch, rows: int, card: str) -> dict:
-    """Phase 5: the shape step and the decode chunk of the flagship's
-    sampling twin (the factored upsamples) beside the same weights in a
-    twin with interpolate + conv, timed factored, direct, factored again:
-    ms, busy share, launches and the 8 kernels with the most device time
-    of each (`device_busy_shares`), and the bf16 difference of the two
-    twins' outputs on the same inputs (max of each output's peak, mean of
-    its mean magnitude)."""
-    import torch
-    from echoscene_torch.benchmarks import device_busy_shares, part_calls
-    from echoscene_torch.models.sgdiff import inference_twin
-
-    direct = inference_twin(sg.module, torch.bfloat16, factored=False)
-    names = ("shape_step", "decode_chunk")
-    runs = [device_busy_shares(sg, batch, rows, model=m, names=names, top=8)
-            for m in (None, direct, None)]
-    diffs = {}
-    with torch.no_grad():
-        fac, dirc = part_calls(sg, batch, rows), part_calls(sg, batch, rows,
-                                                             direct)
-        for name in names:
-            a, b = fac[name]().float(), dirc[name]().float()
-            diffs[name] = {
-                "max_of_peak": ((a - b).abs().max()
-                                / a.abs().max()).item(),
-                "mean_of_mean": ((a - b).abs().mean()
-                                 / a.abs().mean()).item()}
-            if not torch.isfinite(b).all():
-                fail(f"the direct twin's {name} is not finite")
-    del direct, fac, dirc
-    torch.cuda.empty_cache()
-    return {"factored_parts": runs[0], "direct_parts": runs[1],
-            "factored_parts_again": runs[2],
-            "diff_factored_vs_direct": diffs}
 
 
 def tp_forward(sg, batch, rows: int, card: str) -> dict:
@@ -4029,21 +3674,17 @@ def int8_path(card: str, sites: dict, norms_per_step: int) -> dict:
     every count set to 0 just before and read just after (K1 = 5 a shape
     step, K2 = one a decode chunk, Q2 = `q2_calls_per_step` and Q1 =
     `q1_calls_per_step` a shape step, the fused norm `norms_per_step` a
-    shape step), finite outputs of the JAX shapes;
-    the cost of building the int8 twin (a fresh twin per sample_fn call,
-    ~57 weights quantized); one shape step of the int8 twin beside the bf16
-    twin's on the same weights and inputs (ms, busy share, top kernels, the
+    shape step), finite outputs of the JAX shapes; one shape step of the
+    int8 twin and of the bf16 twin on the same weights and inputs (the
     difference of the outputs); the service at the fast profile with
     sample_dtype int8 (warmup, a short stream of 8 requests from 4
     clients, the counts per dispatch); one shape step of the
-    `sample_conv: winograd` twin beside the direct bf16 twin (ms, error)."""
+    `sample_conv: winograd` twin and of the direct bf16 twin (the error)."""
     import numpy as np
     import torch
     from echoscene_torch.benchmarks import (NUM_OBJS, NUM_PREDS,
                                             build_flagship,
-                                            concurrent_latency,
-                                            device_busy_shares, part_calls,
-                                            time_generation)
+                                            concurrent_latency, part_calls)
     from echoscene_torch.data.clip_text import ClipTextEncoder
     from echoscene_torch.data.collate import CollateSpec
     from echoscene_torch.data.fake import make_fake_dataset
@@ -4076,8 +3717,8 @@ def int8_path(card: str, sites: dict, norms_per_step: int) -> dict:
 
     # 1. one generation, counted
     reset()
-    sps, wall, gen = time_generation(sg, batch, batch.num_scenes, n_iters=1,
-                                     warmup=False)
+    gen = sg.sample_fn(batch, torch.Generator(device=sg.device).manual_seed(1),
+                       shape_rows=rows)
     got = counts()
     want = {"onepass_attention": 5 * steps,
             "stream_attention": math.ceil(rows / 8),
@@ -4098,29 +3739,15 @@ def int8_path(card: str, sites: dict, norms_per_step: int) -> dict:
                  f"{tuple(gen[key].shape)}, want {shp}, or not finite")
     if not bool(gen["shapes"][:rows].float().abs().sum() > 0):
         fail("int8 fast profile: the real rows' SDFs are all zero")
-    out.update(generation_s=wall, scenes_per_sec=sps, launches=got)
+    out.update(launches=got)
     print(f"int8 fast profile generation (DPM++ 50 / 20, int8 torso): "
-          f"{wall:.3f} s wall, {sps:.4f} scenes/sec, first call in the "
-          f"process; launches {json.dumps(got)} (Q2 "
+          f"launches {json.dumps(got)} (Q2 "
           f"{sites['q2_calls_per_step']} and Q1 "
           f"{sites['q1_calls_per_step']} a shape step) [{card}]")
 
-    # 2. the twin's build, then one shape step int8 beside bf16
-    times = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        twin8 = sg.inference_module()
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    out["int8_twin_build_s"] = times
+    # 2. one shape step int8 beside bf16
+    twin8 = sg.inference_module()
     twin16 = inference_twin(sg.module, torch.bfloat16)
-    reset()
-    parts = {name: device_busy_shares(sg, batch, rows, model=m,
-                                      names=("shape_step",), top=8)
-             ["shape_step"] for name, m in (("int8", twin8),
-                                            ("bf16", twin16),
-                                            ("int8_again", twin8))}
     with torch.no_grad():
         a = part_calls(sg, batch, rows, twin8)["shape_step"]().float()
         b = part_calls(sg, batch, rows, twin16)["shape_step"]().float()
@@ -4128,14 +3755,9 @@ def int8_path(card: str, sites: dict, norms_per_step: int) -> dict:
         fail("int8 / bf16 shape step not finite")
     diff = {"max_of_peak": ((a - b).abs().max() / b.abs().max()).item(),
             "mean_of_mean": ((a - b).abs().mean() / b.abs().mean()).item()}
-    out.update(shape_step=parts, int8_vs_bf16=diff)
-    for name, p in parts.items():
-        print(f"shape step {name}: {p['wall_ms']:.3f} ms wall, device "
-              f"{p['device_ms']} ms, busy share {p['busy_share']}, "
-              f"{p['kernel_launches']} launches; top kernels "
-              f"{json.dumps(p['top'])} [{card}]")
-    print(f"int8 vs bf16 twin shape step outputs: {json.dumps(diff)}; int8 "
-          f"twin build {', '.join(f'{t:.3f}' for t in times)} s [{card}]")
+    out.update(int8_vs_bf16=diff)
+    print(f"int8 vs bf16 twin shape step outputs: {json.dumps(diff)} "
+          f"[{card}]")
     del a, b, twin16
 
     # 3. the service at the fast profile, sample_dtype int8
@@ -4218,9 +3840,6 @@ def int8_path(card: str, sites: dict, norms_per_step: int) -> dict:
     # 4. the Winograd twin's shape step beside the direct bf16 twin's
     wino = inference_twin(sg.module, torch.bfloat16, winograd=True)
     direct = inference_twin(sg.module, torch.bfloat16)
-    w_parts = {name: device_busy_shares(sg, batch, rows, model=m,
-                                        names=("shape_step",))["shape_step"]
-               for name, m in (("winograd", wino), ("direct", direct))}
     with torch.no_grad():
         a = part_calls(sg, batch, rows, wino)["shape_step"]().float()
         b = part_calls(sg, batch, rows, direct)["shape_step"]().float()
@@ -4229,11 +3848,8 @@ def int8_path(card: str, sites: dict, norms_per_step: int) -> dict:
     w_diff = {"max_of_peak": ((a - b).abs().max() / b.abs().max()).item(),
               "mean_of_mean": ((a - b).abs().mean()
                                / b.abs().mean()).item()}
-    out.update(winograd_shape_step=w_parts, winograd_vs_direct=w_diff)
-    print(f"Winograd twin shape step {w_parts['winograd']['wall_ms']:.3f} ms"
-          f" wall, device {w_parts['winograd']['device_ms']} ms; direct bf16 "
-          f"twin {w_parts['direct']['wall_ms']:.3f} ms, device "
-          f"{w_parts['direct']['device_ms']} ms; outputs differ by "
+    out.update(winograd_vs_direct=w_diff)
+    print(f"Winograd twin vs direct bf16 twin shape step outputs: "
           f"{json.dumps(w_diff)} [{card}]")
     del wino, direct, a, b, sg, twin8
     torch.cuda.empty_cache()
@@ -4253,9 +3869,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
-    from echoscene_torch.benchmarks import (build_flagship,
-                                            device_busy_shares,
-                                            synthetic_batch, time_generation)
+    from echoscene_torch.benchmarks import build_flagship, synthetic_batch
     from echoscene_torch.kernels import build
     from echoscene_torch import native
     from echoscene_torch.kernels import chamfer as k4
@@ -4270,9 +3884,8 @@ def main() -> int:
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     # 1. build: one nvcc per source, all started together
-    sources = (fa.SOURCE, fa.SOURCE_BWD, fa.SOURCE_BWD_EARLIER, fa.SOURCE_F32,
-               BASELINE_SOURCE, F32_SIMT_SOURCE, k4.SOURCE, K4_DIRECT_SOURCE,
-               q8.SOURCE, q8.EARLIER_SOURCE, gnk.SOURCE)
+    sources = (fa.SOURCE, fa.SOURCE_BWD, fa.SOURCE_F32, k4.SOURCE, q8.SOURCE,
+               gnk.SOURCE)
     t0 = time.perf_counter()
     built = build.build_all(sources)
     for source in sources:
@@ -4315,8 +3928,7 @@ def main() -> int:
               f"{d['tensor_core_ms']:.4f}, exp2 at {clock / 1e6:.0f} MHz "
               f"{d['exp2_ms']:.4f}, bytes {d['bytes_ms']:.4f}); sdpa "
               f"{e['library_ms']:.4f} ms ({e['vs_library']:.3f} x its "
-              f"time), earlier mma.sync design {e['earlier_ms']:.4f} ms "
-              f"({e['earlier_ms'] / e['ms']:.2f} x this), plain "
+              f"time), plain "
               f"{e['plain_ms']:.3f} ms; host {e['host_us_per_call']:.1f} us "
               f"per wrapper call; max abs err {e['max_abs_err']:.3e}, max / "
               f"mean err at {e['err_of_limit'][0]:.3f} / "
@@ -4364,16 +3976,11 @@ def main() -> int:
               f" ms by {d['by']}: tensor cores {d['tensor_core_ms']:.4f}, "
               f"exp2 {d['exp2_ms']:.4f}, bytes {d['bytes_ms']:.4f}); bound "
               f"of forward + backward {e['fwd_bwd_bound_ms']:.4f} ms (by "
-              f"{e['fwd_bwd_bound_by']}); earlier design (plain recompute "
-              f"backward) {e['earlier_fwd_bwd_ms']:.4f} ms "
-              f"({e['earlier_over_kernel_fwd_bwd']:.2f} x this); sdpa forward"
+              f"{e['fwd_bwd_bound_by']}); sdpa forward"
               f" + backward {e['library_fwd_bwd_ms']:.4f} ms "
               f"({e['fwd_bwd_vs_library']:.3f} x its time), its backward "
               f"alone {bwd['library_ms']:.4f} ms (the backward kernel "
-              f"{bwd['backward_vs_library']:.3f} x its time); the earlier "
-              f"backward kernel (two launches) {bwd['earlier_backward_ms']:.4f}"
-              f" ms ({bwd['earlier_backward_ms'] / bwd['ms']:.3f} x this), "
-              f"in turns {json.dumps(bwd['times_in_turns'])}; host "
+              f"{bwd['backward_vs_library']:.3f} x its time); host "
               f"{bwd['host_us_per_call']:.1f} us per attention_backward call;"
               f" plain forward + backward "
               f"{e['plain_fwd_bwd_ms']:.4f} ms, plain backward alone "
@@ -4399,8 +4006,7 @@ def main() -> int:
               f"{d['tf32x3_ms']:.4f}, f32 FMA {d['fma_ms']:.4f}, exp2 "
               f"{d['exp2_ms']:.4f}, bytes {d['bytes_ms']:.4f}); sdpa f32 "
               f"(TF32 off) {e['library_ms']:.4f} ms ({e['vs_library']:.3f} "
-              f"x its time), earlier f32 FMA design {e['earlier_ms']:.4f} "
-              f"ms ({e['earlier_ms'] / e['ms']:.2f} x this), plain "
+              f"x its time), plain "
               f"{e['plain_ms']:.3f} ms; host "
               f"{e['host_us_per_call']:.1f} us per wrapper call; max abs err "
               f"{e['max_abs_err']:.3e}, max / mean err at "
@@ -4418,9 +4024,8 @@ def main() -> int:
         print(f"kernel {e['name']} {p['shape']}: {p['ms']:.4f} ms, "
               f"{p['share_of_bound']:.3f} of the bound {p['bound_ms']:.4f} ms "
               f"(by {p['bound_by']}; {p['pair_tflops']:.1f} TFLOP/s at 8 a "
-              f"pair); cdist+amin {p['library_ms']:.4f} ms, earlier direct "
-              f"design {p['earlier_ms']:.4f} ms ({p['earlier_ms'] / p['ms']:.2f}"
-              f" x this), plain {p['plain_ms']:.3f} ms; host "
+              f"pair); cdist+amin {p['library_ms']:.4f} ms, plain "
+              f"{p['plain_ms']:.3f} ms; host "
               f"{p['host_us_per_call']:.1f} us per wrapper call; max abs err "
               f"{p['max_abs_err']:.3e}, max / mean err at "
               f"{p['err_of_limit'][0]:.3f} / {p['err_of_limit'][1]:.3f} of "
@@ -4437,16 +4042,14 @@ def main() -> int:
     for r in q8chk["q1"]:
         print(f"kernel quantize_act {r['shape']} {r['dtype']}: "
               f"{r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms (bytes), "
-              f"share {r['bound_ms'] / r['ms']:.3f}; earlier design "
-              f"{r['earlier_ms']:.4f} ms; plain "
+              f"share {r['bound_ms'] / r['ms']:.3f}; plain "
               f"{r['plain_ms']:.3f} ms; {r['calls_per_step']} a shape step; "
               f"bit-equal [{card}]")
     for r in q8chk["q2"]:
         print(f"kernel int8_conv3d {r['name']} {r['shape']} -> {r['k']} taps "
               f"{r['taps']} stride {r['stride']}: {r['ms']:.4f} ms, "
               f"{r['tops']:.1f} TOP/s, {r['share_of_bound']:.3f} of the "
-              f"bound {r['bound_ms']:.4f} ms (by {r['bound_by']}); earlier "
-              f"design {r['earlier_ms']:.4f} ms; cuDNN bf16 "
+              f"bound {r['bound_ms']:.4f} ms (by {r['bound_by']}); cuDNN bf16 "
               f"{r['cudnn_bf16_ms']:.4f} ms, im2col + _int_mm "
               f"{r['int_mm_route_ms']:.4f} ms (_int_mm alone "
               f"{r['int_mm_ms']:.4f}), plain {r['plain_ms']:.2f} ms; "
@@ -4510,8 +4113,8 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launches()
     gnk.reset_launches()
-    sps, wall, out = time_generation(sg, batch, batch.num_scenes, n_iters=1,
-                                     warmup=False)
+    out = sg.sample_fn(batch, torch.Generator(device=sg.device).manual_seed(1),
+                       shape_rows=rows)
     torch.cuda.synchronize()
     launches = {**fa.LAUNCHES, **gnk.LAUNCHES}
     n = batch.num_nodes
@@ -4535,38 +4138,14 @@ def main() -> int:
     for e in entries[:2]:
         e["launches"] = launches[e["name"]]
     gn_launches = launches["group_norm_act"]
-    print(f"generation: {wall:.3f} s wall, {sps:.4f} scenes/sec "
-          f"({batch.num_scenes} scenes, first call in the process), peak memory "
+    print(f"generation: {batch.num_scenes} scenes, peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
     print(f"launches on the main path: {json.dumps(launches)}")
 
-    # 5. how busy the device is in each part of sample_fn, timed alone
-    parts = device_busy_shares(sg, batch, rows)
-    for name, p in parts.items():
-        busy = (f"{p['busy_share']:.3f}" if p["busy_share"] is not None
-                else "not measured")
-        print(f"part {name}: {p['wall_ms']:.3f} ms wall per call, device "
-              f"busy share {busy}, {p['kernel_launches']} kernel launches "
-              f"[{card}]")
-    # the factored upsamples (the flagship's twin) beside interpolate + conv
-    ft = factored_twin_path(sg, batch, rows, card)
-    for name in ft["direct_parts"]:
-        line = "; ".join(
-            f"{form} {p[name]['wall_ms']:.3f} ms wall, device "
-            f"{p[name]['device_ms']} ms, {p[name]['kernel_launches']} "
-            f"launches" for form, p in (
-                ("factored", ft["factored_parts"]),
-                ("interpolate + conv", ft["direct_parts"]),
-                ("factored again", ft["factored_parts_again"])))
-        print(f"part {name}, the twin's upsamples: {line}; bf16 outputs of "
-              f"the two twins differ by "
-              f"{json.dumps(ft['diff_factored_vs_direct'][name])} [{card}]")
-        for form in ("factored_parts", "direct_parts"):
-            print(f"  {form} {name} top kernels (name, device ms, "
-                  f"launches): {json.dumps(ft[form][name]['top'])}")
-    ft["sites"] = upsample_sites(rows, card)
-    print(f"flagship generation (factored twin, phase 4): {wall:.3f} s wall "
-          f"[{card}]")
+    # 5. the twin's factored upsamples against interpolate + conv
+    ups = upsample_sites(rows)
+    print(f"factored upsamples against interpolate + conv in f32: "
+          f"{json.dumps(ups)} [{card}]")
 
     # 6. the evaluation path: fake dataset -> SceneEvaluator -> SDF dumps ->
     # consistency CLI -> MMD / COV / 1-NN, on the phase-4 model
@@ -4589,27 +4168,11 @@ def main() -> int:
     bwd_entries[0]["launches"] = tr["backward_launches_per_step"] * tr["steps"]
     bwd_entries[0]["train_launches_per_step"] = tr[
         "backward_launches_per_step"]
-    ea = tr["earlier_backward_step"]
-    print(f"training step with the earlier design's backward (plain "
-          f"recompute): {ea['wall_ms']:.3f} ms wall, device "
-          f"{ea['device_ms']} ms against {tr['step_device_ms']} ms with the "
-          f"backward kernel, peak memory {ea['peak_gib']:.2f} GiB, "
-          f"{ea['kernel_launches']} kernel launches [{card}]")
-    print(f"training: {tr['scenes_per_sec']:.4f} train scenes/sec, "
-          f"{tr['ms_per_step']:.3f} ms per step (8 scenes, diffusion_bs 8, "
-          f"bf16, remat; 1 warm + 8 timed steps), peak memory "
-          f"{tr['peak_gib']:.2f} GiB; one step: {tr['step_wall_ms']:.3f} ms "
-          f"wall, device busy share {tr['busy_share']:.3f}, "
-          f"{tr['step_kernel_launches']} kernel launches; diffusion_bs 64: "
+    print(f"training: {tr['steps']} steps (8 scenes, diffusion_bs 8, bf16, "
+          f"remat), peak memory {tr['peak_gib']:.2f} GiB; diffusion_bs 64: "
           f"peak memory {tr['peak_gib_diffusion_bs_64']:.2f} GiB [{card}]")
-    for name, p in tr["step_parts"].items():
-        print(f"training step part {name}: {p['wall_ms']:.3f} ms wall, "
-              f"device {p['device_ms']:.3f} ms, busy share "
-              f"{p['busy_share']:.3f}, {p['kernel_launches']} kernel "
-              f"launches [{card}]")
-    print(f"training in f32 (compute_dtype float32): one step "
-          f"{tr['f32_step_ms']:.3f} ms, peak memory {tr['f32_peak_gib']:.2f} "
-          f"GiB, loss {tr['f32_loss']:.6g}, launches "
+    print(f"training in f32 (compute_dtype float32): one step, peak memory "
+          f"{tr['f32_peak_gib']:.2f} GiB, loss {tr['f32_loss']:.6g}, launches "
           f"{json.dumps(tr['f32_launches'])} [{card}]")
     print(f"training details: {json.dumps(tr)}; phase 7 took "
           f"{time.perf_counter() - t0:.1f} s")
@@ -4654,13 +4217,6 @@ def main() -> int:
     print(f"tiny VQ-VAE step, CUDA vs CPU: {json.dumps(tiny_vq)}")
     pipe, state = pipeline_path(sg, vq_trainer, vq_state, card)
     del vq_trainer, vq_state
-    print(f"joint step (bf16, diffusion_bs 8): from latents "
-          f"{pipe['cache_step_ms']:.3f} ms, device "
-          f"{pipe['cache_step_device_ms']} ms, {pipe['cache_step_kernel_launches']} launches (K1 10, K2 0 a "
-          f"step); from SDFs through the frozen encoder "
-          f"{tr['ms_per_step']:.3f} ms, device {tr['step_device_ms']} ms, "
-          f"{tr['step_kernel_launches']} launches (phase 7; K1 10, K2 1) "
-          f"[{card}]")
     ck = checkpoint_path(sg, state, card)
     del state
     for e in f32_entries[1:]:

@@ -1,6 +1,6 @@
-"""Flagship model construction, generation / training / serving timing.
+"""The flagship fixture: model construction and a synthetic batch; serving.
 
-Port of `build_flagship`, `time_generation` and `time_train_step` of
+Port of `build_flagship` of
 echoscene_tpu/benchmarks.py, and of `concurrent_latency` of
 scripts/bench_serve.py.  The flagship is EchoScene at full
 `configs/full_mp.yaml` widths with seeded random weights (no checkpoint is
@@ -9,21 +9,22 @@ in the repository), on a seeded synthetic scene batch at the bench's shape:
 `max_triples=112`, scene-major nodes with all padding at the tail, 512-d
 unit-norm text / relation features in place of CLIP's, and for training a
 greedy shape sub-batch of seeded analytic 64^3 SDFs (the card's machine has
-no h5py to read a fake dataset's grids).
+no h5py to read a fake dataset's grids).  `part_calls` gives the parts of
+`sample_fn` as calls; `concurrent_latency` drives concurrent clients
+through a `MicroBatcher`.  Path speed is measured by `python3 -m portbench`.
 """
 from __future__ import annotations
 
 import os
 import time
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from .core.graphbatch import GraphBatch, SceneBatch, ShapeSelection
 from .models.config import EchoSceneConfig, load_config
-from .models.sgdiff import (SGDiff, TrainState, compact_graph,
-                            shape_row_capacity)
+from .models.sgdiff import SGDiff, compact_graph
 
 # the fake SG-FRONT vocabulary of the JAX package's data/fake.py: 9 coarse
 # classes (index 0 = `_scene_`) and "in" + 15 relationships
@@ -188,39 +189,6 @@ def build_flagship(max_nodes: int = 48, max_triples: int = 112,
     return sg, batch.to(device)
 
 
-def time_generation(sg: SGDiff, batch: SceneBatch, batch_scenes: int,
-                    n_iters: int = 1, seed: int = 1, warmup: bool = True):
-    """Wall seconds of a full `sample_fn` call over the exact real-node rows,
-    averaged over n_iters (after one untimed call when `warmup`); returns
-    (scenes_per_sec, seconds, last output)."""
-    rows = shape_row_capacity(batch, multiple=1)
-    gen = torch.Generator(device=sg.device).manual_seed(seed)
-    if warmup:
-        sg.sample_fn(batch, gen, shape_rows=rows)
-    torch.cuda.synchronize(sg.device)
-    t0 = time.perf_counter()
-    for _ in range(n_iters):
-        out = sg.sample_fn(batch, gen, shape_rows=rows)
-    torch.cuda.synchronize(sg.device)
-    dt = (time.perf_counter() - t0) / n_iters
-    return batch_scenes / dt, dt, out
-
-
-def time_train_step(sg: SGDiff, state: TrainState, batch: SceneBatch,
-                    batch_scenes: int, k: int = 8, seed: int = 17):
-    """Train scenes/sec as bench.py defines it: batch_scenes x k steps over
-    the wall seconds of k steps, after one untimed warm step; returns
-    (scenes_per_sec, seconds per step, the k losses)."""
-    gen = torch.Generator(device=sg.device).manual_seed(seed)
-    sg.train_step(state, batch, gen)
-    torch.cuda.synchronize(sg.device)
-    t0 = time.perf_counter()
-    losses = [sg.train_step(state, batch, gen)["loss"] for _ in range(k)]
-    torch.cuda.synchronize(sg.device)
-    dt = time.perf_counter() - t0
-    return batch_scenes * k / dt, dt / k, torch.stack(losses).cpu()
-
-
 def part_calls(sg: SGDiff, batch: SceneBatch, rows: int,
                model: Optional[torch.nn.Module] = None) -> dict:
     """The parts of `sample_fn` as calls of `model` (the sampling module,
@@ -252,63 +220,6 @@ def part_calls(sg: SGDiff, batch: SceneBatch, rows: int,
         "inputs": {"z": z, "t": t, "obj_embed": uc_s, "triples": triples,
                    "obj_mask": obj_mask, "triple_mask": tri_mask},
     }
-
-
-@torch.no_grad()
-def device_busy_shares(sg: SGDiff, batch: SceneBatch, rows: int,
-                       iters: int = 5,
-                       model: Optional[torch.nn.Module] = None,
-                       names: Optional[Sequence[str]] = None,
-                       top: int = 0) -> dict:
-    """For each part of `sample_fn` (the graph context, one layout denoiser
-    step, one shape denoiser step, one decode chunk; or the parts `names`)
-    of `model` (the sampling module by default): wall ms per call on
-    the card, and the device time and kernel launches of one call under
-    torch.profiler (device-side events only), whose ratio to the wall time
-    is the share of the call the device is busy; with `top`, that many
-    kernels with the most device time (`profile_call`)."""
-    calls = part_calls(sg, batch, rows, model)
-    dev = sg.device
-    parts = {k: calls[k] for k in (names or ("context", "layout_step",
-                                             "shape_step", "decode_chunk"))}
-    out = {}
-    for name, fn in parts.items():
-        fn()
-        torch.cuda.synchronize(dev)
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize(dev)
-        out[name] = profile_call(fn, dev,
-                                 (time.perf_counter() - t0) / iters * 1e3,
-                                 top)
-    return out
-
-
-def profile_call(fn, device, wall_ms: float, top: int = 0) -> dict:
-    """The device time and kernel launches of one call of `fn` under
-    torch.profiler (device-side events only), and their ratio to `wall_ms`,
-    the call's wall time measured without the profiler: the share of the
-    call the device is busy; with `top`, under "top" the `top` kernels
-    with the most device time, as [name, ms, launches]."""
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        fn()
-        torch.cuda.synchronize(device)
-    # CPU ops also carry the device time of their kernels: count only the
-    # device-side events
-    cuda = torch.autograd.DeviceType.CUDA
-    kernels = [e for e in prof.key_averages() if e.device_type == cuda]
-    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    out = {"wall_ms": wall_ms, "device_ms": dev_ms if dev_ms > 0 else None,
-           "busy_share": dev_ms / wall_ms if dev_ms > 0 else None,
-           "kernel_launches": sum(e.count for e in kernels)}
-    if top:
-        kernels.sort(key=lambda e: -e.self_device_time_total)
-        out["top"] = [[e.key[:90], e.self_device_time_total / 1e3, e.count]
-                      for e in kernels[:top]]
-    return out
 
 
 def concurrent_latency(service, requests, window_ms: float, n_clients: int,

@@ -6,7 +6,6 @@
 //   out[b, n] = min_m |a[b, n] - b[b, m]|^2,  a (B, N, 3), b (B, M, 3) f32,
 // the building block of the chamfer metric (chamfer = mean of a->b plus mean
 // of b->a).  Called twice per chamfer by echoscene_torch/kernels/chamfer.py.
-// The earlier direct-form f32 design is csrc/chamfer_direct.cu.
 //
 // Design.  Both clouds are moved to a centre c (the mean of 32 targets
 // spread over the batch entry, rounded to f32; every warp computes the same

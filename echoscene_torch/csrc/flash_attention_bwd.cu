@@ -107,10 +107,6 @@
 // Instantiated for D_pad = 64, 128 and 256.  TMA needs 16-byte global
 // strides, so D % 8 == 0; the wrapper raises otherwise.
 //
-// The earlier design (two launches of separate dK / dV and dQ kernels, no
-// turns, S and dP computed by both consumers at D_pad 256: 11 products
-// there) is csrc/flash_attention_bwd_fa2.cu.
-//
 // Built by echoscene_torch/kernels/build.py (nvcc -gencode
 // arch=compute_90a,code=sm_90a, plain C interface) and called through
 // ctypes; the entry point returns a cudaError_t.  cuTensorMapEncodeTiled

@@ -7,8 +7,6 @@
 // lax.conv_general_dilated on int8 operands with int32 accumulation, which
 // XLA compiles; PyTorch has no CUDA int8 3D convolution.  Called by
 // echoscene_torch/kernels/int8_conv.py, which also computes Q2's tile plan.
-// The first design of both kernels (mma.sync, cp.async, partial maxima)
-// lives on unchanged in int8_conv_mma.cu, on no path of the port.
 //
 // Q1, echoscene_quantize_act (both passes), or its two passes as
 // echoscene_quantize_amax and echoscene_quantize_with_amax, so that a caller

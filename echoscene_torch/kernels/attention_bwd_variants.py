@@ -1,7 +1,6 @@
 """Design check of the bf16 attention backward on the card: each variant
 turns off one design step of `csrc/flash_attention_bwd.cu` and is timed
-beside the kernel, its earlier design (`csrc/flash_attention_bwd_fa2.cu`)
-and SDPA's backward.
+beside the kernel and SDPA's backward.
 
     python -m echoscene_torch.kernels.attention_bwd_variants [--rounds N]
 
@@ -22,8 +21,7 @@ and nvcc; no path of the port runs it.
     gradient products of the tile before have ended (D_pad 64 and 128; D_pad
     256 is not pipelined in the kernel either);
   * `two_launches`: the dK / dV tiles and the dQ tiles as two launches of
-    the same kernel, the second waiting for the first to drain (the earlier
-    design's schedule);
+    the same kernel, the second waiting for the first to drain;
   * `not_persistent`: at D_pad 64 one CTA a tile, as at D_pad 128 and 256,
     each loading its resident tiles and writing its gradients with nothing
     else to hide either;
@@ -31,7 +29,7 @@ and nvcc; no path of the port runs it.
     CTA's next resident tiles only after the consumers' stores of the tile
     before;
   * `no_prefetch`: the producer loads a query tile's lse and delta only
-    when the ring has room for the tile, as the earlier design did;
+    when the ring has room for the tile;
   * `ss_scores`: at D_pad 64, S and dP read the resident rows from shared
     memory (both operands there, as at D_pad 128 / 256) instead of from
     registers loaded once a tile.
@@ -210,13 +208,8 @@ def main(argv=None) -> int:
         ratios = [fa.error_ratios(a, b) for a, b in zip(got, want)]
         if max(max(r) for r in ratios) > 1.0:
             raise RuntimeError(f"kernel at {shape}: {ratios} of the limits")
-        timed = {"kernel": lambda i=inputs: call(kernel_fn, *i),
-                 "earlier": lambda i=inputs: fa.earlier_attention_backward(
-                     *i)}
-        earlier = [fa.error_ratios(a, b) for a, b in zip(
-            fa.earlier_attention_backward(*inputs), want)]
-        print(f"check {shape}: kernel at {ratios} of the limits; earlier "
-              f"design at {earlier}", flush=True)
+        timed = {"kernel": lambda i=inputs: call(kernel_fn, *i)}
+        print(f"check {shape}: kernel at {ratios} of the limits", flush=True)
         for name, fn in fns.items():
             if not name.startswith("diag_") and not all(
                     torch.equal(a, b) for a, b in zip(call(fn, *inputs),

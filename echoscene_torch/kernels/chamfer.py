@@ -13,8 +13,7 @@ for the design and what bounds it on the H100) with the grid of
 tensor it computes the plain PyTorch version `nn_distance_plain`, the Gram
 form of JAX's kernel (|a|^2 + |b|^2 - 2 a.b, clamped at 0) term by term; on
 CUDA nothing reaches it.  Shapes are JAX's: a (B, N, 3), b (B, M, 3) ->
-(B, N).  `csrc/chamfer_direct.cu`, the earlier direct-form design, is timed
-beside the kernel by chip_smoke.py and is called by no path.
+(B, N).
 
 `LAUNCHES` counts kernel launches and `LAUNCH_SHAPES` the same launches by
 (B, N, M); a run resets both to read which kernels its main path went

@@ -1,6 +1,5 @@
 """Design check of the nearest-neighbour kernel K4 on the card: each variant
-changes one design choice of `csrc/chamfer.cu` (or retunes the earlier
-direct-form design, `csrc/chamfer_direct.cu`) and is timed beside the
+changes one design choice of `csrc/chamfer.cu` and is timed beside the
 kernel.
 
     python -m echoscene_torch.kernels.chamfer_variants [--rounds N]
@@ -9,10 +8,10 @@ A variant is a kernel's source with a few textual edits, built by nvcc with
 `build.NVCC_FLAGS` into `build/kernels/variants/` (all variants at once) and
 loaded through ctypes; a variant may also launch with another
 `chamfer.launch_plan`.  Each is held to `error_ratios` against the float64
-plain version, and the f64 ones also to <= 1 ulp (`ulp_distance`), except
+plain version, and also to <= 1 ulp (`ulp_distance`), except
 the diagnostics, whose output is wrong by design.  Then all are timed with
 CUDA events at the path shapes, in turns with `cdist`^2 + min, N rounds.
-Prints the SASS opcode counts of each f64 variant's kernel (cuobjdump), one
+Prints the SASS opcode counts of each variant's kernel (cuobjdump), one
 line per measurement and, last, a JSON object with the median over the
 rounds.  Needs a CUDA card and nvcc; no path of the port runs it.
 """
@@ -33,70 +32,7 @@ from . import chamfer as k4
 
 SHAPES = [(16, 5000, 5000), (8, 5000, 5000), (1, 5000, 5000)]
 VARIANT_DIR = os.path.join(build.BUILD_DIR, "variants")
-DIRECT_SOURCE = "chamfer_direct.cu"
 SLEEP_CYCLES = 5_000_000    # ~2.5 ms at the H100's clock: covers 30 calls
-
-_DIRECT_LOOP = '''  const int m_begin = blockIdx.z * chunk;
-  const int m_end = min(M, m_begin + chunk);
-  for (int m0 = m_begin; m0 < m_end; m0 += kTile) {
-    const int len = min(kTile, m_end - m0);
-    __syncthreads();   // the previous tile is consumed
-    for (int j = threadIdx.x; j < len; j += kThreads) {
-      const float* p = bb + 3 * static_cast<int64_t>(m0 + j);
-      tile[j] = make_float4(p[0], p[1], p[2], 0.f);
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int j = 0; j < len; ++j) {
-      const float4 t = tile[j];
-'''
-# design B: the direct f32 form with the next tile's coordinates loaded into
-# registers while the current float4 tile is consumed (the loop body after
-# `const float4 t = ...` is the earlier kernel's)
-_DIRECT_LOOP_B = '''  const int m_begin = blockIdx.z * chunk;
-  const int m_end = min(M, m_begin + chunk);
-  constexpr int kPer = kTile / kThreads;
-  float px[kPer], py[kPer], pz[kPer];
-  auto fetch = [&](int m0) {
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int m = m0 + i * kThreads + threadIdx.x;
-      const float* p = bb + 3 * static_cast<int64_t>(m < m_end ? m : m0);
-      px[i] = p[0];
-      py[i] = p[1];
-      pz[i] = p[2];
-    }
-  };
-  auto put = [&](int s) {
-#pragma unroll
-    for (int i = 0; i < kPer; ++i)
-      tile[s][i * kThreads + threadIdx.x] = make_float4(px[i], py[i], pz[i], 0.f);
-  };
-  fetch(m_begin);
-  put(0);
-  __syncthreads();
-  int s = 0;
-  for (int m0 = m_begin; m0 < m_end; m0 += kTile) {
-    const int len = min(kTile, m_end - m0);
-    const bool more = m0 + kTile < m_end;
-    if (more) fetch(m0 + kTile);
-#pragma unroll 4
-    for (int j = 0; j < len; ++j) {
-      const float4 t = tile[s][j];
-'''
-_DIRECT_LOOP_END = '''        best[q] = fminf(best[q], d);
-      }
-    }
-  }
-'''
-_DIRECT_LOOP_END_B = '''        best[q] = fminf(best[q], d);
-      }
-    }
-    if (more) put(s ^ 1);
-    __syncthreads();
-    s ^= 1;
-  }
-'''
 
 _MMA_16 = '''      "mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 "
       "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%7, %7, %8, %8};\\n"
@@ -249,19 +185,6 @@ VARIANTS: Dict[str, Tuple[str, str, List[Tuple[str, str]], Dict]] = {
                      "split until all CTAs that fit per SM are launched "
                      "(the first grid) instead of equal shares",
                      k4.SOURCE, [], {"planner": first_grid_plan}),
-    "direct": ("the earlier design: direct f32 form, 4 queries a thread",
-               DIRECT_SOURCE, [], {}),
-    "design_b": ("direct f32 form retuned: 8 queries a thread, "
-                 "double-buffered float4 tiles, 2 CTAs per SM",
-                 DIRECT_SOURCE, [
-                     ("constexpr int kQueries = 4;",
-                      "constexpr int kQueries = 8;"),
-                     ("  __shared__ float4 tile[kTile];",
-                      "  __shared__ float4 tile[2][kTile];"),
-                     (_DIRECT_LOOP, _DIRECT_LOOP_B),
-                     (_DIRECT_LOOP_END, _DIRECT_LOOP_END_B),
-                     ("int64_t want = (4 * static_cast<int64_t>(sms)",
-                      "int64_t want = (2 * static_cast<int64_t>(sms)")], {}),
     "dmma_only": ("diagnostic: the products without the min, one XOR of "
                   "a result word per row kept so no product is dead (wrong "
                   "output): what the f64 tensor cores take",
@@ -287,7 +210,6 @@ VARIANTS: Dict[str, Tuple[str, str, List[Tuple[str, str]], Dict]] = {
                     {}),
 }
 DIAGNOSTICS = ("dmma_only", "dmma_only_zero_c", "min_only")  # wrong output
-F32_FORMS = ("direct", "design_b")           # f32 arithmetic: no ulp check
 
 
 def variant_sources() -> Dict[str, str]:
@@ -351,15 +273,10 @@ def sass_counts(lib: str) -> Dict[str, int]:
     return dict(sorted(counts.items(), key=lambda kv: -kv[1]))
 
 
-def _bind(lib: ctypes.CDLL, source: str):
-    if source == DIRECT_SOURCE:
-        fn = lib.echoscene_nn_distance_direct
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
-            ctypes.c_void_p]
-    else:
-        fn = lib.echoscene_nn_distance
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [
-            ctypes.c_void_p]
+def _bind(lib: ctypes.CDLL):
+    fn = lib.echoscene_nn_distance
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [
+        ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -382,35 +299,25 @@ def main(argv=None) -> int:
     print(f"sass kernel: {json.dumps(sass_counts(build._target(k4.SOURCE)))}")
     print(f"kernel: {k4._kernel()[1]} CTAs per SM")
     fn, ctas_per_sm = k4._kernel()
-    calls = {"kernel": (fn, k4.SOURCE, {"ctas_per_sm": ctas_per_sm},
-                        k4.BLOCK_N)}
+    calls = {"kernel": (fn, {"ctas_per_sm": ctas_per_sm}, k4.BLOCK_N)}
     for name, (lib, path) in build_variants().items():
-        _, source, _, plan_kw = VARIANTS[name]
-        block_n = None
-        if source == k4.SOURCE:
-            block_n = lib.echoscene_nn_distance_block_n()
-            plan_kw = {"ctas_per_sm": lib.echoscene_nn_distance_ctas_per_sm(),
-                       **plan_kw}
-            print(f"{name}: {plan_kw['ctas_per_sm']} CTAs per SM")
-        calls[name] = (_bind(lib, source), source, plan_kw, block_n)
-        if source == k4.SOURCE:
-            print(f"sass {name}: {json.dumps(sass_counts(path))}")
+        block_n = lib.echoscene_nn_distance_block_n()
+        plan_kw = {"ctas_per_sm": lib.echoscene_nn_distance_ctas_per_sm(),
+                   **VARIANTS[name][3]}
+        print(f"{name}: {plan_kw['ctas_per_sm']} CTAs per SM")
+        calls[name] = (_bind(lib), plan_kw, block_n)
+        print(f"sass {name}: {json.dumps(sass_counts(path))}")
 
     def call(entry, a, b):
-        fn, source, plan_kw, block_n = entry
+        fn, plan_kw, block_n = entry
         B, N, M = a.shape[0], a.shape[1], b.shape[1]
         out = torch.empty((B, N), device="cuda")
         stream = torch.cuda.current_stream().cuda_stream
-        if source == DIRECT_SOURCE:
-            err = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), B, N, M,
-                     stream)
-        else:
-            kw = dict(plan_kw)
-            planner = kw.pop("planner", k4.launch_plan)
-            p = planner(B, N, M, sms, block_n=block_n, **kw)
-            err = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), B, N, M,
-                     p.query_tiles, p.units_row, p.ctas, int(p.atomic),
-                     stream)
+        kw = dict(plan_kw)
+        planner = kw.pop("planner", k4.launch_plan)
+        p = planner(B, N, M, sms, block_n=block_n, **kw)
+        err = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), B, N, M,
+                 p.query_tiles, p.units_row, p.ctas, int(p.atomic), stream)
         if err:
             raise RuntimeError(f"launch failed: CUDA error {err}")
         return out
@@ -444,7 +351,7 @@ def main(argv=None) -> int:
             out = call(entry, a, t)
             ratios = k4.error_ratios(out, ref, a, t)
             ulps = k4.ulp_distance(out, ref_ulp, floor)
-            ok = max(ratios) <= 1.0 and (name in F32_FORMS or ulps <= 1.0)
+            ok = max(ratios) <= 1.0 and ulps <= 1.0
             if not ok and name not in DIAGNOSTICS:
                 raise RuntimeError(f"{name} at {s}: error at {ratios} of the "
                                    f"limits, {ulps} ulp")

@@ -23,10 +23,8 @@ the kernel with each row's log-sum-exp as a second output and the backward
 is the hand-written kernel of `csrc/flash_attention_bwd.cu`
 (`attention_backward`): dq, dk, dv of JAX's `_fa_bwd` (jax.vjp of the
 einsum reference; JAX has no backward Pallas kernel, XLA computes it),
-FlashAttention-2's algorithm, plain version `attention_backward_plain`
-(`earlier_attention_backward` is its earlier design, which no path calls).  In
-f32 the backward recomputes the plain version and differentiates it, the
-earlier design that bf16 also took before the backward kernel.
+FlashAttention-2's algorithm, plain version `attention_backward_plain`.  In
+f32 the backward recomputes the plain version and differentiates it.
 On a CUDA tensor each wrapper launches its hand-written sm_90a kernel and
 raises on inputs the kernels do not take: a dtype other than bf16 or f32,
 q, k, v of different dtypes, layout, alignment, D > 256, D % 8 != 0 (the
@@ -57,8 +55,6 @@ from . import build
 SOURCE = "flash_attention.cu"            # bf16: TMA + wgmma
 SOURCE_F32 = "flash_attention_tf32x3.cu"  # f32: 3xTF32, TMA + wgmma
 SOURCE_BWD = "flash_attention_bwd.cu"     # bf16 backward: TMA + wgmma
-# the backward's earlier design (two launches, no turns), timed beside it
-SOURCE_BWD_EARLIER = "flash_attention_bwd_fa2.cu"
 # the source and C-entry suffix of each dtype the kernels take
 KERNELS = {torch.bfloat16: (SOURCE, ""), torch.float32: (SOURCE_F32, "_f32")}
 LAUNCHES: Dict[str, int] = {"onepass_attention": 0, "stream_attention": 0}
@@ -378,32 +374,25 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _backward_entry(earlier: bool = False):
+def _backward_entry():
     """The backward kernel's C function, its ctypes signature bound once:
     (q, k, v, o, do, lse, delta, dq, dk, dv, B, H, L, S, D, scale, rows,
-    ctas, stream); with `earlier`, the earlier design's (no rows, ctas)."""
-    key = ("attention_backward_fa2" if earlier else "attention_backward",
-           torch.bfloat16)
+    ctas, stream)."""
+    key = ("attention_backward", torch.bfloat16)
     with _lock:
         fn = _entries.get(key)
         if fn is None:
-            if earlier:
-                fn = build.load(SOURCE_BWD_EARLIER).\
-                    echoscene_attention_backward_fa2
-                plan_args = []
-            else:
-                fn = build.load(SOURCE_BWD).echoscene_attention_backward
-                plan_args = [ctypes.c_int, ctypes.c_long]
+            fn = build.load(SOURCE_BWD).echoscene_attention_backward
             fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [
-                ctypes.c_float] + plan_args + [ctypes.c_void_p]
+                ctypes.c_float, ctypes.c_int, ctypes.c_long, ctypes.c_void_p]
             fn.restype = ctypes.c_int
             _entries[key] = fn
         return fn
 
 
-def _backward_launch(q, k, v, o, lse, do, earlier: bool = False):
-    """dq, dk, dv by the backward kernel (or its earlier design) after the
-    checks `attention_backward` documents."""
+def _backward_launch(q, k, v, o, lse, do):
+    """dq, dk, dv by the backward kernel after the checks
+    `attention_backward` documents."""
     _check(q, k, v)
     if q.dtype != torch.bfloat16:
         raise TypeError(f"the backward kernel takes bfloat16, got {q.dtype}")
@@ -421,11 +410,9 @@ def _backward_launch(q, k, v, o, lse, do, earlier: bool = False):
     if b * h > 65535:
         raise ValueError(f"B * H = {b * h} exceeds the backward kernel's "
                          f"limit (65535)")
-    fn = _backward_entry(earlier)
-    plan = []
-    if not earlier:
-        p = backward_plan(b, l, h, d, k.shape[1], _sm_count(q.device.index))
-        plan = [p["rows"], p["ctas"]]
+    fn = _backward_entry()
+    p = backward_plan(b, l, h, d, k.shape[1], _sm_count(q.device.index))
+    plan = [p["rows"], p["ctas"]]
     delta = torch.empty((b, h, l), dtype=torch.float32, device=q.device)
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -459,20 +446,6 @@ def attention_backward(entry: str, q: torch.Tensor, k: torch.Tensor,
     return grads
 
 
-def earlier_attention_backward(q: torch.Tensor, k: torch.Tensor,
-                               v: torch.Tensor, o: torch.Tensor,
-                               lse: torch.Tensor, do: torch.Tensor):
-    """`attention_backward` by the earlier design of
-    `csrc/flash_attention_bwd_fa2.cu` (three launches: the delta pre-pass,
-    a key-parallel dK / dV kernel, a query-parallel dQ kernel; 11 products
-    at D_pad 256), the same checks and raises, no launch count; CPU:
-    `attention_backward_plain`.  No path of the port calls it: chip_smoke.py
-    times it beside the kernel."""
-    if q.device.type == "cpu":
-        return attention_backward_plain(q, k, v, o, lse, do)
-    return _backward_launch(q, k, v, o, lse, do, earlier=True)
-
-
 def _count(entry: str, dtype: torch.dtype) -> None:
     """One launch of `entry` in `dtype`, counted under the lock."""
     key = (entry, str(dtype).removeprefix("torch."))
@@ -488,10 +461,9 @@ class KernelAttention(torch.autograd.Function):
     the backward `bwd(q, k, v, o, lse, do) -> (dq, dk, dv)` from the saved
     q, k, v, o and lse (the bf16 kernels).  `apply(fwd, q, k, v)`: the
     forward is `fwd(q, k, v) -> o` and the backward recomputes
-    `attention_plain` from the saved q, k, v and differentiates it (f32, and
-    the earlier design of bf16).  `fwd` and `bwd` are parameters so that a
-    CPU test can run the wiring with the plain versions standing in for the
-    kernels, and chip_smoke.py can time the earlier design."""
+    `attention_plain` from the saved q, k, v and differentiates it (f32).
+    `fwd` and `bwd` are parameters so that a CPU test can run the wiring
+    with the plain versions standing in for the kernels."""
 
     @staticmethod
     def forward(ctx, fwd, q, k, v, bwd=None):

@@ -37,10 +37,6 @@ since every sum stays below 2^53); on a CUDA tensor it launches its kernel
 or raises on a dtype, layout, alignment or shape the kernel does not take.
 `LAUNCHES` counts kernel launches per wrapper; `quantize_bound` /
 `int8_conv_bound` give the least time one H100 could take for a call.
-The first design of both kernels (`csrc/int8_conv_mma.cu`) is reachable
-through `earlier_quantize_act` / `earlier_int8_conv3d`, which chip_smoke.py
-times beside the kernels; no path of the port calls them and they count
-no launches.
 """
 from __future__ import annotations
 
@@ -57,13 +53,11 @@ import torch.nn.functional as F
 from . import build
 
 SOURCE = "int8_conv.cu"
-EARLIER_SOURCE = "int8_conv_mma.cu"   # the first design, on no path
 LAUNCHES: Dict[str, int] = {"quantize_act": 0, "int8_conv3d": 0,
                             "quantize_amax": 0, "quantize_with_amax": 0,
                             "int8_conv3d_acc": 0}
 CHANNEL_ALIGN = 32          # Q1 pads the channels to a multiple of 32
 EPS = 1e-8                  # JAX's quantize_symmetric eps
-EARLIER_AMAX_BLOCKS = 1024  # most partial maxima of the earlier Q1
 # Q2's tiles: 128 output positions (a box of the output) x 224 output
 # channels (8 for a convolution of at most 8), depth in chunks of 64 or 128
 # channels, one tap at a time
@@ -343,27 +337,6 @@ def _entry(name: str):
         return fn
 
 
-def _earlier_entry(name: str):
-    with _lock:
-        fn = _entries.get(name)
-        if fn is None:
-            lib = build.load(EARLIER_SOURCE)
-            _entries["earlier_quantize_act"] = _bind(
-                lib, "echoscene_quantize_act_mma",
-                [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                 ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
-                 ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
-                 ctypes.c_void_p, ctypes.c_void_p])
-            _entries["earlier_int8_conv3d"] = _bind(
-                lib, "echoscene_int8_conv3d_mma",
-                [ctypes.c_void_p] * 6 + [ctypes.c_int] * 18
-                + [ctypes.c_longlong] * 5 + [ctypes.c_void_p])
-            _entries["earlier_amax_threads"] = (
-                lib.echoscene_quantize_amax_threads_mma)
-            fn = _entries[name]
-        return fn
-
-
 def _count(name: str) -> None:
     with _lock:
         LAUNCHES[name] += 1
@@ -452,26 +425,6 @@ def quantize_with_amax(x: torch.Tensor, amax: torch.Tensor, eps: float = EPS
             scale.data_ptr(), stream)
     _raise_on_error("quantize_with_amax", err)
     _count("quantize_with_amax")
-    return q, scale
-
-
-def earlier_quantize_act(x: torch.Tensor, eps: float = EPS
-                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Q1 by the earlier design (`csrc/int8_conv_mma.cu`), CUDA only; the
-    same outputs as `quantize_act`.  Timed beside it by chip_smoke.py; no
-    path of the port calls it and it counts no launches."""
-    _check_act(x)
-    n, c, s, q, scale = _act_outputs(x)
-    per_block = 16 * _earlier_entry("earlier_amax_threads")()
-    nparts = max(1, min(EARLIER_AMAX_BLOCKS, -(-x.numel() // per_block)))
-    partial = torch.empty(nparts, dtype=torch.float32, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
-        err = _earlier_entry("earlier_quantize_act")(
-            x.data_ptr(), int(x.dtype == torch.bfloat16), n, c, s,
-            q.shape[-1], partial.data_ptr(), nparts, eps, q.data_ptr(),
-            scale.data_ptr(), stream)
-    _raise_on_error("earlier_quantize_act", err)
     return q, scale
 
 
@@ -574,35 +527,6 @@ def int8_conv3d_acc(xq: torch.Tensor, wq: torch.Tensor,
             stream)
     _raise_on_error("int8_conv3d_acc", err)
     _count("int8_conv3d_acc")
-    return out
-
-
-def earlier_int8_conv3d(xq: torch.Tensor, wq: torch.Tensor,
-                        x_scale: torch.Tensor, w_scale: torch.Tensor,
-                        bias: Optional[torch.Tensor],
-                        stride: Sequence[int] = (1, 1, 1),
-                        pads: Sequence[Tuple[int, int]] = ((1, 1),) * 3
-                        ) -> torch.Tensor:
-    """Q2 by the earlier design (`csrc/int8_conv_mma.cu`: mma.sync, 128 x
-    64 tiles), CUDA only; the same output as `int8_conv3d` into a fresh
-    tensor.  Timed beside it by chip_smoke.py; no path of the port calls it
-    and it counts no launches."""
-    n, d, h, w, cp = xq.shape
-    k = wq.shape[0]
-    osize = output_size((d, h, w), wq.shape[1:4], stride, pads)
-    out = torch.empty((n, k) + osize, dtype=torch.bfloat16, device=xq.device)
-    _check_conv(xq, wq, x_scale, w_scale, bias, out)
-    if any(t not in (1, 2, 3) for t in wq.shape[1:4]):
-        raise ValueError(f"kernel taps {tuple(wq.shape[1:4])}: 1-3 an axis")
-    (pd, _), (ph, _), (pw, _) = pads
-    stream = torch.cuda.current_stream(xq.device).cuda_stream
-    with torch.cuda.device(xq.device):
-        err = _earlier_entry("earlier_int8_conv3d")(
-            xq.data_ptr(), wq.data_ptr(), x_scale.data_ptr(),
-            w_scale.data_ptr(), None if bias is None else bias.data_ptr(),
-            out.data_ptr(), n, d, h, w, cp, k, *wq.shape[1:4], *stride, pd,
-            ph, pw, *osize, *out.stride(), stream)
-    _raise_on_error("earlier_int8_conv3d", err)
     return out
 
 

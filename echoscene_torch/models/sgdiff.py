@@ -73,15 +73,14 @@ def set_precision() -> None:
 
 
 def inference_twin(module: torch.nn.Module, dtype: torch.dtype,
-                   factored: bool = True, int8: bool = False,
+                   int8: bool = False,
                    winograd: bool = False) -> torch.nn.Module:
     """A copy of `module` with its parameters (not buffers) cast to dtype:
     JAX's bf16 sampling twin (echoscene_tpu/models/sgdiff.py:143-157).  As
-    there, with `factored` its shape denoiser's and VQ-VAE's 3D upsamples
+    there, its shape denoiser's and VQ-VAE's 3D upsamples
     (`nn.blocks.Upsample`, `nn.vqvae.Upsample3D`) run the exact factored
     form, whose conv bias stays f32 (JAX's FactoredUpsampleConv adds the
-    f32 parameter); without it, interpolate + conv, every parameter in
-    dtype.
+    f32 parameter); every other parameter is in dtype.
 
     `int8` is the W8A8 twin (`sample_dtype: int8`): the shape denoiser's
     torso convolutions (conv_in, each ResBlock's two 3x3x3 convolutions and
@@ -107,13 +106,13 @@ def inference_twin(module: torch.nn.Module, dtype: torch.dtype,
     for name in ("shape_denoiser", "vqvae"):
         for m in getattr(twin, name, torch.nn.Module()).modules():
             if isinstance(m, (Upsample, Upsample3D)):
-                m.factored = factored
+                m.factored = True
                 if isinstance(m, Upsample) and winograd:
                     m.winograd = m.dims == 3
     cfg = getattr(twin, "cfg", None)
     if cfg is not None:
-        cfg.shape_branch.denoiser.factored_upsample = factored
-        cfg.shape_branch.vqvae.factored_upsample = factored
+        cfg.shape_branch.denoiser.factored_upsample = True
+        cfg.shape_branch.vqvae.factored_upsample = True
         cfg.shape_branch.denoiser.winograd |= winograd
     keep = set()
     if sd is not None and int8:

@@ -245,13 +245,13 @@ def test_cpu_backward_is_plain_and_counts_nothing():
     assert port_fa.LAUNCHES == {"onepass_attention": 0, "stream_attention": 0}
 
 
-def test_cpu_earlier_backward_is_plain_and_counts_nothing():
-    """The earlier design's wrapper takes the plain version on CPU tensors
-    and counts no launch, as `attention_backward` does."""
+def test_cpu_stream_backward_is_plain_and_counts_nothing():
+    """K2's entry takes the plain version on CPU tensors too, at a head
+    dim of 56 with S < L, and counts no launch under either entry."""
     q, k, v, g = _torch(_inputs((1, 80, 3, 56), 48), torch.bfloat16)
     o, lse = port_fa.attention_plain_lse(q, k, v)
     port_fa.reset_launches()
-    got = port_fa.earlier_attention_backward(q, k, v, o, lse, g)
+    got = port_fa.attention_backward("stream_attention", q, k, v, o, lse, g)
     for x, y in zip(got, port_fa.attention_backward_plain(q, k, v, o, lse,
                                                           g)):
         assert torch.equal(x, y)

@@ -274,31 +274,6 @@ def test_cuda_kernel_gradients_match_plain_autograd(entry, shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(2, 333, 8, 56), (1, 200, 2, 128),
-                                   (3, 301, 2, 256)])
-def test_cuda_earlier_backward_design_gives_the_kernels_bits(shape):
-    """`earlier_attention_backward` (csrc/flash_attention_bwd_fa2.cu, the
-    kernel's earlier design: the same arithmetic in other launches) gives
-    the backward kernel's dq, dk, dv bit for bit and counts no launch; a
-    raise on f16 as the kernel's."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    gen = torch.Generator(device="cuda").manual_seed(5)
-    q, k, v, g = (torch.randn(shape, generator=gen, device="cuda").to(
-        torch.bfloat16) for _ in range(4))
-    o, lse = port_fa._launch("onepass_attention", q, k, v, lse=True)
-    want = port_fa.attention_backward("onepass_attention", q, k, v, o, lse,
-                                      g)
-    port_fa.reset_launches()
-    got = port_fa.earlier_attention_backward(q, k, v, o, lse, g)
-    assert all(torch.equal(a, b) for a, b in zip(got, want))
-    assert port_fa.BACKWARD_LAUNCHES == {}
-    with pytest.raises(TypeError):
-        port_fa.earlier_attention_backward(
-            *(x.half() for x in (q, k, v, o)), lse, g.half())
-
-
-@pytest.mark.cuda
 def test_cuda_dispatcher_routes_long_self_attention_to_kernels():
     """Self-attention at >= 512 tokens launches a kernel, the bf16 one for
     bf16 and the f32 one for f32, and raises on f16 (no kernel takes it);
@@ -507,33 +482,6 @@ def test_cuda_f32_kernel_matches_its_emulation(shape):
     emulated = port_av.attention_tf32x3_emulated(q, k, v, block_n=block_n)
     torch.cuda.synchronize()
     assert max(port_fa.error_ratios(out, emulated)) <= 1.0
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(42, 1024, 8, 56), (2, 77, 3, 200)])
-def test_cuda_earlier_f32_kernel_still_matches_plain(shape):
-    """The earlier f32 design (`csrc/flash_attention_f32.cu`, FMAs on the
-    CUDA cores), which chip_smoke.py times beside the 3xTF32 kernel, still
-    builds and meets the f32 limits."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    import ctypes
-    from echoscene_torch.kernels import build
-
-    fn = build.load("flash_attention_f32.cu").echoscene_onepass_attention_f32
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
-        ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    gen = torch.Generator(device="cuda").manual_seed(7)
-    q, k, v = (torch.randn(shape, generator=gen, device="cuda")
-               for _ in range(3))
-    b, l, h, d = shape
-    out = torch.empty_like(q)
-    assert fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h,
-              l, l, d, d ** -0.5, torch.cuda.current_stream().cuda_stream) == 0
-    torch.cuda.synchronize()
-    assert max(port_fa.error_ratios(out, port_fa.attention_plain(q, k, v))
-               ) <= 1.0
 
 
 @pytest.mark.cuda

@@ -30,7 +30,7 @@ perturbed where a zero head would make a comparison vacuous.
   version bit-equal to JAX's at the torso's 14 input shapes;
 * on a card (`cuda` marker): Q1 bit-equal and Q2 within 1 bf16 ulp of
   their plain versions (the factored upsample's parities into strided
-  views too), the earlier design of both likewise.
+  views too).
 """
 import functools
 import math
@@ -888,35 +888,6 @@ def test_cuda_q2_parity_into_strided_view(card, level, parity):
     rest = full.clone()
     rest[:, :, :, rh::2, rw::2] = 7.0
     assert bool((rest == 7.0).all())
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("case", [
-    ((2, 16, 8, 8, 224), 224, (3, 3, 3), (1, 1, 1), ((1, 1),) * 3, True),
-    ((3, 5, 7, 9, 37), 19, (3, 3, 3), (1, 2, 2), ((1, 1),) * 3, True)])
-def test_cuda_earlier_design_still_matches_plain(card, case):
-    """The earlier design of Q1 / Q2 (`csrc/int8_conv_mma.cu`), which
-    chip_smoke.py times beside the kernels, still builds and matches the
-    plain versions: Q1 bit-equal, Q2 within 1 ulp; it counts no launch."""
-    from echoscene_torch.kernels import int8_conv as q
-    from echoscene_torch.nn.quant import quantize_weight
-
-    shape, k, taps, stride, pads, has_bias = case
-    gen = torch.Generator(device=card).manual_seed(3)
-    x = torch.randn((shape[0], shape[-1]) + shape[1:4], generator=gen,
-                    device=card).to(torch.bfloat16)
-    q.reset_launches()
-    xq, xs = q.earlier_quantize_act(x)
-    want_q, want_s = q.quantize_plain(x)
-    wq, ws = quantize_weight(torch.randn((k, shape[-1]) + taps,
-                                         generator=gen, device=card))
-    bias = torch.randn(k, generator=gen, device=card) if has_bias else None
-    got = q.earlier_int8_conv3d(xq, wq, xs, ws, bias, stride, pads)
-    want = q.int8_conv3d_plain(xq, wq, xs, ws, bias, stride, pads)
-    torch.cuda.synchronize()
-    assert torch.equal(xq, want_q) and torch.equal(xs, want_s)
-    assert int(bf16_ulps(got, want).max()) <= 1
-    assert not any(q.LAUNCHES.values()), q.LAUNCHES
 
 
 @pytest.mark.cuda
